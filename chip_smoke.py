@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
-scorer (BASELINE config #3) and the MLP scorer on one NVIDIA H100 through
-``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
+scorer (BASELINE config #3) and the MLP scorer, and train the
+GraphTransformer in gather mode and serve the result, on one NVIDIA H100
+through ``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -14,10 +15,17 @@ Phases (any failure exits nonzero, before the final line):
    parallel);
 3. each kernel against its plain PyTorch version at the config #3 shapes
    (``table_gather`` bit-equal, ``graph_flash_attention`` within the
-   stated tolerances), timed with CUDA events beside the plain version,
-   one PyTorch library call and the byte/operation bound; the flash
-   kernel on every row layout it takes, with ragged and all-padding rows;
-   and the whole model on a small graph, card against CPU, in f32;
+   stated tolerances, ``table_scatter_add`` on the trainer's inverse index
+   and on its own derived transpose, bit-identical across launches — run
+   after phase 6, when the trainer's index exists),
+   timed with CUDA events beside the plain version, one PyTorch library
+   call and the byte/operation bound; the flash kernel on every row
+   layout it takes, with ragged and all-padding rows; the scatter-add on
+   random indices with many duplicates and rows that receive nothing;
+   and the whole model on a small graph, card against CPU, in f32:
+   embeddings in both kernel-carrying modes, and every parameter's
+   gradient of the training loss in gather mode, while the flash kernel
+   must refuse to run under autograd;
 4. the main path: config #3 (20k hosts, 500k probes, hidden 128, embed
    64, 2 layers, 4 heads, neighbor cap 64, chunk 1024, bf16 compute) with
    seeded random weights, written as a port artifact and loaded through
@@ -26,7 +34,17 @@ Phases (any failure exits nonzero, before the final line):
    ModelInfer requests and refuses invalid ones with the right codes.
    Every kernel's launch count is set to 0 just before and read just
    after; each must have launched;
-5. embedding-pass times and peak device memory.
+5. train: config #3 trained in gather mode (``GATTrainer.fit``, the body
+   of ``train_gat``; 2 epochs, 60 s cap) with the launch counts set to 0
+   just before and read just after — the gather and scatter-add kernels
+   must both have launched, the loss must be finite and fall — then the
+   steady step time (CUDA events), samples/s, F1, accuracy, peak memory,
+   and a profile of 3 steps (device time by kernel, the device's busy
+   share);
+6. train_to_serve: the trained result as a port artifact, loaded through
+   ``_gat_scorer_from_artifact`` and answering ModelInfer requests that
+   must equal the trained model's own scores;
+7. embedding-pass times and peak device memory.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -45,6 +63,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12                      # outside the tensor cores
 
 SEED = 0
 N_HOSTS, N_EDGES = 20_000, 500_000          # artifacts/gat_bench.py
@@ -64,6 +83,19 @@ MODE_TOL = 6e-2
 SMALL_F32_TOL = 1e-4
 # MLP bf16 on the card against the same weights in f32 on the CPU.
 MLP_TOL = 6e-2
+# Scatter-add kernel against its plain version: both sum each row's terms
+# in f32 in ascending position order and round once, so they should agree
+# bit for bit; the tolerance allows one bf16 ulp (2^-8) of the largest
+# entry, for a summation order that differs.
+SCATTER_ULP = 2.0 ** -8
+# Gradients of the training loss, card against CPU, f32: each leaf's max
+# |error| over its max |grad|, floored at 1e-3 of the largest leaf's (the
+# key bias's true gradient is 0 and holds rounding noise on both sides).
+GRAD_F32_TOL = 1e-4
+# The train phase: artifacts/gat_bench.py:36-43 with a short run.
+TRAIN_CFG = dict(hidden=128, embed=64, layers=2, heads=4, neighbor_cap=64,
+                 edge_batch_size=8192, eval_fraction=0.02, epochs=2,
+                 max_seconds=60)
 
 
 def log(phase: str, **fields) -> None:
@@ -93,9 +125,10 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -104,6 +137,7 @@ def nbytes(*tensors) -> int:
 
 
 def check_table_gather(torch, table, idx) -> dict:
+    from dragonfly2_tpu_torch.ops import table_gather as _tg
     from dragonfly2_tpu_torch.ops.table_gather import (
         table_gather,
         table_gather_plain,
@@ -115,7 +149,13 @@ def check_table_gather(torch, table, idx) -> dict:
     if not torch.equal(out, ref):
         raise AssertionError("table_gather differs from table[idx]")
     err = float((out.float() - ref.float()).abs().max())
-    ms = cuda_ms(torch, lambda: table_gather(table, idx))
+    # The kernel alone, and through the wrapper, whose index range check
+    # waits for the device once a call.
+    lib, stream = _tg._lib("table_gather"), torch.cuda.current_stream()
+    ms = cuda_ms(torch, lambda: lib.df2_table_gather(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        table.shape[1] * table.element_size(), stream.cuda_stream))
+    wrapper_ms = cuda_ms(torch, lambda: table_gather(table, idx))
     plain_ms = cuda_ms(torch, lambda: table_gather_plain(table, idx))
     library_ms = cuda_ms(torch, lambda: table.index_select(0, idx))
     b_ms, b_by = bound_ms(nbytes(table, idx, out), 0.0)
@@ -124,9 +164,124 @@ def check_table_gather(torch, table, idx) -> dict:
                replaces="dragonfly2_tpu/ops/table_gather.py:66",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=library_ms)
-    log("kernel", **row, shape={"table": list(table.shape),
-                                "idx": list(idx.shape)})
+    log("kernel", **row, wrapper_ms=wrapper_ms,
+        shape={"table": list(table.shape), "idx": list(idx.shape)})
     return row
+
+
+def scatter_err(torch, out, ref) -> tuple[float, float]:
+    """(max |out − ref|, its tolerance) for a scatter-add result against
+    the plain version's (on the CPU)."""
+    err = float((out.cpu().float() - ref.float()).abs().max())
+    return err, SCATTER_ULP * max(float(ref.float().abs().max()), 1.0)
+
+
+def check_table_scatter_add(torch, ct, idx, inv, n_rows) -> dict:
+    """The scatter-add kernel at the trainer's shapes: on the inverse
+    index and on the transpose the wrapper derives from idx, against the
+    plain version on a CPU copy, twice for bit-identity, timed beside the
+    plain version on the card and ``index_add_`` into f32 zeros."""
+    from dragonfly2_tpu_torch.ops import table_gather as _tg
+    from dragonfly2_tpu_torch.ops.table_gather import (
+        inverse_index_csr,
+        table_scatter_add,
+        table_scatter_add_plain,
+    )
+
+    cpu = [t.cpu() for t in (ct, idx, inv)]
+    errs = {}
+    for name, use_inv in (("inv", inv), ("derived", None)):
+        out = table_scatter_add(ct, idx, n_rows, use_inv)
+        again = table_scatter_add(ct, idx, n_rows, use_inv)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"table_scatter_add ({name}) differs "
+                                 "between two launches")
+        ref = table_scatter_add_plain(cpu[0], cpu[1], n_rows,
+                                      None if use_inv is None else cpu[2])
+        errs[name], tol = scatter_err(torch, out, ref)
+        if not errs[name] <= tol:
+            raise AssertionError(f"table_scatter_add ({name}): max abs err "
+                                 f"{errs[name]} > {tol}")
+        errs[f"{name}_bit_equal"] = torch.equal(out.cpu(), ref)
+    del cpu
+
+    d = ct.shape[1]
+    row_bytes = d * ct.element_size()
+    lib, stream = _tg._lib("table_scatter_add"), torch.cuda.current_stream()
+    out = torch.empty((n_rows, d), dtype=ct.dtype, device=ct.device)
+    ms = cuda_ms(torch, lambda: lib.df2_table_scatter_add(
+        1, ct.data_ptr(), inv.data_ptr(), None, inv.shape[1], out.data_ptr(),
+        n_rows, row_bytes, stream.cuda_stream))
+    wrapper_ms = cuda_ms(torch, lambda: table_scatter_add(ct, idx, n_rows,
+                                                          inv))
+    derive_ms = cuda_ms(torch, lambda: inverse_index_csr(idx, n_rows))
+    derived_ms = cuda_ms(torch, lambda: table_scatter_add(ct, idx, n_rows))
+    plain_ms = cuda_ms(torch, lambda: table_scatter_add_plain(
+        ct, idx, n_rows, inv), iters=5, warmup=1)
+    # Library yardstick: one index_add_ (atomics, run-to-run order) into
+    # f32 zeros; the f32 copy of ct and the int64 indices are made before
+    # the clock starts. Timed only; the port never calls it.
+    acc = torch.zeros((n_rows, d), dtype=torch.float32, device=ct.device)
+    ct32, idx64 = ct.float(), idx.long()
+    library_ms = cuda_ms(torch, lambda: acc.zero_().index_add_(0, idx64, ct32))
+    del ct32, idx64, acc
+
+    n_valid = int((inv >= 0).sum())
+    b_ms, b_by = bound_ms(n_valid * row_bytes + nbytes(inv, out),
+                          n_valid * d, PEAK_F32_FLOPS)
+    row = dict(name="table_scatter_add", route="cuda",
+               source="dragonfly2_tpu_torch/ops/csrc/table_scatter_add.cu",
+               replaces="dragonfly2_tpu/ops/table_gather.py:105",
+               max_abs_err=max(errs["inv"], errs["derived"]), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms)
+    log("kernel", **row, errors=errs, wrapper_ms=wrapper_ms,
+        derive_ms=derive_ms, derived_wrapper_ms=derived_ms,
+        valid_rows=n_valid, shape={"ct": list(ct.shape),
+                                   "inv": list(inv.shape)})
+    return row
+
+
+def check_scatter_cases(torch) -> None:
+    """The scatter-add kernel on random neighbor lists with many duplicate
+    targets, padding and rows that receive nothing, on both transposes,
+    in bf16 and f32 and at row widths of one, a half and three vectors a
+    lane, against the plain version on the CPU."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.models.graph_transformer import (
+        PAD_ID,
+        build_inverse_index,
+    )
+    from dragonfly2_tpu_torch.ops.table_gather import (
+        table_scatter_add,
+        table_scatter_add_plain,
+    )
+
+    rng = np.random.default_rng(SEED)
+    n, kw = 1000, 48
+    nbr = rng.integers(0, 300, (n, kw)).astype(np.int32)  # rows ≥ 300 get 0
+    nbr[rng.random((n, kw)) < 0.4] = PAD_ID
+    nbr[11] = PAD_ID                                       # lists nobody
+    inv = torch.from_numpy(build_inverse_index(nbr))
+    idx = torch.from_numpy(np.where(nbr >= n, 0, nbr).reshape(-1))
+    errs = {}
+    for dtype, width in ((torch.bfloat16, 256), (torch.float32, 64),
+                         (torch.float32, 384)):
+        ct = torch.from_numpy(rng.standard_normal(
+            (n * kw, width)).astype(np.float32)).to(dtype)
+        for name, use_inv in (("inv", inv), ("derived", None)):
+            ref = table_scatter_add_plain(ct, idx, n, use_inv)
+            out = table_scatter_add(
+                ct.cuda(), idx.cuda(),
+                n, None if use_inv is None else use_inv.cuda())
+            key = f"{str(dtype)[6:]}x{width}_{name}"
+            errs[key], tol = scatter_err(torch, out, ref)
+            if not errs[key] <= tol or out[300:].abs().max() != 0:
+                raise AssertionError(f"table_scatter_add {key}: max abs err "
+                                     f"{errs[key]} or a nonzero empty row")
+    log("scatter_cases", max_abs_err=errs, tol_ulp=SCATTER_ULP)
 
 
 def check_graph_flash(torch, q, k, v, nbr, val, block) -> dict:
@@ -219,10 +374,14 @@ def check_flash_shapes(torch) -> None:
 
 def check_small_model(torch) -> None:
     """The whole model on a small graph: card kernels against the CPU
-    plain path, f32 compute, both kernel-carrying modes."""
+    plain path, f32 compute, both kernel-carrying modes; then gradients."""
+    import numpy as np
+    import torch.nn.functional as F
+
     from dragonfly2_tpu_torch.data import SyntheticCluster
     from dragonfly2_tpu_torch.models.graph_transformer import (
         GraphTransformer,
+        build_inverse_index,
         build_neighbor_lists,
         pad_graph_sparse,
     )
@@ -245,7 +404,53 @@ def check_small_model(torch) -> None:
         if not errs[mode] <= SMALL_F32_TOL:
             raise AssertionError(f"small model {mode}: card vs CPU max abs "
                                  f"err {errs[mode]} > {SMALL_F32_TOL}")
-    log("small_model", max_abs_err=errs, tol=SMALL_F32_TOL)
+        if mode == "blocks":
+            try:
+                model.node_embeddings(*(t.cuda() for t in inputs))
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError("graph_flash_attention ran under "
+                                     "autograd on the card")
+
+    # Gradients of the training loss in gather mode: the card (gather and
+    # scatter-add kernels) against the CPU (their plain versions), with
+    # the trainer's inverse index and with the transpose derived on the
+    # card.
+    rng = np.random.default_rng(SEED)
+    src, dst = (torch.from_numpy(rng.integers(0, g.n_nodes, 256).astype(
+        np.int32)) for _ in range(2))
+    y = torch.from_numpy((rng.random(256) < 0.5).astype(np.float32))
+    inv = torch.from_numpy(build_inverse_index(nbr))
+    grad_errs = {}
+    for name, use_inv in (("inv", inv), ("derived", None)):
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            model = GraphTransformer(
+                hidden=32, embed=16, layers=2, heads=4, chunk=16,
+                dtype=torch.float32,
+                generator=torch.Generator().manual_seed(1)).to(dev)
+            args = [t.to(dev) for t in (*inputs, src, dst)]
+            logits = model(*args, inv=None if use_inv is None
+                           else use_inv.to(dev))
+            F.binary_cross_entropy_with_logits(logits, y.to(dev)).backward()
+            grads[dev] = {k: None if p.grad is None else p.grad.cpu()
+                          for k, p in model.named_parameters()}
+        missing = [k for k, v in grads["cuda"].items() if v is None]
+        if missing:
+            raise AssertionError(f"no gradient on the card for {missing}")
+        floor = 1e-3 * max(float(v.abs().max())
+                           for v in grads["cpu"].values())
+        grad_errs[name] = max(
+            float((grads["cuda"][k] - ref).abs().max())
+            / max(float(ref.abs().max()), floor)
+            for k, ref in grads["cpu"].items())
+        if not grad_errs[name] <= GRAD_F32_TOL:
+            raise AssertionError(f"gradients ({name}) card vs CPU: "
+                                 f"{grad_errs[name]} > {GRAD_F32_TOL}")
+    log("small_model", max_abs_err=errs, tol=SMALL_F32_TOL,
+        grad_rel_err=grad_errs, grad_tol=GRAD_F32_TOL,
+        flash_refuses_grad=True)
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -310,15 +515,24 @@ def main() -> int:
     )
     from dragonfly2_tpu_torch.ops import _build
     from dragonfly2_tpu_torch.ops.flash_attention import graph_flash_attention
-    from dragonfly2_tpu_torch.ops.table_gather import table_gather
+    from dragonfly2_tpu_torch.ops.table_gather import (
+        table_gather,
+        table_scatter_add,
+    )
     from dragonfly2_tpu_torch.train.checkpoint import (
         ModelMetadata,
         flax_from_gat_state_dict,
         flax_from_mlp_state_dict,
+        gat_artifact_from_result,
         gat_tree,
         mlp_tree,
         write_artifact,
     )
+    from dragonfly2_tpu_torch.train.gat_trainer import (
+        GATTrainConfig,
+        GATTrainer,
+    )
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -374,6 +588,7 @@ def main() -> int:
         _flash_block(n_blocks, GAT_CFG["chunk"])))
     del kv_table, gather_idx, q, k, v
     check_flash_shapes(torch)
+    check_scatter_cases(torch)
     check_small_model(torch)
 
     # -- phase 4: the main path ----------------------------------------------
@@ -398,8 +613,9 @@ def main() -> int:
         ModelMetadata(model_id="smoke-mlp", model_type="mlp",
                       config={"hidden": [128, 128, 64]}))
 
-    table_gather.launches = 0
-    graph_flash_attention.launches = 0
+    kernels = (table_gather, table_scatter_add, graph_flash_attention)
+    for fn in kernels:
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     scorers, load_s = {}, {}
     for mode in ("gather", "blocks"):
@@ -421,16 +637,13 @@ def main() -> int:
     mlp_out = [service.ModelInfer(
         ModelInferRequest("mlp", features[i * 15:(i + 1) * 15]), ctx).outputs
         for i in range(5)]
-    launches = {"table_gather": table_gather.launches,
-                "graph_flash_attention": graph_flash_attention.launches}
+    launches = {fn.__name__: fn.launches for fn in kernels}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log("main_path", launches=launches, load_seconds=load_s,
         peak_memory_gib=peak_gib)
-    for name, count in launches.items():
-        if count < 1:
+    for name in ("table_gather", "graph_flash_attention"):
+        if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
 
     # What came out: shapes, finiteness, gather ≡ blocks, MLP ≡ f32 CPU.
     emb = {m: s.embeddings.float() for m, s in scorers.items()}
@@ -483,7 +696,124 @@ def main() -> int:
     }
     log("requests", p50_ms=request_p50, rows={"gat": 16, "mlp": 15})
 
-    # -- phase 5: embedding-pass times (launches here are not counted) -------
+    # -- phase 5: train, the slice's main path --------------------------------
+    cfg = GATTrainConfig(**TRAIN_CFG)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = GATTrainer(graph, cfg)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {fn.__name__: fn.launches for fn in kernels}
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(result.step_losses)
+    eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    # One gather per layer in every forward (train steps and eval chunks),
+    # one scatter-add per layer in every backward.
+    expected = {"table_gather": cfg.layers * (steps + eval_chunks),
+                "table_scatter_add": cfg.layers * steps}
+    for name, count in expected.items():
+        if train_launches[name] < 1 or train_launches[name] != count:
+            raise AssertionError(f"{name}: {train_launches[name]} launches "
+                                 f"on the train path, expected {count}")
+    losses = np.asarray(result.step_losses)
+    if len(losses) < 21 or not np.isfinite(losses).all():
+        raise AssertionError(f"{len(losses)} steps, finite: "
+                             f"{bool(np.isfinite(losses).all())}")
+    early, late = float(losses[1:11].mean()), float(losses[-10:].mean())
+    if not late < early:
+        raise AssertionError(f"loss did not fall: steps 2-11 mean {early}, "
+                             f"last 10 mean {late}")
+    # Steady step time: 10 steps after 3 warm ones, CUDA events.
+    order = np.random.default_rng(SEED + 1).permutation(trainer.train_ids)
+    batches = order[:13 * trainer.batch].reshape(13, trainer.batch)
+    for ids in batches[:3]:
+        trainer.step(ids)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for ids in batches[3:]:
+        trainer.step(ids)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+    # Where a step's device time goes: kernels by name over 3 steps.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ids in batches[:3]:
+            trainer.step(ids)
+        torch.cuda.synchronize()
+    # Kernels only: a CPU op's entry, and a user annotation's range on the
+    # device (the optimizer's step), repeat the time of the kernels inside.
+    kernel_ms = sorted(((e.key, e.self_device_time_total / 3e3)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)
+                        and e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    device_ms = sum(ms for _, ms in kernel_ms)
+    log("train_profile", device_ms_per_step=device_ms,
+        busy_share=device_ms / step_ms, top_kernels_ms=kernel_ms[:15])
+    log("train", seconds=train_s, steps=steps, launches=train_launches,
+        expected_launches=expected, loss_first=float(losses[0]),
+        loss_steps_2_11=early, loss_last_10=late, history=result.history,
+        step_ms=step_ms, samples_per_sec=result.samples_per_sec,
+        f1=result.f1, accuracy=result.accuracy, precision=result.precision,
+        recall=result.recall, peak_memory_gib=train_peak_gib,
+        inverse_index=list(trainer.g_inv.shape),
+        train_edges=len(trainer.train_ids), eval_edges=len(trainer.eval_ids),
+        batch=trainer.batch)
+
+    # -- phase 6: the trained model served ------------------------------------
+    t0 = time.perf_counter()
+    trained = _gat_scorer_from_artifact(
+        gat_artifact_from_result(result, graph, "smoke-gat-trained"))
+    torch.cuda.synchronize()
+    trained_load_s = time.perf_counter() - t0
+    service.install_scorer("gat", trained, version="trained")
+    served = [service.ModelInfer(ModelInferRequest("gat", p), ctx).outputs
+              for p in pairs]
+    own = result.model.to(dev).eval()
+    with torch.no_grad():
+        own_emb = own.node_embeddings(*(torch.from_numpy(a).to(dev) for a in (
+            result.node_features, result.neighbors, result.neighbor_vals)))
+        own_scores = [own.score_pairs(
+            own_emb, *torch.from_numpy(p.astype(np.int32)).to(dev).T
+        ).float().cpu().numpy() for p in pairs]
+    if not all(np.isfinite(o).all() and o.shape == (16,) for o in served):
+        raise AssertionError("trained model: bad response shapes or values")
+    served_err = max(float(np.abs(a - b).max())
+                     for a, b in zip(served, own_scores))
+    if served_err > MODE_TOL:
+        raise AssertionError(f"trained model served vs its own scores: "
+                             f"{served_err} > {MODE_TOL}")
+    log("train_to_serve", load_seconds=trained_load_s,
+        max_abs_diff=served_err, tol=MODE_TOL, requests=len(served))
+    del own, own_emb
+
+    # -- the scatter-add kernel on the trainer's own inverse index ------------
+    ct = torch.randn(trainer.nbr.size, 2 * heads * head_dim, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    t_idx = torch.from_numpy(np.where(trainer.nbr >= trainer.nbr.shape[0], 0,
+                                      trainer.nbr).reshape(-1)).to(dev)
+    rows.append(check_table_scatter_add(torch, ct, t_idx, trainer.g_inv,
+                                        trainer.nbr.shape[0]))
+    del ct, t_idx, trainer
+    for row in rows:
+        by_path = {"serve": launches[row["name"]],
+                   "train": train_launches[row["name"]]}
+        # Each kernel counts on the path of the slice that ported it.
+        row["launches"] = by_path["train" if row["name"] ==
+                                  "table_scatter_add" else "serve"]
+        row["launches_by_path"] = by_path
+
+    # -- phase 7: embedding-pass times (launches here are not counted) -------
     pass_ms = {}
     for mode, (feats, m_nbr, m_val, _) in (("gather", gather_graph),
                                            ("blocks", blocks_graph)):

@@ -26,3 +26,8 @@ class Graph:
     @property
     def n_edges(self) -> int:
         return len(self.edge_src)
+
+    def edge_labels(self, rtt_threshold_ns: int = 5_000_000) -> np.ndarray:
+        """Binary edge quality: 1 = RTT under threshold (a good parent
+        path), the GraphTransformer's classification target."""
+        return (self.edge_rtt_ns < rtt_threshold_ns).astype(np.int32)

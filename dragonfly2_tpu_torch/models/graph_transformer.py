@@ -10,9 +10,11 @@ by :func:`build_neighbor_lists` (bit-identical to the JAX package's).
 Attention modes, all computing the same function:
 
 - ``"gather"``: each row attends to its ≤K gathered neighbor rows; the
-  ``[k|v]`` gather goes through the ``table_gather`` kernel on the card.
+  ``[k|v]`` gather is ``neighbor_gather``, the ``table_gather`` kernel on
+  the card with the ``table_scatter_add`` kernel as its backward.
 - ``"blocks"`` and ``"flash"``: the ``graph_flash_attention`` kernel on
-  the card (the plain key-block online softmax on the CPU).
+  the card (the plain key-block online softmax on the CPU). The kernel is
+  forward only, so these modes train on the CPU alone.
 - ``"ring"`` needs several devices and is not ported yet (ROADMAP.md
   Queue 1, parallel set).
 
@@ -20,8 +22,10 @@ Parameters keep flax's names (``Dense_i``, ``LayerNorm_i``,
 ``input_proj``...) so a flax tree maps onto the state dict key for key
 (``train/checkpoint.py``); computation follows flax: f32 params cast to
 the compute dtype (bf16 by default), LayerNorm statistics in f32 with
-eps 1e-6, tanh GELU, an f32 output head. Inference only: the training
-backward (inverse index, scatter-free VJP) is not part of this port.
+eps 1e-6, tanh GELU, an f32 output head. Training in gather mode passes
+``inv`` = :func:`build_inverse_index` of the neighbor lists down to the
+gather, whose backward then sums each table row's cotangent over the
+positions ``inv`` lists (``train/gat_trainer.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dragonfly2_tpu_torch.ops.flash_attention import graph_flash_attention
-from dragonfly2_tpu_torch.ops.table_gather import table_gather
+from dragonfly2_tpu_torch.ops.table_gather import neighbor_gather
 
 NEG_INF = -1e9
 # Neighbor-list pad sentinel: never inside [0, N) for any padded N, so a
@@ -148,18 +152,40 @@ def _flash_block(n: int, chunk: int) -> int:
     return min(chunk, ((n + 127) // 128) * 128)
 
 
-def gather_graph_attention(q, k, v, nbr, val):
+def build_inverse_index(nbr: np.ndarray) -> np.ndarray:
+    """Host-side transpose of the neighbor lists: ``inv[j]`` lists the
+    flat positions ``i*K + s`` with ``nbr[i, s] == j``, ascending, padded
+    with -1 to the max in-degree (int64 [N, D_max]); pad slots are left
+    out. Bit-identical to the JAX package's. The gather's backward sums
+    each table row's cotangent over these positions."""
+    n, k_width = nbr.shape
+    rows, slots = np.nonzero(nbr != PAD_ID)
+    cols = nbr[rows, slots]
+    flat = (rows * k_width + slots).astype(np.int64)
+    order = np.argsort(cols, kind="stable")
+    cols, flat = cols[order], flat[order]
+    start = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
+    counts = np.diff(np.r_[start, len(cols)])
+    d_max = max(int(counts.max()) if len(counts) else 1, 1)
+    rank = np.arange(len(cols)) - np.repeat(start, counts)
+    inv = np.full((n, d_max), -1, dtype=np.int64)
+    inv[cols, rank] = flat
+    return inv
+
+
+def gather_graph_attention(q, k, v, nbr, val, inv=None):
     """Neighbor-gather attention: each row attends to exactly its ≤K
-    listed neighbors. q/k/v [N, heads, d]; nbr/val [N, K]. One gather of
-    the concatenated [k|v] table (``table_gather``); PAD slots gather row
-    0 and are masked out of the softmax."""
+    listed neighbors. q/k/v [N, heads, d]; nbr/val [N, K]; ``inv``
+    optional, see :func:`build_inverse_index`. One differentiable gather
+    of the concatenated [k|v] table (``neighbor_gather``); PAD slots
+    gather row 0 and are masked out of the softmax, so they carry zero
+    cotangent and ``inv`` may leave them out."""
     n, heads, head_dim = q.shape
     scale = 1.0 / math.sqrt(head_dim)
     pad = nbr >= n                     # PAD_ID (and nothing else) is ≥ N
     idx = torch.where(pad, 0, nbr).to(torch.int32)
     kv = torch.cat([k, v], dim=-1).reshape(n, 2 * heads * head_dim)
-    kvg = table_gather(kv, idx.reshape(-1)).reshape(
-        n, -1, heads, 2 * head_dim)
+    kvg = neighbor_gather(kv, idx, inv).reshape(n, -1, heads, 2 * head_dim)
     kg, vg = kvg[..., :head_dim], kvg[..., head_dim:]
     s = torch.einsum("nhd,nkhd->nhk", q, kg).float() * scale
     s = s + val[:, None, :]
@@ -237,7 +263,7 @@ class GraphAttentionBlock(nn.Module):
         self.Dense_4 = Dense(hidden, 2 * hidden, dtype, generator)
         self.Dense_5 = Dense(2 * hidden, hidden, dtype, generator)
 
-    def forward(self, h, nbr, val):
+    def forward(self, h, nbr, val, inv=None):
         head_dim = self.hidden // self.heads
         x = self.LayerNorm_0(h)
 
@@ -247,7 +273,7 @@ class GraphAttentionBlock(nn.Module):
         q, k, v = (split(dense(x)) for dense in
                    (self.Dense_0, self.Dense_1, self.Dense_2))
         if self.attention == "gather":
-            out = gather_graph_attention(q, k, v, nbr, val)
+            out = gather_graph_attention(q, k, v, nbr, val, inv)
         else:
             out = graph_flash_attention(
                 q, k, v, nbr, val, block=_flash_block(q.shape[0], self.chunk))
@@ -277,11 +303,12 @@ class GraphTransformer(nn.Module):
         self.head_hidden = Dense(2 * embed, embed, dtype, generator)
         self.head_out = Dense(embed, 1, torch.float32, generator)
 
-    def node_embeddings(self, node_features, nbr, val):
-        """[N, F] → [N, E]; run once at model load for serving."""
+    def node_embeddings(self, node_features, nbr, val, inv=None):
+        """[N, F] → [N, E]; run once at model load for serving. ``inv``
+        (gather-mode training) = :func:`build_inverse_index` of ``nbr``."""
         h = self.input_proj(node_features)
         for block in self.blocks:
-            h = block(h, nbr, val)
+            h = block(h, nbr, val, inv)
         return self.embed_proj(self.final_norm(h))
 
     def score_pairs(self, emb, edge_src, edge_dst):
@@ -291,6 +318,6 @@ class GraphTransformer(nn.Module):
         x = torch.relu(self.head_hidden(pair))
         return self.head_out(x)[..., 0]
 
-    def forward(self, node_features, nbr, val, edge_src, edge_dst):
-        emb = self.node_embeddings(node_features, nbr, val)
+    def forward(self, node_features, nbr, val, edge_src, edge_dst, inv=None):
+        emb = self.node_embeddings(node_features, nbr, val, inv)
         return self.score_pairs(emb, edge_src, edge_dst)

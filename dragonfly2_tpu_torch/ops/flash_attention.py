@@ -4,8 +4,11 @@
 On CUDA tensors :func:`graph_flash_attention` launches the hand-written
 kernel in ``csrc/graph_flash_attention.cu`` (which notes what bounds it
 and how); on CPU tensors it runs :func:`graph_flash_attention_plain`, the
-port of ``sparse_graph_attention``. Forward only: the GraphTransformer's
-blocks/flash modes call it for inference.
+port of ``sparse_graph_attention``. The GraphTransformer's blocks/flash
+modes call it. The kernel is forward only: on the card it refuses to run
+under autograd (blocks/flash-mode training there is a later slice,
+ROADMAP.md Queue 1), while on the CPU the plain version trains through
+PyTorch's autograd.
 
 The plain ``flash_attention`` kernel (Ulysses local attention) is not
 ported yet; see ROADMAP.md Queue 2.
@@ -93,13 +96,20 @@ def graph_flash_attention(q, k, v, nbr, val, block: int = 128):
     q [Nq, h, d], k/v [Nk, h, d] (one floating dtype); nbr [Nq, K] int32,
     val [Nq, K] float32. CPU tensors take the plain version over key
     blocks of ``block`` columns; CUDA tensors launch the kernel (which
-    needs no blocking) or raise. Returns [Nq, h, d] in q's dtype.
+    needs no blocking) or raise, also when autograd would need a gradient
+    through it. Returns [Nq, h, d] in q's dtype.
     """
     tensors = (q, k, v, nbr, val)
     if all(t.device.type == "cpu" for t in tensors):
         return graph_flash_attention_plain(q, k, v, nbr, val, block)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("q, k, v, nbr and val must all be on one CUDA device")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, val)):
+        raise NotImplementedError(
+            "graph_flash_attention has no backward on the card: blocks/"
+            "flash-mode training is a later slice (ROADMAP.md Queue 1); "
+            "train in gather mode")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q/k/v must share bf16 or f32, got "

@@ -1,1 +1,2 @@
-"""Checkpoint artifacts (training itself is not ported yet)."""
+"""GraphTransformer training (gather mode on the card) and model
+artifacts."""

@@ -15,7 +15,8 @@ read. The port's artifact is framework-neutral instead: a tar holding
 ``*_state_dict_from_flax`` map a flax param tree onto the port modules'
 state dicts (kernel ``[in, out]`` → ``weight [out, in]``, LayerNorm
 ``scale`` → ``weight``, ``blocks_i`` → ``blocks.i``); ``flax_from_*``
-invert them.
+invert them. :func:`gat_artifact_from_result` packs a trained
+GraphTransformer (``train/gat_trainer.py``) for the sidecar.
 """
 
 from __future__ import annotations
@@ -144,6 +145,27 @@ def gat_tree(params: dict, node_features: np.ndarray,
         blob = "\n".join(str(i) for i in node_ids).encode()
         tree["node_ids_utf8"] = np.frombuffer(blob, dtype=np.uint8).copy()
     return tree
+
+
+def gat_artifact_from_result(result, graph, model_id: str) -> bytes:
+    """A trained GraphTransformer (``train.gat_trainer.GATTrainResult``)
+    as the model.tar payload the sidecar loads: its flax-layout weights,
+    padded graph and ``graph``'s host ids, with the registry metadata
+    the JAX package's training service writes."""
+    cfg = result.config
+    tree = gat_tree(flax_from_gat_state_dict(result.state_dict),
+                    result.node_features, result.neighbors,
+                    result.neighbor_vals, node_ids=graph.node_ids)
+    metadata = ModelMetadata(
+        model_id=model_id, model_type="gat",
+        evaluation={"precision": result.precision, "recall": result.recall,
+                    "f1": result.f1, "n_samples": int(graph.n_edges)},
+        # chunk is structural for blocks mode: serving rebuilds with the
+        # block size the padded row count was sized for.
+        config={"hidden": cfg.hidden, "embed": cfg.embed,
+                "layers": cfg.layers, "heads": cfg.heads,
+                "attention": cfg.attention, "chunk": cfg.chunk})
+    return write_artifact(tree, metadata)
 
 
 def gat_from_tree(tree: dict) -> tuple:

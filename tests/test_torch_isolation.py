@@ -46,6 +46,10 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.models.graph_transformer",
         "dragonfly2_tpu_torch.models.mlp",
         "dragonfly2_tpu_torch.train.checkpoint",
+        "dragonfly2_tpu_torch.train.gat_trainer",
+        "dragonfly2_tpu_torch.train.metrics",
+        "dragonfly2_tpu_torch.train.split",
+        "dragonfly2_tpu_torch.train.step_budget",
         "dragonfly2_tpu_torch.inference.scorer",
         "dragonfly2_tpu_torch.inference.sidecar",
     }
