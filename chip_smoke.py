@@ -44,7 +44,22 @@ Phases (any failure exits nonzero, before the final line):
 6. train_to_serve: the trained result as a port artifact, loaded through
    ``_gat_scorer_from_artifact`` and answering ModelInfer requests that
    must equal the trained model's own scores;
-7. embedding-pass times and peak device memory.
+7. embedding-pass times and peak device memory;
+8. K3 (``flash_attention``, forward and backward) at the long-context
+   tier, T = 32k causal: [32768, 8, 8] in bf16 (the main path's shape)
+   and f32, [32768, 4, 128] in bf16, against the plain version
+   (``chunked_attention``) run in f32 on the same values, row by row,
+   bit-identical across two launches, timed beside the plain version,
+   SDPA and the bound (bytes, products or exponentials); then every
+   head_dim the kernels take at ragged and tiny T, causal and not, f32
+   and bf16 (``tests/k3_planted_faults.py`` shows that the row check
+   fails kernels with planted faults);
+9. ulysses, the slice's main path: ``ulysses_attention`` on an NCCL
+   group of one rank at [32768, 8, 8] bf16 causal, chunk 2048, forward
+   and backward, with every launch count set to 0 just before and read
+   just after — both K3 counts must be above 0 and the plain scan never
+   called — against the plain version, peak memory below one head's
+   dense [T, T] f32 scores (4.29 GB), fwd and fwd+bwd times.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -64,6 +79,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12                      # outside the tensor cores
+# Exponentials: the special-function units do 16 a clock on each of the
+# 132 SMs at the 1.98 GHz boost clock. Beside them the FP32 pipes (67e12
+# flops = 33.5e12 instructions a second) can compute exp2 as a cubic
+# polynomial, as FlashAttention-4 does: a round, a subtract and three
+# FMAs, 5 FP32 instructions (the exponent's shift and add go to the
+# integer pipe). The card's floor for exps counts both at once.
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+POLY_EXP2_FP32_INSTRUCTIONS = 5
+PEAK_EXP_PER_S = SFU_EXP_PER_S + PEAK_F32_FLOPS / 2 / POLY_EXP2_FP32_INSTRUCTIONS
 
 SEED = 0
 N_HOSTS, N_EDGES = 20_000, 500_000          # artifacts/gat_bench.py
@@ -92,6 +116,32 @@ SCATTER_ULP = 2.0 ** -8
 # |error| over its max |grad|, floored at 1e-3 of the largest leaf's (the
 # key bias's true gradient is 0 and holds rounding noise on both sides).
 GRAD_F32_TOL = 1e-4
+# K3 against the plain version run in f32 on the same values
+# (k3_reference), row by row: for each (position, head) row of out, dq,
+# dk and dv, |got − ref| over |ref|, 2-norms over head_dim, and the worst
+# row. (A limit on max |err| cannot see a fault in late causal rows,
+# where |out| ~ 1/sqrt(row).) A row's |ref| is floored at LOCAL_FLOOR of
+# the rms row norm of its ROW_TILE rows: where a row's few terms cancel,
+# bf16 rounding of each term is large against their sum. And at
+# ROW_FLOOR of the tensor's rms row norm (dq, dk and dv together): at
+# T = 1 the true dq and dk are 0 and both sides hold rounding noise.
+ROW_TILE = 64
+LOCAL_FLOOR = 0.25
+ROW_FLOOR = 1e-3
+# Limits over the worst row this script measured over every K3 case on
+# an H100 (PERF.md): bf16 out 1.4x, gradients 2.5x; f32 out 3.8x,
+# gradients 4.7x. f32: the same algebra in another summation order.
+# bf16: out, dq, dk and dv round once to bf16 (2^-8 of a row at most),
+# and every product takes bf16 inputs (p before P·V, as K3 rounds it; p
+# and ds in the backward). tests/k3_planted_faults.py shows that a key
+# or query tile dropped far from the diagonal fails these limits.
+K3_TOL = {"f32": {"out": 5e-5, "grad": 1e-4},
+          "bf16": {"out": 3e-2, "grad": 6e-2}}
+# The long-context tier (tests/test_ulysses.py:106-131): T = 32k causal,
+# 8 heads of 8, chunk 2048; and the TPU smoke's head width, 4 x 128.
+LONG_T = 32_768
+# The memory class of that tier: below one head's dense [T, T] f32 scores.
+DENSE_SCORES_BYTES = LONG_T * LONG_T * 4
 # The train phase: artifacts/gat_bench.py:36-43 with a short run.
 TRAIN_CFG = dict(hidden=128, embed=64, layers=2, heads=4, neighbor_cap=64,
                  edge_batch_size=8192, eval_fraction=0.02, epochs=2,
@@ -126,14 +176,51 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(n_bytes: float, n_flops: float,
-             peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+             peak_flops: float = PEAK_BF16_FLOPS,
+             n_exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, or the
+    operations — products at ``peak_flops`` and exponentials at the
+    special-function units' rate, which run beside each other, so the
+    slower of the two — whichever is larger."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / peak_flops * 1e3
+    t_ops = max(n_flops / peak_flops, n_exps / PEAK_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Counts:
+    """Every kernel's launch count, by its row name in the kernels line;
+    K3's forward and backward counts both live on ``flash_attention``."""
+
+    def __init__(self):
+        from dragonfly2_tpu_torch.ops.flash_attention import (
+            flash_attention,
+            graph_flash_attention,
+        )
+        from dragonfly2_tpu_torch.ops.table_gather import (
+            table_gather,
+            table_scatter_add,
+        )
+
+        self._where = {
+            "table_gather": (table_gather, "launches"),
+            "graph_flash_attention": (graph_flash_attention, "launches"),
+            "table_scatter_add": (table_scatter_add, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_backward": (flash_attention,
+                                         "backward_launches"),
+        }
+
+    def reset(self) -> None:
+        for fn, attr in self._where.values():
+            setattr(fn, attr, 0)
+
+    def read(self) -> dict:
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in self._where.items()}
 
 
 def check_table_gather(torch, table, idx) -> dict:
@@ -372,6 +459,286 @@ def check_flash_shapes(torch) -> None:
     log("flash_shapes", max_abs_err=errs, tol=FLASH_TOL["f32"])
 
 
+def k3_grads(torch, fn, q, k, v, causal, dout):
+    """(out, dq, dk, dv) of ``fn(q, k, v, causal)`` with cotangent dout."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, causal)
+    grads = torch.autograd.grad(out, leaves, dout)
+    return (out.detach(), *grads)
+
+
+def k3_reference(torch, plain, q, k, v, causal, dout, got_out):
+    """(out, dq, dk, dv) of ``plain`` run in f32 on q, k, v's values with
+    cotangent dout, the gradients taken as K3's backward (FlashAttention-
+    2's) defines them: with delta = rowsum(dO ∘ O) from the kernel's
+    rounded out ``got_out``, not from the reference's own. With
+    Δ = rowsum(dO ∘ (got_out − out)) that moves dq by −scale·Δ·(P k) and
+    dk by −scale·Pᵀ(Δ·q); dv does not see delta."""
+    q, k, v, dout = (x.float() for x in (q, k, v, dout))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = plain(*leaves, causal)
+    dq, dk, dv = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    gap = (dout * (got_out.float() - out.detach())).sum(-1, keepdim=True)
+    # Pᵀ(Δ·q) is v's gradient for the cotangent Δ·q; P k attends to k.
+    ptq, = torch.autograd.grad(out, leaves[2], gap * q)
+    with torch.no_grad():
+        pk = plain(q, k, k, causal)
+    scale = q.shape[-1] ** -0.5
+    return out.detach(), dq - scale * gap * pk, dk - scale * ptq, dv
+
+
+def rms_row_norm(*tensors) -> float:
+    """The rms over all rows of all tensors of a row's 2-norm over the
+    last axis."""
+    square = sum(float(x.float().square().sum()) for x in tensors)
+    return (square / sum(x[..., 0].numel() for x in tensors)) ** 0.5
+
+
+def row_err(torch, got, ref, unit: float) -> float:
+    """The worst row's |got − ref| over its floored |ref| (see
+    ROW_TILE), norms over head_dim, for [T, h, d] tensors."""
+    ref = ref.float()
+    err = (got.float() - ref).norm(dim=-1)
+    norm = ref.norm(dim=-1)                                     # [T, h]
+    t, heads = norm.shape
+    pad = norm.new_zeros(-t % ROW_TILE, heads)
+    square = torch.cat([norm.square(), pad]).view(-1, ROW_TILE, heads)
+    rows = torch.cat([torch.ones_like(norm), pad]).view(-1, ROW_TILE, heads)
+    local = (square.sum(1) / rows.sum(1)).sqrt()
+    local = local.repeat_interleave(ROW_TILE, 0)[:t]
+    floor = torch.maximum(norm, LOCAL_FLOOR * local).clamp_min(ROW_FLOOR * unit)
+    return float((err / floor).max())
+
+
+def k3_errors(torch, got, ref) -> dict:
+    """Row errors (see ROW_TILE) of K3's (out, dq, dk, dv) against the
+    plain version's, and max |got − ref| of each under "abs"."""
+    units = (rms_row_norm(ref[0]),) + (rms_row_norm(*ref[1:]),) * 3
+    names = ("out", "dq", "dk", "dv")
+    errs = {n: row_err(torch, a, b, u)
+            for n, a, b, u in zip(names, got, ref, units)}
+    errs["abs"] = {n: float((a.float() - b.float()).abs().max())
+                   for n, a, b in zip(names, got, ref)}
+    return errs
+
+
+def k3_within(errs, tol) -> bool:
+    return (errs["out"] <= tol["out"]
+            and max(errs["dq"], errs["dk"], errs["dv"]) <= tol["grad"])
+
+
+def check_k3(torch, t, heads, d, dtype) -> dict:
+    """K3 forward and backward at [t, heads, d], causal (the long-context
+    tier's mode), against the plain version (``chunked_attention`` with
+    the JAX backward's 512-column blocks) run in f32 on the same values,
+    row by row (``k3_errors``), bit-identical across two launches; timed
+    beside the plain version and SDPA. Returns the forward and backward rows of the kernels line."""
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        chunked_attention,
+        flash_attention,
+        flash_backward,
+        flash_forward,
+    )
+
+    causal = True
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, dout = (torch.randn(t, heads, d, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(4))
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    tol = K3_TOL[name]
+
+    def plain(*a):
+        return chunked_attention(*a, block=512)
+
+    got = k3_grads(torch, flash_attention, q, k, v, causal, dout)
+    ref = k3_reference(torch, plain, q, k, v, causal, dout, got[0])
+    errs = k3_errors(torch, got, ref)
+    del ref
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError(f"K3 {name} {t}x{heads}x{d}: non-finite")
+    if not k3_within(errs, tol):
+        raise AssertionError(f"K3 {name} {t}x{heads}x{d}: errors {errs} "
+                             f"over {tol}")
+    out, lse = flash_forward(q, k, v, causal)
+    again = flash_forward(q, k, v, causal)
+    grads = flash_backward(q, k, v, out, dout, lse, causal)
+    grads_again = flash_backward(q, k, v, out, dout, lse, causal)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            and all(torch.equal(a, b) for a, b in zip(grads, grads_again))):
+        raise AssertionError(f"K3 {name} {t}x{heads}x{d}: two launches "
+                             "differ")
+    del again, grads_again
+
+    ms = cuda_ms(torch, lambda: flash_forward(q, k, v, causal),
+                 iters=10, warmup=2)
+    bwd_ms = cuda_ms(torch, lambda: flash_backward(
+        q, k, v, out, dout, lse, causal), iters=5, warmup=1)
+    with torch.no_grad():
+        plain_ms = cuda_ms(torch, lambda: plain(q, k, v, causal),
+                           iters=2, warmup=1)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    p_out = plain(*leaves, causal)
+    plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        p_out, leaves, dout, retain_graph=True), iters=2, warmup=1)
+    del p_out
+    # Library yardstick: SDPA in its [1, h, T, d] layout, transposed
+    # before the clock; forward alone, and its backward alone on a kept
+    # graph. Timed only; the port never calls it.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.permute(1, 0, 2)[None].contiguous()
+                       for x in (q, k, v, dout))
+    with torch.no_grad():
+        lib_ms = cuda_ms(torch, lambda: sdpa(qh, kh, vh, is_causal=causal),
+                         iters=10, warmup=2)
+        sdpa_err = float((sdpa(qh, kh, vh, is_causal=causal)[0]
+                          .permute(1, 0, 2).float() - out.float()).abs().max())
+    leaves = [x.requires_grad_() for x in (qh, kh, vh)]
+    s_out = sdpa(*leaves, is_causal=causal)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        s_out, leaves, doh, retain_graph=True), iters=5, warmup=1)
+    del s_out, leaves, qh, kh, vh, doh
+
+    # Work this run's inputs need: every visible (query, key) pair once.
+    pairs = heads * t * (t + 1) // 2
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    fwd_b = bound_ms(nbytes(q, k, v, out, lse), 4 * d * pairs, peak, pairs)
+    # Backward: S and dP recomputed, dV, dK and dQ — five products; one
+    # exp a pair.
+    bwd_b = bound_ms(nbytes(q, k, v, out, dout, lse, *grads),
+                     10 * d * pairs, peak, pairs)
+    src = "dragonfly2_tpu_torch/ops/csrc/flash_attention.cu"
+    shape = {"t": t, "heads": heads, "head_dim": d, "dtype": name,
+             "causal": causal}
+    fwd = dict(name="flash_attention", route="cuda", source=src,
+               replaces="dragonfly2_tpu/ops/flash_attention.py:113",
+               max_abs_err=errs["abs"]["out"], ms=ms, plain_ms=plain_ms,
+               bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=lib_ms)
+    bwd = dict(name="flash_attention_backward", route="cuda", source=src,
+               replaces="dragonfly2_tpu/ops/flash_attention.py:228",
+               max_abs_err=max(errs["abs"][g] for g in ("dq", "dk", "dv")),
+               ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_b[0],
+               bound_by=bwd_b[1], library_ms=lib_bwd_ms)
+    exp_ms = {"sfu_and_fp32_poly": pairs / PEAK_EXP_PER_S * 1e3,
+              "sfu_only": pairs / SFU_EXP_PER_S * 1e3}
+    log("kernel", **fwd, shape=shape, errors=errs, tol=tol,
+        exp_ms=exp_ms, product_ms=4 * d * pairs / peak * 1e3,
+        sdpa_max_abs_diff=sdpa_err, bit_identical=True)
+    log("kernel", **bwd, shape=shape, exp_ms=exp_ms,
+        product_ms=10 * d * pairs / peak * 1e3,
+        library_is="SDPA backward on a kept graph", bit_identical=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def check_k3_shapes(torch) -> None:
+    """K3 forward and gradients on every head_dim it takes, ragged and
+    tiny T, causal and not, with fewer heads than a tile's rows, in f32
+    (the FMA kernels) and bf16 (the tensor-core kernels), against the
+    plain version run in f32 on the same values on the card."""
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        HEAD_DIMS,
+        chunked_attention,
+        flash_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    heads = 3
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        errs, tol = {}, K3_TOL[name]
+        for d in HEAD_DIMS:
+            for t in (1, 100, 1000, 4096):
+                q, k, v, dout = (torch.randn(t, heads, d, generator=gen,
+                                             device="cuda").to(dtype)
+                                 for _ in range(4))
+                for causal in (False, True):
+                    got = k3_grads(torch, flash_attention, q, k, v, causal,
+                                   dout)
+                    ref = k3_reference(torch, lambda *a: chunked_attention(
+                        *a, block=512), q, k, v, causal, dout, got[0])
+                    key = f"{d}/{t}/{'causal' if causal else 'full'}"
+                    case = k3_errors(torch, got, ref)
+                    if not k3_within(case, tol):
+                        raise AssertionError(
+                            f"K3 {name} head_dim {d}, T {t}, causal "
+                            f"{causal}: errors {case}")
+                    errs[key] = [case[n] for n in ("out", "dq", "dk", "dv")]
+        worst = max(errs.items(), key=lambda kv: max(kv[1]))
+        log("flash_attention_shapes", dtype=name, cases=len(errs),
+            heads=heads, max_out_err=max(e[0] for e in errs.values()),
+            max_grad_err=max(max(e[1:]) for e in errs.values()),
+            worst_case=worst, tol=tol)
+
+
+def run_ulysses(torch, counts) -> dict:
+    """The slice's main path: ``ulysses_attention`` on an NCCL process
+    group of one rank, T = 32k causal, 8 heads of 8, chunk 2048, bf16,
+    forward and backward of (out.float() ** 2).sum(), with every launch
+    count set to 0 just before and read just after: both K3 kernels must
+    have launched and the plain scan never run. Then output and gradients
+    against the plain version run in f32 on the same values, peak memory
+    against the dense scores, and the times. Returns the counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.ops.flash_attention import chunked_attention
+    from dragonfly2_tpu_torch.parallel import ulysses_attention
+
+    heads, d, chunk = 8, 8, 2048
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    inputs = [torch.randn(LONG_T, heads, d, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            q, k, v = (x.clone().requires_grad_() for x in inputs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            counts.reset()
+            chunked_attention.calls = 0
+            out = ulysses_attention(q, k, v, causal=True, chunk=chunk)
+            (out.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            launches = counts.read()
+            plain_calls = chunked_attention.calls
+            peak = torch.cuda.max_memory_allocated()
+            if (launches["flash_attention"] < 1
+                    or launches["flash_attention_backward"] < 1
+                    or plain_calls != 0):
+                raise AssertionError(f"ulysses: launches {launches}, plain "
+                                     f"scan calls {plain_calls}")
+            if peak >= DENSE_SCORES_BYTES:
+                raise AssertionError(f"ulysses: peak {peak} B is not below "
+                                     f"the dense scores' {DENSE_SCORES_BYTES}")
+            with torch.no_grad():
+                fwd_ms = cuda_ms(torch, lambda: ulysses_attention(
+                    q, k, v, causal=True, chunk=chunk), iters=5, warmup=1)
+
+            def fwd_bwd():
+                o = ulysses_attention(q, k, v, causal=True, chunk=chunk)
+                torch.autograd.grad((o.float() ** 2).sum(), (q, k, v))
+
+            fwd_bwd_ms = cuda_ms(torch, fwd_bwd, iters=3, warmup=1)
+        finally:
+            dist.destroy_process_group()
+    # The plain version on the same inputs, and the same loss.
+    ref = k3_reference(torch, lambda *a: chunked_attention(*a, block=chunk),
+                       *inputs, True, 2 * out.detach().float(), out.detach())
+    errs = k3_errors(torch, (out.detach(), q.grad, k.grad, v.grad), ref)
+    tol = K3_TOL["bf16"]
+    if not k3_within(errs, tol):
+        raise AssertionError(f"ulysses vs plain: {errs} over {tol}")
+    log("ulysses", shape=[LONG_T, heads, d], dtype="bf16", causal=True,
+        chunk=chunk, world=1, launches=launches, plain_scan_calls=plain_calls,
+        errors=errs, tol=tol, fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+        peak_memory_gib=peak / 2**30,
+        peak_above_inputs_gib=(peak - base) / 2**30,
+        dense_scores_gib=DENSE_SCORES_BYTES / 2**30)
+    return launches
+
+
 def check_small_model(torch) -> None:
     """The whole model on a small graph: card kernels against the CPU
     plain path, f32 compute, both kernel-carrying modes; then gradients."""
@@ -514,11 +881,6 @@ def main() -> int:
         Normalizer,
     )
     from dragonfly2_tpu_torch.ops import _build
-    from dragonfly2_tpu_torch.ops.flash_attention import graph_flash_attention
-    from dragonfly2_tpu_torch.ops.table_gather import (
-        table_gather,
-        table_scatter_add,
-    )
     from dragonfly2_tpu_torch.train.checkpoint import (
         ModelMetadata,
         flax_from_gat_state_dict,
@@ -613,9 +975,8 @@ def main() -> int:
         ModelMetadata(model_id="smoke-mlp", model_type="mlp",
                       config={"hidden": [128, 128, 64]}))
 
-    kernels = (table_gather, table_scatter_add, graph_flash_attention)
-    for fn in kernels:
-        fn.launches = 0
+    counts = Counts()
+    counts.reset()
     torch.cuda.reset_peak_memory_stats()
     scorers, load_s = {}, {}
     for mode in ("gather", "blocks"):
@@ -637,7 +998,7 @@ def main() -> int:
     mlp_out = [service.ModelInfer(
         ModelInferRequest("mlp", features[i * 15:(i + 1) * 15]), ctx).outputs
         for i in range(5)]
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = counts.read()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log("main_path", launches=launches, load_seconds=load_s,
         peak_memory_gib=peak_gib)
@@ -698,15 +1059,14 @@ def main() -> int:
 
     # -- phase 5: train, the slice's main path --------------------------------
     cfg = GATTrainConfig(**TRAIN_CFG)
-    for fn in kernels:
-        fn.launches = 0
+    counts.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = GATTrainer(graph, cfg)
     result = trainer.fit()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches = {fn.__name__: fn.launches for fn in kernels}
+    train_launches = counts.read()
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = len(result.step_losses)
     eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
@@ -805,13 +1165,6 @@ def main() -> int:
     rows.append(check_table_scatter_add(torch, ct, t_idx, trainer.g_inv,
                                         trainer.nbr.shape[0]))
     del ct, t_idx, trainer
-    for row in rows:
-        by_path = {"serve": launches[row["name"]],
-                   "train": train_launches[row["name"]]}
-        # Each kernel counts on the path of the slice that ported it.
-        row["launches"] = by_path["train" if row["name"] ==
-                                  "table_scatter_add" else "serve"]
-        row["launches_by_path"] = by_path
 
     # -- phase 7: embedding-pass times (launches here are not counted) -------
     pass_ms = {}
@@ -826,6 +1179,26 @@ def main() -> int:
     log("embedding_pass", ms=pass_ms,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         total_seconds=time.perf_counter() - t_start)
+    del scorers, service, trained
+
+    # -- phase 8: K3 against its plain version, then Ulysses ------------------
+    k3 = check_k3(torch, LONG_T, 8, 8, torch.bfloat16)  # main-path shape
+    check_k3(torch, LONG_T, 8, 8, torch.float32)
+    check_k3(torch, LONG_T, 4, 128, torch.bfloat16)
+    rows += [k3["fwd"], k3["bwd"]]
+    check_k3_shapes(torch)
+    ulysses_launches = run_ulysses(torch, counts)
+
+    # Each kernel counts on the path of the slice that ported it.
+    home = {"table_scatter_add": "train", "flash_attention": "ulysses",
+            "flash_attention_backward": "ulysses"}
+    for row in rows:
+        by_path = {"serve": launches[row["name"]],
+                   "train": train_launches[row["name"]],
+                   "ulysses": ulysses_launches[row["name"]]}
+        row["launches"] = by_path[home.get(row["name"], "serve")]
+        row["launches_by_path"] = by_path
+    log("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -23,9 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
-SOURCES = ("table_gather", "table_scatter_add", "graph_flash_attention")
+SOURCES = ("table_gather", "table_scatter_add", "graph_flash_attention",
+           "flash_attention")
+# --split-compile=0: optimize a source's kernels in parallel on every core
+# (the flash-attention source holds 48 kernel instances).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 
@@ -83,17 +87,22 @@ def build_all() -> dict[str, str]:
         return reports
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (building it if needed).
-    Every library exports ``df2_error_string(int) -> const char*``."""
-    if name not in SOURCES:
-        raise KeyError(f"unknown kernel source {name!r}")
-    build_all()
-    lib = ctypes.CDLL(str(_target(name)))
+def open_library(path) -> ctypes.CDLL:
+    """Load a built kernel library. Every library exports
+    ``df2_error_string(int) -> const char*``."""
+    lib = ctypes.CDLL(str(path))
     lib.df2_error_string.argtypes = [ctypes.c_int]
     lib.df2_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (building it if needed)."""
+    if name not in SOURCES:
+        raise KeyError(f"unknown kernel source {name!r}")
+    build_all()
+    return open_library(_target(name))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

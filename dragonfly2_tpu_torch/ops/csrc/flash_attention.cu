@@ -1,0 +1,1051 @@
+// Softmax attention over [T, heads, head_dim] and its gradient, for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_kernel` / `_pallas_forward` /
+// `flash_attention` (dragonfly2_tpu/ops/flash_attention.py) and the
+// gradient the JAX package takes through `chunked_attention` under
+// `jax.checkpoint`. Same function: s = (q . k) accumulated in f32, times
+// 1/sqrt(d); a key at or past t_len is masked and, under causal, so is a
+// key after the query; masked scores are NEG_INF = -1e9 (finite); online
+// softmax with f32 running max, sum and accumulator; p rounded to the
+// input type before P.V (accumulated in f32); out = acc / max(l, 1e-20)
+// in the input type. The forward also stores lse = m + log(l) per
+// (head, row) in f32 for the backward.
+//
+// Layout: the kernels index the public [T, heads, d] layout directly
+// (row t of head h at (t * heads + h) * d), so the wrapper transposes and
+// pads nothing; the ragged edge (rows at or past t_len) is masked here.
+//
+// What bounds it on this card: operations. At the long-context shape
+// ([32768, 8, 8] causal) the products are 4.3e9 (q, k) pairs x 4d flops,
+// ~0.14 ms at the bf16 tensor-core rate, but every pair also needs one
+// exp, 4.3e9 of them, ~1 ms at the SFU's 16 a clock an SM: at head_dim 8
+// the exponentials set the bound. At [32768, 4, 128] the products do
+// (~1.1e12 flops, ~1.1 ms). Bytes are small (17 MB and 134 MB in bf16).
+//
+// The design is the simple one, right first. bf16 inputs take the tensor
+// cores through mma.sync m16n8k16 in FlashAttention-2's warp layout: a
+// block of 4 warps per (query tile of 64 rows, head), each warp owning 16
+// rows whose scores stay in its registers, K and V tiles of 64 rows staged
+// in shared memory (see the bf16 section below). f32 inputs take f32 FMAs
+// out of shared memory: a block of 256 threads per (query tile, head),
+// each thread owning one tile row and every fourth column, so a warp reads
+// one tile row's values as broadcasts and the row-per-lane operand at an
+// odd stride, free of bank conflicts. Under causal the key loop stops at
+// the diagonal tile (K3's block skip as a loop bound), the blocks with the
+// most key tiles are scheduled first; the bf16 kernels test positions
+// only on tiles that hold a masked pair. No TMA, wgmma or pipelining yet.
+//
+// The backward is FlashAttention-2's recompute, three kernels and no
+// atomics: delta = rowsum(dO * O); dK/dV with one block per (key tile,
+// head) walking the query tiles, recomputing p = exp(s - lse) and
+// ds = p * (dO . v - delta); dQ with one block per (query tile, head)
+// walking the key tiles. Each output is owned by one block and summed in
+// a fixed order, so results are bit-identical across launches.
+
+#include <cuda_bf16.h>
+#include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 64;      // query and key rows of a tile
+constexpr int kThreads = 256;  // four threads a tile row
+constexpr int kGroups = kThreads / kTile;
+constexpr float kNegInf = -1e9f;  // NEG_INF of the TPU kernel
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ bool visible(int q_pos, int k_pos, int t_len,
+                                        bool causal) {
+  return k_pos < t_len && (!causal || q_pos >= k_pos);
+}
+
+// ---------------------------------------------------------------------------
+// f32: the products as FMAs out of shared memory (256 threads a block,
+// four a tile row; see the note at the top).
+
+// Shared-memory row stride of a [kTile, D] f32 tile: odd, so 32 lanes on
+// 32 consecutive rows hit 32 banks.
+template <int D>
+constexpr int kStride = D + 1;
+constexpr int kScoreStride = kTile + 1;
+
+// Rows [row0, row0 + kTile) of one head of a [T, heads, D] tensor into a
+// shared f32 tile; rows at or past t_len read as 0.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int t_len,
+                                          long long row_stride) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const int t = row0 + r;
+    dst[r * kStride<D> + c] =
+        t < t_len ? src[static_cast<long long>(t) * row_stride + c] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ out,
+           float* __restrict__ lse, int t_len, int heads, bool causal,
+           float scale) {
+  constexpr int S = kStride<D>;
+  constexpr int kCols = D / kGroups;  // output columns a thread owns
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + kTile * S;
+  float* vs = ks + kTile * S;
+  float* ps = vs + kTile * S;              // [kTile][kScoreStride]
+  float* row_fold = ps + kTile * kScoreStride;
+  float* row_l = row_fold + kTile;
+
+  const int head = blockIdx.y;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
+  const int q0 = q_tile * kTile;
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const int tid = threadIdx.x;
+  // Products: row r of the tile, columns g, g + 4, g + 8, ...
+  const int r = tid % kTile, g = tid / kTile;
+  // Softmax: row sr, columns sp, sp + 4, ... (four lanes of one warp).
+  const int sr = tid / kGroups, sp = tid % kGroups;
+
+  load_tile<D>(qs, q + head * D, q0, t_len, row_stride);
+  float m = kNegInf, l = 0.f;
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<D>(ks, k + head * D, k0, t_len, row_stride);
+    load_tile<D>(vs, v + head * D, k0, t_len, row_stride);
+    __syncthreads();
+
+    float s[kTile / kGroups];
+#pragma unroll
+    for (int j = 0; j < kTile / kGroups; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      const float qv = qs[r * S + c];
+#pragma unroll
+      for (int j = 0; j < kTile / kGroups; ++j) {
+        s[j] += qv * ks[(g + kGroups * j) * S + c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / kGroups; ++j) {
+      const int col = g + kGroups * j;
+      ps[r * kScoreStride + col] =
+          visible(q0 + r, k0 + col, t_len, causal) ? s[j] * scale : kNegInf;
+    }
+    __syncthreads();
+
+    // Online softmax over the tile, one row per four lanes.
+    float tmax = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kTile / kGroups; ++j) {
+      tmax = fmaxf(tmax, ps[sr * kScoreStride + sp + kGroups * j]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTile / kGroups; ++j) {
+      const int col = sp + kGroups * j;
+      float* slot = &ps[sr * kScoreStride + col];
+      const float p = visible(q0 + sr, k0 + col, t_len, causal)
+                          ? expf(*slot - m_new)
+                          : 0.f;
+      psum += p;
+      *slot = p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    const float fold = expf(m - m_new);
+    l = l * fold + psum;
+    m = m_new;
+    if (sp == 0) row_fold[sr] = fold;
+    __syncthreads();
+
+    const float f = row_fold[r];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] *= f;
+    for (int kk = 0; kk < kTile; ++kk) {
+      const float p = ps[r * kScoreStride + kk];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        acc[j] += p * vs[kk * S + g + kGroups * j];
+      }
+    }
+  }
+
+  if (sp == 0) {
+    row_l[sr] = l;
+    if (q0 + sr < t_len) {
+      lse[static_cast<long long>(head) * t_len + q0 + sr] = m + logf(l);
+    }
+  }
+  __syncthreads();
+  if (q0 + r < t_len) {
+    const float denom = fmaxf(row_l[r], 1e-20f);
+    float* o = out + (static_cast<long long>(q0 + r) * heads + head) * D;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) o[g + kGroups * j] = acc[j] / denom;
+  }
+}
+
+// p and ds for rows r of the query tile against columns g + 4j of the key
+// tile, written to ps / dss ([kTile][kScoreStride], row = query).
+template <int D>
+__device__ __forceinline__ void recompute(const float* qs, const float* dos,
+                                          const float* ks, const float* vs,
+                                          const float* lse_s,
+                                          const float* delta_s, float* ps,
+                                          float* dss, int q0, int k0, int t_len,
+                                          bool causal, float scale) {
+  constexpr int S = kStride<D>;
+  constexpr int kN = kTile / kGroups;
+  const int r = threadIdx.x % kTile, g = threadIdx.x / kTile;
+  float s[kN], dp[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const float qv = qs[r * S + c], dov = dos[r * S + c];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int row = (g + kGroups * j) * S + c;
+      s[j] += qv * ks[row];
+      dp[j] += dov * vs[row];
+    }
+  }
+  const bool q_ok = q0 + r < t_len;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int col = g + kGroups * j;
+    const float p = q_ok && visible(q0 + r, k0 + col, t_len, causal)
+                        ? expf(s[j] * scale - lse_s[r])
+                        : 0.f;
+    ps[r * kScoreStride + col] = p;
+    dss[r * kScoreStride + col] = p * (dp[j] - delta_s[r]);
+  }
+}
+
+__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
+                                          const float* lse, const float* delta,
+                                          int head, int q0, int t_len) {
+  if (threadIdx.x < kTile) {
+    const int t = q0 + threadIdx.x;
+    const long long i = static_cast<long long>(head) * t_len + t;
+    lse_s[threadIdx.x] = t < t_len ? lse[i] : 0.f;
+    delta_s[threadIdx.x] = t < t_len ? delta[i] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, int t_len,
+            int heads, bool causal, float scale) {
+  constexpr int S = kStride<D>;
+  constexpr int kCols = D / kGroups;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * S;
+  float* ks = dos + kTile * S;
+  float* vs = ks + kTile * S;
+  float* ps = vs + kTile * S;
+  float* dss = ps + kTile * kScoreStride;
+  float* lse_s = dss + kTile * kScoreStride;
+  float* delta_s = lse_s + kTile;
+
+  const int head = blockIdx.y;
+  const int n_t = (t_len + kTile - 1) / kTile;
+  const int k_tile = blockIdx.x;  // causal: key tile 0, the heaviest, first
+  const int k0 = k_tile * kTile;
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const int r = threadIdx.x % kTile, g = threadIdx.x / kTile;
+
+  load_tile<D>(ks, k + head * D, k0, t_len, row_stride);
+  load_tile<D>(vs, v + head * D, k0, t_len, row_stride);
+  float dk_acc[kCols], dv_acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+  for (int qt = causal ? k_tile : 0; qt < n_t; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();
+    load_tile<D>(qs, q + head * D, q0, t_len, row_stride);
+    load_tile<D>(dos, dout + head * D, q0, t_len, row_stride);
+    load_rows(lse_s, delta_s, lse, delta, head, q0, t_len);
+    __syncthreads();
+    recompute<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, t_len,
+                 causal, scale);
+    __syncthreads();
+    // Key row r: dV += p^T . dO, dK += ds^T . q over the tile's queries.
+    for (int qq = 0; qq < kTile; ++qq) {
+      const float p = ps[qq * kScoreStride + r];
+      const float ds = dss[qq * kScoreStride + r];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = qq * S + g + kGroups * j;
+        dv_acc[j] += p * dos[c];
+        dk_acc[j] += ds * qs[c];
+      }
+    }
+  }
+  if (k0 + r < t_len) {
+    const long long o = (static_cast<long long>(k0 + r) * heads + head) * D;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      dk[o + g + kGroups * j] = dk_acc[j] * scale;
+      dv[o + g + kGroups * j] = dv_acc[j];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, int t_len, int heads, bool causal,
+          float scale) {
+  constexpr int S = kStride<D>;
+  constexpr int kCols = D / kGroups;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * S;
+  float* ks = dos + kTile * S;
+  float* vs = ks + kTile * S;
+  float* ps = vs + kTile * S;
+  float* dss = ps + kTile * kScoreStride;
+  float* lse_s = dss + kTile * kScoreStride;
+  float* delta_s = lse_s + kTile;
+
+  const int head = blockIdx.y;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
+  const int q0 = q_tile * kTile;
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const int r = threadIdx.x % kTile, g = threadIdx.x / kTile;
+
+  load_tile<D>(qs, q + head * D, q0, t_len, row_stride);
+  load_tile<D>(dos, dout + head * D, q0, t_len, row_stride);
+  load_rows(lse_s, delta_s, lse, delta, head, q0, t_len);
+  float dq_acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) dq_acc[j] = 0.f;
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    load_tile<D>(ks, k + head * D, k0, t_len, row_stride);
+    load_tile<D>(vs, v + head * D, k0, t_len, row_stride);
+    __syncthreads();
+    recompute<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, t_len,
+                 causal, scale);
+    __syncthreads();
+    // Query row r: dQ += ds . k over the tile's keys.
+    for (int kk = 0; kk < kTile; ++kk) {
+      const float ds = dss[r * kScoreStride + kk];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        dq_acc[j] += ds * ks[kk * S + g + kGroups * j];
+      }
+    }
+  }
+  if (q0 + r < t_len) {
+    const long long o = (static_cast<long long>(q0 + r) * heads + head) * D;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      dq[o + g + kGroups * j] = dq_acc[j] * scale;
+    }
+  }
+}
+
+// delta[head, t] = sum_c dO[t, head, c] * O[t, head, c], in f32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+             float* __restrict__ delta, int t_len, int heads) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<long long>(t_len) * heads) return;
+  const T* o = out + i * D;
+  const T* d = dout + i * D;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) sum += to_f(o[c]) * to_f(d[c]);
+  const long long t = i / heads, head = i % heads;
+  delta[head * t_len + t] = sum;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the products on the tensor cores with mma.sync m16n8k16 (bf16 in,
+// f32 accumulate), FlashAttention-2's warp layout. A block of 4 warps owns
+// 64 rows, each warp 16 of them; a warp's scores sit in its registers as
+// mma accumulators, and the accumulator of P (or dS) is repacked in
+// registers as the A operand of the next product, so no score leaves the
+// warp and the only block-wide syncs are around staging the next tile.
+// Tiles are staged row-major as they lie in memory, 16 bytes a load, and
+// every operand comes out of shared memory with ldmatrix (transposed where
+// the product wants the other orientation), so nothing is staged twice.
+// Rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall on
+// distinct banks; head_dim below 16 is padded with zeros to the mma's
+// depth (k 16) and width (n 8).
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;  // 4 warps x 16 rows = kTile
+
+template <int D>
+constexpr int kDepth = D < 16 ? 16 : D;  // head_dim as an mma k extent
+template <int D>
+constexpr int kWidth = D < 8 ? 8 : D;    // head_dim as an mma n extent
+template <int D>
+constexpr int kRowPitch = kDepth<D> + 8;  // bf16 elements a staged row
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. With trans each matrix arrives transposed.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  }
+}
+
+// The A operand: rows row0 .. row0 + 15, columns col .. col + 15 of a
+// row-major tile.
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
+                                     int pitch, int row0, int col, int lane) {
+  ldsm_x4<false>(a,
+                 tile + (row0 + (lane & 15)) * pitch + col + 8 * (lane >> 4));
+}
+
+// B operands of two n blocks (n0 .. n0 + 15) at depth k0 .. k0 + 15, for
+// b[2 j], b[2 j + 1] of block n0 + 8 j. Without trans the tile holds the
+// product's n along rows (K for Q K^T); with trans it holds k along rows
+// (V for P V).
+template <bool kTrans>
+__device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile,
+                                     int pitch, int n0, int k0, int lane) {
+  if constexpr (kTrans) {
+    ldsm_x4<true>(b, tile + (k0 + (lane & 15)) * pitch + n0 + 8 * (lane >> 4));
+  } else {
+    ldsm_x4<false>(b, tile + (n0 + (lane & 7) + 8 * (lane >> 4)) * pitch + k0 +
+                          8 * ((lane >> 3) & 1));
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (denormal results flush to 0). The
+// kernels fold 1/sqrt(d) and log2(e) into one factor, so a score's
+// exponential is one FMA and one ex2.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+}
+
+// Two bf16, the lower column in the low half (round to nearest even).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand of P (or dS) over 16 columns from two 16 x 8 accumulators.
+__device__ __forceinline__ void repack_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Zeroes columns D .. kDepth - 1 of N staged rows: the depth padding,
+// written once, since staging writes only the first D columns.
+template <int D, int N>
+__device__ __forceinline__ void zero_pad(bf16* dst) {
+  constexpr int W = kDepth<D> - D;
+  if constexpr (W > 0) {
+    for (int i = threadIdx.x; i < N * W; i += kMmaThreads) {
+      dst[(i / W) * kRowPitch<D> + D + i % W] = __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Rows [row0, row0 + N) of one head of a [T, heads, D] bf16 tensor into
+// dst[N][kRowPitch], 16 bytes a load (8 at head_dim 4); rows at or past
+// t_len are 0.
+template <int D, int N>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int row0, int t_len,
+                                           long long row_stride) {
+  constexpr int V = D < 8 ? D : 8;  // bf16 a vector
+  constexpr int kPerRow = D / V;
+  using Vec = std::conditional_t<V == 8, uint4, uint2>;
+  for (int i = threadIdx.x; i < N * kPerRow; i += kMmaThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * V;
+    const int t = row0 + r;
+    Vec val{};
+    if (t < t_len) {
+      val = *reinterpret_cast<const Vec*>(
+          src + static_cast<long long>(t) * row_stride + c);
+    }
+    *reinterpret_cast<Vec*>(dst + r * kRowPitch<D> + c) = val;
+  }
+}
+
+// Stores a 16 x kWidth accumulator (rows row0 and row0 + 8 of lane (g, t))
+// times mul0 / mul1 into [T, heads, D] at (row, head).
+template <int D>
+__device__ __forceinline__ void store_rows(
+    bf16* dst, const float (&acc)[kWidth<D> / 8][4], int row0, int head,
+    int heads, int t_len, float mul0, float mul1, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= t_len) continue;
+    const float mul = half ? mul1 : mul0;
+    bf16* o = dst + (static_cast<long long>(row) * heads + head) * D;
+#pragma unroll
+    for (int nb = 0; nb < kWidth<D> / 8; ++nb) {
+      const int col = nb * 8 + 2 * t;
+      if (col < D) {
+        *reinterpret_cast<uint32_t*>(o + col) = pack_bf16(
+            acc[nb][2 * half] * mul, acc[nb][2 * half + 1] * mul);
+      }
+    }
+  }
+}
+
+// acc[nb] += A . B over kWidth / 8 output blocks, B from a tile that holds
+// k along rows (k0 .. k0 + 15) and the output columns along columns.
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[kWidth<D> / 8][4],
+                                         const uint32_t (&a)[4],
+                                         const bf16* tile, int pitch, int k0,
+                                         int lane) {
+#pragma unroll
+  for (int nb = 0; nb < kWidth<D> / 8; nb += 2) {
+    uint32_t b[4];  // at head_dim <= 8 the second block reads zero padding
+    ld_b<true>(b, tile, pitch, nb * 8, k0, lane);
+    mma_bf16(acc[nb], a, b[0], b[1]);
+    if (nb + 1 < kWidth<D> / 8) mma_bf16(acc[nb + 1], a, b[2], b[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out,
+               float* __restrict__ lse, int t_len, int heads, bool causal,
+               float scale) {
+  constexpr int KP = kRowPitch<D>;
+  constexpr int NO = kWidth<D> / 8;  // output accumulators, 8 columns each
+  __shared__ __align__(16) bf16 ks[kTile * KP];  // Q first, then K tiles
+  __shared__ __align__(16) bf16 vs[kTile * KP];
+
+  const int head = blockIdx.y;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
+  const int q0 = q_tile * kTile;
+  const long long rs = static_cast<long long>(heads) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+  const float scale2 = scale * kLog2e;
+
+  zero_pad<D, kTile>(ks);
+  zero_pad<D, kTile>(vs);
+  stage_rows<D, kTile>(ks, q + head * D, q0, t_len, rs);
+  __syncthreads();
+  uint32_t qa[kDepth<D> / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+    ld_a(qa[kd], ks, KP, warp * 16, kd * 16, lane);
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+  zero_acc(o);
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
+    stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
+    __syncthreads();
+
+    float s[kTile / 8][4];
+    zero_acc(s);
+#pragma unroll
+    for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+#pragma unroll
+      for (int nb = 0; nb < kTile / 8; nb += 2) {
+        uint32_t b[4];
+        ld_b<false>(b, ks, KP, nb * 8, kd * 16, lane);
+        mma_bf16(s[nb], qa[kd], b[0], b[1]);
+        mma_bf16(s[nb + 1], qa[kd], b[2], b[3]);
+      }
+    }
+    // The running max m is kept in unscaled score units (scale > 0, so
+    // the max commutes with it); a masked score counts as NEG_INF there.
+    const bool edge = (causal && q0 < k0 + kTile - 1) || k0 + kTile > t_len;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge && !visible(row0 + 8 * (e >> 1), k0 + nb * 8 + 2 * t + (e & 1),
+                             t_len, causal)) {
+          s[nb][e] = -CUDART_INF_F;  // exp2 of it is 0: p is masked
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+    }
+    float fold[2], sum[2] = {0.f, 0.f}, shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      mx[h] = fmaxf(m[h], mx[h]);  // the new running max
+      shift[h] = -mx[h] * scale2;
+    }
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(s[nb][e], scale2, shift[e >> 1]));
+        s[nb][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      fold[h] = exp2_approx((m[h] - mx[h]) * scale2);
+      l[h] = l[h] * fold[h] + sum[h];
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NO; ++nb) {
+      o[nb][0] *= fold[0];
+      o[nb][1] *= fold[0];
+      o[nb][2] *= fold[1];
+      o[nb][3] *= fold[1];
+    }
+    // O += P . V, p rounded to bf16 in the repack (K3's rule).
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      mma_rows<D>(o, pa, vs, KP, kk * 16, lane);
+    }
+  }
+  store_rows<D>(out, o, row0, head, heads, t_len, 1.f / fmaxf(l[0], 1e-20f),
+                1.f / fmaxf(l[1], 1e-20f), t);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row0 + 8 * h < t_len) {
+        lse[static_cast<long long>(head) * t_len + row0 + 8 * h] =
+            m[h] * scale + logf(l[h]);
+      }
+    }
+  }
+}
+
+// Query rows a dK/dV block stages at once: fewer at head_dim 128, where
+// the two [16, 128] accumulators of a warp take 128 registers a lane.
+template <int D>
+constexpr int kBwdQueries = D > 64 ? 32 : 64;
+
+template <int D>
+constexpr size_t dkdv_mma_smem() {
+  return sizeof(bf16) * 2 * (kTile + kBwdQueries<D>) * kRowPitch<D> +
+         sizeof(float) * 2 * kBwdQueries<D>;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len,
+                int heads, bool causal, float scale) {
+  constexpr int KP = kRowPitch<D>, QN = kBwdQueries<D>;
+  constexpr int NO = kWidth<D> / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTile * KP;
+  bf16* qs = vs + kTile * KP;   // [QN][KP]
+  bf16* dos = qs + QN * KP;     // [QN][KP]
+  float* lse_s = reinterpret_cast<float*>(dos + QN * KP);
+  float* delta_s = lse_s + QN;
+
+  const int head = blockIdx.y;
+  const int k0 = blockIdx.x * kTile;  // causal: key tile 0, the heaviest, first
+  const long long rs = static_cast<long long>(heads) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // and key0 + 8
+  const float scale2 = scale * kLog2e;
+
+  zero_pad<D, 2 * (kTile + QN)>(ks);  // the four tiles lie back to back
+  stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
+  stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
+  float dk_acc[NO][4], dv_acc[NO][4];
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+
+  const int n_q = (t_len + QN - 1) / QN;
+  for (int qi = causal ? k0 / QN : 0; qi < n_q; ++qi) {
+    const int q0 = qi * QN;
+    __syncthreads();
+    stage_rows<D, QN>(qs, q + head * D, q0, t_len, rs);
+    stage_rows<D, QN>(dos, dout + head * D, q0, t_len, rs);
+    if (threadIdx.x < QN) {
+      const int row = q0 + threadIdx.x;
+      const long long i = static_cast<long long>(head) * t_len + row;
+      lse_s[threadIdx.x] = row < t_len ? lse[i] * kLog2e : 0.f;  // log2
+      delta_s[threadIdx.x] = row < t_len ? delta[i] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by QN queries.
+    float s[QN / 8][4], dp[QN / 8][4];
+    zero_acc(s);
+    zero_acc(dp);
+#pragma unroll
+    for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+      uint32_t ka[4], va[4];
+      ld_a(ka, ks, KP, warp * 16, kd * 16, lane);
+      ld_a(va, vs, KP, warp * 16, kd * 16, lane);
+#pragma unroll
+      for (int nb = 0; nb < QN / 8; nb += 2) {
+        uint32_t bq[4], bd[4];
+        ld_b<false>(bq, qs, KP, nb * 8, kd * 16, lane);
+        ld_b<false>(bd, dos, KP, nb * 8, kd * 16, lane);
+        mma_bf16(s[nb], ka, bq[0], bq[1]);
+        mma_bf16(s[nb + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[nb], va, bd[0], bd[1]);
+        mma_bf16(dp[nb + 1], va, bd[2], bd[3]);
+      }
+    }
+    const bool edge = (causal && q0 < k0 + kTile - 1) || q0 + QN > t_len ||
+                      k0 + kTile > t_len;
+#pragma unroll
+    for (int nb = 0; nb < QN / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = nb * 8 + 2 * t + (e & 1);
+        const int qpos = q0 + ql, kpos = key0 + 8 * (e >> 1);
+        const bool hide =
+            edge && !(qpos < t_len && visible(qpos, kpos, t_len, causal));
+        const float p =
+            hide ? 0.f : exp2_approx(fmaf(s[nb][e], scale2, -lse_s[ql]));
+        s[nb][e] = p;
+        dp[nb][e] = p * (dp[nb][e] - delta_s[ql]);  // ds
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q over the QN queries.
+#pragma unroll
+    for (int kk = 0; kk < QN / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      repack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      mma_rows<D>(dv_acc, pa, dos, KP, kk * 16, lane);
+      mma_rows<D>(dk_acc, da, qs, KP, kk * 16, lane);
+    }
+  }
+  store_rows<D>(dk, dk_acc, key0, head, heads, t_len, scale, scale, t);
+  store_rows<D>(dv, dv_acc, key0, head, heads, t_len, 1.f, 1.f, t);
+}
+
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * 4 * kTile * kRowPitch<D>;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int t_len, int heads, bool causal,
+              float scale) {
+  constexpr int KP = kRowPitch<D>;
+  constexpr int NO = kWidth<D> / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kTile * KP;
+  bf16* ks = dos + kTile * KP;
+  bf16* vs = ks + kTile * KP;
+
+  const int head = blockIdx.y;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
+  const int q0 = q_tile * kTile;
+  const long long rs = static_cast<long long>(heads) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+  const float scale2 = scale * kLog2e;
+
+  zero_pad<D, 4 * kTile>(qs);  // the four tiles lie back to back
+  stage_rows<D, kTile>(qs, q + head * D, q0, t_len, rs);
+  stage_rows<D, kTile>(dos, dout + head * D, q0, t_len, rs);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const long long i = static_cast<long long>(head) * t_len + row;
+    row_lse[h] = row < t_len ? lse[i] * kLog2e : 0.f;  // log2 units
+    row_delta[h] = row < t_len ? delta[i] : 0.f;
+  }
+  float dq_acc[NO][4];
+  zero_acc(dq_acc);
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
+    stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 queries by 64 keys.
+    float s[kTile / 8][4], dp[kTile / 8][4];
+    zero_acc(s);
+    zero_acc(dp);
+#pragma unroll
+    for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+      uint32_t qa[4], da[4];
+      ld_a(qa, qs, KP, warp * 16, kd * 16, lane);
+      ld_a(da, dos, KP, warp * 16, kd * 16, lane);
+#pragma unroll
+      for (int nb = 0; nb < kTile / 8; nb += 2) {
+        uint32_t bk[4], bv[4];
+        ld_b<false>(bk, ks, KP, nb * 8, kd * 16, lane);
+        ld_b<false>(bv, vs, KP, nb * 8, kd * 16, lane);
+        mma_bf16(s[nb], qa, bk[0], bk[1]);
+        mma_bf16(s[nb + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[nb], da, bv[0], bv[1]);
+        mma_bf16(dp[nb + 1], da, bv[2], bv[3]);
+      }
+    }
+    const bool edge = (causal && q0 < k0 + kTile - 1) || k0 + kTile > t_len ||
+                      q0 + kTile > t_len;
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qpos = row0 + 8 * h, kpos = k0 + nb * 8 + 2 * t + (e & 1);
+        const bool hide =
+            edge && !(qpos < t_len && visible(qpos, kpos, t_len, causal));
+        const float p =
+            hide ? 0.f : exp2_approx(fmaf(s[nb][e], scale2, -row_lse[h]));
+        dp[nb][e] = p * (dp[nb][e] - row_delta[h]);  // ds
+      }
+    }
+    // dQ += dS K over the tile's 64 keys.
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t da[4];
+      repack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      mma_rows<D>(dq_acc, da, ks, KP, kk * 16, lane);
+    }
+  }
+  store_rows<D>(dq, dq_acc, row0, head, heads, t_len, scale, scale, t);
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) *
+         (3 * kTile * kStride<D> + kTile * kScoreStride + 2 * kTile);
+}
+template <int D>
+constexpr size_t bwd_smem() {
+  return sizeof(float) *
+         (4 * kTile * kStride<D> + 2 * kTile * kScoreStride + 2 * kTile);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D>
+cudaError_t forward(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int t_len, int heads, bool causal, float scale,
+                    cudaStream_t stream) {
+  const dim3 grid((t_len + kTile - 1) / kTile, heads);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if constexpr (std::is_same_v<T, bf16>) {
+    fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+        qt, kt, vt, static_cast<T*>(out), lse, t_len, heads, causal, scale);
+  } else {
+    cudaError_t err = allow_smem(fwd_kernel<D>, fwd_smem<D>());
+    if (err != cudaSuccess) return err;
+    fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
+        qt, kt, vt, static_cast<T*>(out), lse, t_len, heads, causal, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t backward(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int t_len,
+                     int heads, bool causal, float scale, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(t_len) * heads;
+  delta_kernel<T, D><<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
+                       kThreads, 0, stream>>>(static_cast<const T*>(out), dot,
+                                              delta, t_len, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((t_len + kTile - 1) / kTile, heads);
+  if constexpr (std::is_same_v<T, bf16>) {
+    err = allow_smem(dkdv_mma_kernel<D>, dkdv_mma_smem<D>());
+    if (err != cudaSuccess) return err;
+    dkdv_mma_kernel<D><<<grid, kMmaThreads, dkdv_mma_smem<D>(), stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        t_len, heads, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = allow_smem(dq_mma_kernel<D>, dq_mma_smem<D>());
+    if (err != cudaSuccess) return err;
+    dq_mma_kernel<D><<<grid, kMmaThreads, dq_mma_smem<D>(), stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), t_len, heads,
+        causal, scale);
+  } else {
+    err = allow_smem(dkdv_kernel<D>, bwd_smem<D>());
+    if (err != cudaSuccess) return err;
+    dkdv_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        t_len, heads, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = allow_smem(dq_kernel<D>, bwd_smem<D>());
+    if (err != cudaSuccess) return err;
+    dq_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), t_len, heads,
+        causal, scale);
+  }
+  return cudaGetLastError();
+}
+
+// Calls F<T, D>::run(args...) for the runtime (is_bf16, d), or returns
+// cudaErrorInvalidValue for a head_dim the kernels do not take.
+#define DF2_DISPATCH(fn, is_bf16, d, ...)                                  \
+  [&]() -> cudaError_t {                                                   \
+    switch (d) {                                                           \
+      case 4:                                                              \
+        return is_bf16 ? fn<__nv_bfloat16, 4>(__VA_ARGS__)                 \
+                       : fn<float, 4>(__VA_ARGS__);                        \
+      case 8:                                                              \
+        return is_bf16 ? fn<__nv_bfloat16, 8>(__VA_ARGS__)                 \
+                       : fn<float, 8>(__VA_ARGS__);                        \
+      case 16:                                                             \
+        return is_bf16 ? fn<__nv_bfloat16, 16>(__VA_ARGS__)                \
+                       : fn<float, 16>(__VA_ARGS__);                       \
+      case 32:                                                             \
+        return is_bf16 ? fn<__nv_bfloat16, 32>(__VA_ARGS__)                \
+                       : fn<float, 32>(__VA_ARGS__);                       \
+      case 64:                                                             \
+        return is_bf16 ? fn<__nv_bfloat16, 64>(__VA_ARGS__)                \
+                       : fn<float, 64>(__VA_ARGS__);                       \
+      case 128:                                                            \
+        return is_bf16 ? fn<__nv_bfloat16, 128>(__VA_ARGS__)               \
+                       : fn<float, 128>(__VA_ARGS__);                      \
+      default:                                                             \
+        return cudaErrorInvalidValue;                                      \
+    }                                                                      \
+  }()
+
+}  // namespace
+
+// q, k, v, out: [t_len, heads, d] contiguous, all bf16 (is_bf16) or all
+// f32; lse: [heads, t_len] f32. d in {4, 8, 16, 32, 64, 128}, else
+// cudaErrorInvalidValue without launching.
+extern "C" int df2_flash_attention_fwd(int is_bf16, const void* q,
+                                       const void* k, const void* v, void* out,
+                                       float* lse, int t_len, int heads, int d,
+                                       int causal, float scale, void* stream) {
+  if (t_len <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(DF2_DISPATCH(
+      forward, is_bf16, d, q, k, v, out, lse, t_len, heads, causal != 0, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The gradient of df2_flash_attention_fwd: out and lse as it wrote them,
+// dout like out; delta: [heads, t_len] f32 scratch; dq, dk, dv like q.
+// Three launches (delta, dK/dV, dQ); returns the first error.
+extern "C" int df2_flash_attention_bwd(int is_bf16, const void* q,
+                                       const void* k, const void* v,
+                                       const void* out, const void* dout,
+                                       const float* lse, float* delta, void* dq,
+                                       void* dk, void* dv, int t_len, int heads,
+                                       int d, int causal, float scale,
+                                       void* stream) {
+  if (t_len <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(DF2_DISPATCH(
+      backward, is_bf16, d, q, k, v, out, dout, lse, delta, dq, dk, dv, t_len,
+      heads, causal != 0, scale, static_cast<cudaStream_t>(stream)));
+}

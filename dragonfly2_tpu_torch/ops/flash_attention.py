@@ -1,17 +1,22 @@
-"""Neighbor-masked graph attention — port of ``graph_flash_attention``
-(``dragonfly2_tpu/ops/flash_attention.py``).
+"""Attention kernels — port of ``dragonfly2_tpu/ops/flash_attention.py``.
 
-On CUDA tensors :func:`graph_flash_attention` launches the hand-written
-kernel in ``csrc/graph_flash_attention.cu`` (which notes what bounds it
-and how); on CPU tensors it runs :func:`graph_flash_attention_plain`, the
-port of ``sparse_graph_attention``. The GraphTransformer's blocks/flash
-modes call it. The kernel is forward only: on the card it refuses to run
-under autograd (blocks/flash-mode training there is a later slice,
-ROADMAP.md Queue 1), while on the CPU the plain version trains through
-PyTorch's autograd.
+Two wrappers, each launching a hand-written kernel on CUDA tensors (or
+raising) and running its plain PyTorch twin on CPU tensors:
 
-The plain ``flash_attention`` kernel (Ulysses local attention) is not
-ported yet; see ROADMAP.md Queue 2.
+- :func:`graph_flash_attention` (K1, ``csrc/graph_flash_attention.cu``):
+  neighbor-masked graph attention; its twin
+  :func:`graph_flash_attention_plain` ports ``sparse_graph_attention``.
+  The GraphTransformer's blocks/flash modes call it. The kernel is forward
+  only: on the card it refuses to run under autograd (blocks/flash-mode
+  training there is a later slice, ROADMAP.md Queue 1), while on the CPU
+  the plain version trains through PyTorch's autograd.
+- :func:`flash_attention` (K3, ``csrc/flash_attention.cu``): plain or
+  causal softmax attention over ``[T, heads, head_dim]``, forward and a
+  hand-written backward joined in :class:`FlashAttention`; its twin is
+  :func:`chunked_attention`, which the JAX package's backward
+  differentiates. Ulysses sequence parallelism
+  (``dragonfly2_tpu_torch/parallel/ulysses.py``) runs it as each rank's
+  local attention.
 """
 
 from __future__ import annotations
@@ -22,7 +27,12 @@ import math
 
 import torch
 
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
+
 from dragonfly2_tpu_torch.ops._build import check, load_library
+
+NEG_INF = -1e9  # the mask value of both TPU kernels: finite, not -inf
 
 # The kernel keeps a row's neighbor ids in shared memory and spreads the
 # row's heads * d elements over one warp, the same number per lane, each
@@ -42,8 +52,6 @@ def graph_flash_attention_plain(q, k, v, nbr, val, block: int = 128):
     space (ids outside [0, Nk) are masked). Returns [Nq, h, d] in q's
     dtype; a row with no valid slot gives 0.
     """
-    from dragonfly2_tpu_torch.models.graph_transformer import NEG_INF
-
     n_q, heads, d = q.shape
     n_k = k.shape[0]
     scale = 1.0 / math.sqrt(d)
@@ -147,3 +155,182 @@ def graph_flash_attention(q, k, v, nbr, val, block: int = 128):
 
 
 graph_flash_attention.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K3: plain or causal sequence attention
+
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # head widths the K3 kernels take
+# The CPU scan's key block: the JAX backward's max(block_k, 512) at the
+# JAX package's default blocks.
+CPU_BLOCK = 512
+
+
+def _chunk_step(q, kj, vj, m, l, acc, start: int, causal: bool,
+                scale: float):
+    """One key block of the online softmax: (m, l, acc) → the next."""
+    t = q.shape[0]
+    s = torch.einsum("nhd,mhd->hnm", q, kj).float() * scale
+    k_pos = start + torch.arange(kj.shape[0], device=q.device)
+    mask = (k_pos < t)[None, None, :]
+    if causal:
+        q_pos = torch.arange(t, device=q.device)
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])[None]
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None]) * mask
+    fold = torch.exp(m - m_new)
+    l = l * fold + p.sum(-1)
+    acc = acc * fold.transpose(0, 1)[..., None] + torch.einsum(
+        "hnm,mhd->nhd", p.to(q.dtype), vj).float()
+    return m_new, l, acc
+
+
+def chunked_attention(q, k, v, causal: bool = False, block: int = 512):
+    """Key-blocked online-softmax attention in plain PyTorch (port of
+    ``chunked_attention``): f32 (m, l, acc), p in q's dtype before P·V,
+    out = acc / max(l, 1e-20). The plain twin of the K3 kernel, forward
+    and backward: under autograd each key block runs under
+    ``torch.utils.checkpoint`` (``jax.checkpoint(step)``'s counterpart),
+    so a backward keeps O(T·block) scores alive, not [T, T]. The last
+    block may be ragged (a slice here does not clamp, so nothing is
+    padded). q/k/v [T, h, d] → [T, h, d] in q's dtype."""
+    chunked_attention.calls += 1
+    t, heads, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    block = min(block, t)
+    m = torch.full((heads, t), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((t, heads, d), dtype=torch.float32, device=q.device)
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    for start in range(0, t, block):
+        args = (q, k[start:start + block], v[start:start + block], m, l, acc,
+                start, causal, scale)
+        m, l, acc = (checkpoint(_chunk_step, *args, use_reentrant=False)
+                     if grad else _chunk_step(*args))
+    denom = l.clamp_min(1e-20).transpose(0, 1)[..., None]
+    return (acc / denom).to(q.dtype)
+
+
+chunked_attention.calls = 0
+
+
+def check_flash_inputs(q, k, v) -> None:
+    """Raise unless q/k/v are what the K3 kernels take: one shape
+    [T, h, d] with T, h >= 1 and d in :data:`HEAD_DIMS`, one dtype (bf16
+    or f32), contiguous and 16-byte aligned (the bf16 kernels load 16-byte
+    vectors). Devices are the caller's concern."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one shape [T, heads, "
+                         f"head_dim], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    t, heads, d = q.shape
+    if t < 1 or heads < 1 or d not in HEAD_DIMS:
+        raise ValueError(f"kernel takes T >= 1, heads >= 1 and head_dim in "
+                         f"{HEAD_DIMS}, got {tuple(q.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q/k/v must share bf16 or f32, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_lib() -> ctypes.CDLL:
+    return bind_flash_library(load_library("flash_attention"))
+
+
+def bind_flash_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the K3 entry points' C signatures on a loaded library."""
+    lib.df2_flash_attention_fwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.df2_flash_attention_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.df2_flash_attention_fwd.restype = ctypes.c_int
+    lib.df2_flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def flash_forward(q, k, v, causal: bool):
+    """Launch the K3 forward on checked CUDA q/k/v: returns out (like q)
+    and lse [h, T] f32, the per-row log-sum-exp the backward needs."""
+    t, heads, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((heads, t), dtype=torch.float32, device=q.device)
+    lib = _flash_lib()
+    check(lib, lib.df2_flash_attention_fwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), lse.data_ptr(), t, heads, d,
+        int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention launch")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_backward(q, k, v, out, dout, lse, causal: bool):
+    """Launch the K3 backward (delta, dK/dV, dQ kernels) for the forward
+    that gave out and lse; dout like out. Returns dq, dk, dv like q."""
+    t, heads, d = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((heads, t), dtype=torch.float32, device=q.device)
+    lib = _flash_lib()
+    check(lib, lib.df2_flash_attention_bwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), t,
+        heads, d, int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention backward launch")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 on the card: forward kernel, backward kernels under autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out,
+                                    dout.to(q.dtype).contiguous(), lse,
+                                    ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False):
+    """Softmax attention over q/k/v [T, heads, head_dim] (one floating
+    dtype) → [T, heads, head_dim] in q's dtype; keys past T are absent
+    and, under ``causal``, a query sees no later key.
+
+    CPU tensors take :func:`chunked_attention` over key blocks of
+    :data:`CPU_BLOCK` columns, with PyTorch's autograd. CUDA tensors
+    launch the K3 kernels (forward, and the backward under autograd) or
+    raise — see :func:`check_flash_inputs` for what they take. Unlike the
+    JAX function this takes no ``block_q``/``block_k``: the kernels tile
+    by 64 rows, and the CPU scan's block is fixed.
+    """
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return chunked_attention(q, k, v, causal, block=CPU_BLOCK)
+    if any(x.device != q.device for x in (k, v)) or q.device.type != "cuda":
+        raise ValueError("q, k and v must all be on one CUDA device")
+    check_flash_inputs(q, k, v)
+    return FlashAttention.apply(q, k, v, bool(causal))
+
+
+flash_attention.launches = 0
+flash_attention.backward_launches = 0

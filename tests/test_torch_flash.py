@@ -1,0 +1,194 @@
+"""Port parity for K3: the port's ``flash_attention`` on CPU tensors (the
+plain ``chunked_attention`` scan, its backward through PyTorch's
+autograd) against the JAX package's Pallas kernel in interpret mode —
+the TPU kernel's own code path — and its custom VJP, on the cases of
+tests/test_flash_attention.py; plus the plain scan against JAX's and the
+wrapper's refusals. The CUDA kernels themselves run in
+``chip_smoke.py`` on the card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dragonfly2_tpu.ops.flash_attention import (
+    chunked_attention as jax_chunked_attention,
+)
+from dragonfly2_tpu.ops.flash_attention import (
+    flash_attention as jax_flash_attention,
+)
+from dragonfly2_tpu_torch.ops import flash_attention
+from dragonfly2_tpu_torch.ops.flash_attention import (
+    HEAD_DIMS,
+    check_flash_inputs,
+    chunked_attention,
+)
+
+# The JAX tests' own tolerances: forward in f32 (the same algebra in
+# another summation order), gradients, and bf16 against the f32 result.
+FWD_TOL = 2e-5
+GRAD_TOL = 1e-4
+BF16_TOL = 5e-2
+
+
+def _qkv(t, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((t, h, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _torch(*arrays, grad=False):
+    return [torch.from_numpy(a).requires_grad_(grad) for a in arrays]
+
+
+def _close(got, ref, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=tol,
+                               atol=tol)
+
+
+# (T, causal, block_q, block_k): tests/test_flash_attention.py's cases.
+# The blocks reach the JAX kernel only: the port takes none.
+FWD_CASES = [
+    pytest.param(128, False, 32, 32, id="full"),
+    pytest.param(128, True, 32, 32, id="causal"),
+    pytest.param(100, True, 32, 32, id="ragged-t"),
+    pytest.param(128, False, 64, 32, id="asymmetric"),
+    pytest.param(128, True, 128, 96, id="non-dividing-128-96"),
+    pytest.param(128, True, 96, 128, id="non-dividing-96-128"),
+    pytest.param(128, True, 48, 32, id="non-dividing-48-32"),
+]
+
+
+@pytest.mark.parametrize("t,causal,bq,bk", FWD_CASES)
+def test_forward_matches_pallas_kernel(t, causal, bq, bk):
+    q, k, v = _qkv(t, 2, 16, seed=t + bq + bk)
+    ref = jax_flash_attention(q, k, v, causal, bq, bk, True)
+    before = flash_attention.launches
+    out = flash_attention(*_torch(q, k, v), causal)
+    assert out.shape == (t, 2, 16) and out.dtype == torch.float32
+    assert flash_attention.launches == before   # the CPU path launches nothing
+    _close(out.numpy(), ref, FWD_TOL)
+
+
+@pytest.mark.parametrize("t,causal,bq,bk", [
+    pytest.param(64, True, 32, 32, id="causal"),
+    pytest.param(100, False, 32, 32, id="ragged-full"),
+    pytest.param(100, True, 48, 32, id="ragged-causal-non-dividing"),
+])
+def test_grads_match_custom_vjp(t, causal, bq, bk):
+    q, k, v = _qkv(t, 2, 16, seed=3)
+    ref = jax.grad(lambda q, k, v: (jax_flash_attention(
+        q, k, v, causal, bq, bk, True) ** 2).sum(), argnums=(0, 1, 2))(
+            q, k, v)
+    leaves = _torch(q, k, v, grad=True)
+    (flash_attention(*leaves, causal) ** 2).sum().backward()
+    for got, want in zip(leaves, ref):
+        _close(got.grad.numpy(), want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_near_f32(causal):
+    q, k, v = _qkv(100, 2, 16, seed=5)
+    ref = jax_flash_attention(q, k, v, causal, 32, 32, True)
+    out = flash_attention(*(x.to(torch.bfloat16) for x in _torch(q, k, v)),
+                          causal)
+    assert out.dtype == torch.bfloat16
+    _close(out.float().numpy(), ref, BF16_TOL)
+
+
+@pytest.mark.parametrize("block", [16, 32, 100, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunked_matches_jax_forward_and_grads(block, causal):
+    """Key blocks smaller than T, a ragged tail (88 = 5·16 + 8), and a
+    block past T."""
+    q, k, v = _qkv(88, 2, 4, seed=block)
+    ref = jax_chunked_attention(q, k, v, causal, block)
+    ref_grads = jax.grad(lambda q, k, v: (jax_chunked_attention(
+        q, k, v, causal, block) ** 2).sum(), argnums=(0, 1, 2))(q, k, v)
+    leaves = _torch(q, k, v, grad=True)
+    out = chunked_attention(*leaves, causal, block)
+    _close(out.detach().numpy(), ref, FWD_TOL)
+    (out ** 2).sum().backward()
+    for got, want in zip(leaves, ref_grads):
+        _close(got.grad.numpy(), want, GRAD_TOL)
+
+
+def test_chunked_bf16_matches_jax():
+    q, k, v = _qkv(88, 2, 8, seed=9)
+    ref = jax_chunked_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                  for x in (q, k, v)), True, 32)
+    out = chunked_attention(*(x.to(torch.bfloat16) for x in _torch(q, k, v)),
+                            True, 32)
+    assert out.dtype == torch.bfloat16
+    _close(out.float().numpy(), np.asarray(ref, np.float32), BF16_TOL)
+
+
+def test_chunked_counts_calls():
+    q, k, v = _torch(*_qkv(16, 1, 4))
+    before = chunked_attention.calls
+    flash_attention(q, k, v)
+    chunked_attention(q, k, v)
+    assert chunked_attention.calls == before + 2
+
+
+def test_chunked_backward_keeps_scores_out_of_memory():
+    """Under autograd each key block is checkpointed: nothing autograd
+    keeps is as large as one block's [h, T, block] scores, let alone the
+    dense [h, T, T] ones."""
+    t, h, d, block = 256, 2, 4, 32
+    leaves = _torch(*_qkv(t, h, d), grad=True)
+    sizes = []
+
+    def pack(x):
+        sizes.append(x.numel())
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = chunked_attention(*leaves, True, block)
+    assert sizes and max(sizes) < h * t * block
+    (out ** 2).sum().backward()
+    assert all(x.grad is not None for x in leaves)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_kernel_takes_every_head_dim(d):
+    q, k, v = (torch.zeros(5, 3, d, dtype=torch.bfloat16) for _ in range(3))
+    check_flash_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("shape,dtype,error", [
+    pytest.param((8, 2, 12), torch.float32, ValueError, id="head-dim-12"),
+    pytest.param((8, 2, 256), torch.float32, ValueError, id="head-dim-256"),
+    pytest.param((8, 16), torch.float32, ValueError, id="two-dims"),
+    pytest.param((0, 2, 8), torch.float32, ValueError, id="empty-t"),
+    pytest.param((8, 2, 8), torch.float16, TypeError, id="fp16"),
+])
+def test_kernel_input_refusals(shape, dtype, error):
+    q = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(error):
+        check_flash_inputs(q, q, q)
+
+
+def test_kernel_refuses_mixed_and_strided_inputs():
+    q = torch.zeros(8, 2, 8)
+    with pytest.raises(TypeError):
+        check_flash_inputs(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError):
+        check_flash_inputs(q, q[:, :, :4], q)
+    strided = torch.zeros(2, 8, 8).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_flash_inputs(strided, strided, strided)
+    shifted = torch.zeros(8 * 2 * 8 + 1)[1:].view(8, 2, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        check_flash_inputs(shifted, shifted, shifted)
+
+
+def test_off_cpu_never_falls_back_to_the_scan():
+    """A tensor that is not on the CPU launches the kernel or raises: on a
+    device that is not CUDA it raises, without running the scan."""
+    q = torch.zeros(8, 2, 8, device="meta")
+    before = chunked_attention.calls
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    assert chunked_attention.calls == before

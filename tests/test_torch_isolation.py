@@ -52,6 +52,9 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.train.step_budget",
         "dragonfly2_tpu_torch.inference.scorer",
         "dragonfly2_tpu_torch.inference.sidecar",
+        "dragonfly2_tpu_torch.parallel",
+        "dragonfly2_tpu_torch.parallel.mesh",
+        "dragonfly2_tpu_torch.parallel.ulysses",
     }
     assert expected <= set(probe["imported"])
 
