@@ -46,14 +46,18 @@ Phases (any failure exits nonzero, before the final line):
    must equal the trained model's own scores;
 7. embedding-pass times and peak device memory;
 8. K3 (``flash_attention``, forward and backward) at the long-context
-   tier, T = 32k causal: [32768, 8, 8] in bf16 (the main path's shape)
-   and f32, [32768, 4, 128] in bf16, against the plain version
+   tier, T = 32k causal: [32768, 8, 8] in bf16 (the main path's shape,
+   the "mma" route: ``mma.sync`` forward, fused backward) and f32 (the
+   "fma" route), [32768, 4, 128] in bf16 (the "sm90" route: TMA +
+   ``wgmma``, which it must take), against the plain version
    (``chunked_attention``) run in f32 on the same values, row by row,
    bit-identical across two launches, timed beside the plain version,
-   SDPA and the bound (bytes, products or exponentials); then every
-   head_dim the kernels take at ragged and tiny T, causal and not, f32
-   and bf16 (``tests/k3_planted_faults.py`` shows that the row check
-   fails kernels with planted faults);
+   SDPA and the bound (bytes, products or exponentials), the backward
+   also launch by launch (delta, dK/dV, dQ or the fused block); then
+   every head_dim the kernels take at ragged and tiny T, causal and not,
+   f32 and bf16, each case bit-identical across two launches
+   (``tests/k3_planted_faults.py`` shows that the row check fails
+   kernels with planted faults on both bf16 routes);
 9. ulysses, the slice's main path: ``ulysses_attention`` on an NCCL
    group of one rank at [32768, 8, 8] bf16 causal, chunk 2048, forward
    and backward, with every launch count set to 0 just before and read
@@ -532,12 +536,20 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
     tier's mode), against the plain version (``chunked_attention`` with
     the JAX backward's 512-column blocks) run in f32 on the same values,
     row by row (``k3_errors``), bit-identical across two launches; timed
-    beside the plain version and SDPA. Returns the forward and backward rows of the kernels line."""
+    beside the plain version and SDPA, the backward also launch by launch
+    (delta, dK/dV, dQ; on the "mma" route dK/dV is the fused block that
+    also gives dQ). Returns the forward and backward rows of the kernels
+    line."""
     from dragonfly2_tpu_torch.ops.flash_attention import (
+        BWD_DELTA,
+        BWD_KV,
+        BWD_Q,
+        backward_scratch,
         chunked_attention,
         flash_attention,
         flash_backward,
         flash_forward,
+        launch_backward,
     )
 
     causal = True
@@ -574,6 +586,18 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
                  iters=10, warmup=2)
     bwd_ms = cuda_ms(torch, lambda: flash_backward(
         q, k, v, out, dout, lse, causal), iters=5, warmup=1)
+    # The backward launch by launch, into scratch the full backward filled.
+    scratch = backward_scratch(q)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    route = launch_backward(q, k, v, out, dout, lse, causal, *outs, scratch)
+    parts_ms = {part: cuda_ms(torch, lambda p=bits: launch_backward(
+        q, k, v, out, dout, lse, causal, *outs, scratch, p), iters=5,
+        warmup=1) for part, bits in (("delta", BWD_DELTA),
+                                     ("dkdv", BWD_KV), ("dq", BWD_Q))}
+    if route == "mma":
+        parts_ms["fused_dkdv_dq"] = parts_ms.pop("dkdv")
+        del parts_ms["dq"]                      # launches nothing there
+    del scratch, outs
     with torch.no_grad():
         plain_ms = cuda_ms(torch, lambda: plain(q, k, v, causal),
                            iters=2, warmup=1)
@@ -607,7 +631,9 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
     # exp a pair.
     bwd_b = bound_ms(nbytes(q, k, v, out, dout, lse, *grads),
                      10 * d * pairs, peak, pairs)
-    src = "dragonfly2_tpu_torch/ops/csrc/flash_attention.cu"
+    src = ("dragonfly2_tpu_torch/ops/csrc/flash_attention_sm90.cu"
+           if route == "sm90" else
+           "dragonfly2_tpu_torch/ops/csrc/flash_attention.cu")
     shape = {"t": t, "heads": heads, "head_dim": d, "dtype": name,
              "causal": causal}
     fwd = dict(name="flash_attention", route="cuda", source=src,
@@ -621,13 +647,16 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
                bound_by=bwd_b[1], library_ms=lib_bwd_ms)
     exp_ms = {"sfu_and_fp32_poly": pairs / PEAK_EXP_PER_S * 1e3,
               "sfu_only": pairs / SFU_EXP_PER_S * 1e3}
-    log("kernel", **fwd, shape=shape, errors=errs, tol=tol,
+    log("kernel", **fwd, k3_route=route, shape=shape, errors=errs, tol=tol,
         exp_ms=exp_ms, product_ms=4 * d * pairs / peak * 1e3,
-        sdpa_max_abs_diff=sdpa_err, bit_identical=True)
-    log("kernel", **bwd, shape=shape, exp_ms=exp_ms,
+        sdpa_max_abs_diff=sdpa_err, bit_identical=True,
+        backward_parts_ms=parts_ms)
+    log("kernel", **bwd, k3_route=route, shape=shape, exp_ms=exp_ms,
         product_ms=10 * d * pairs / peak * 1e3,
-        library_is="SDPA backward on a kept graph", bit_identical=True)
-    return {"fwd": fwd, "bwd": bwd}
+        library_is="SDPA backward on a kept graph", bit_identical=True,
+        backward_parts_ms=parts_ms)
+    return {"fwd": fwd, "bwd": bwd, "route": route, "parts_ms": parts_ms,
+            "shape": shape}
 
 
 def check_k3_shapes(torch) -> None:
@@ -653,6 +682,13 @@ def check_k3_shapes(torch) -> None:
                 for causal in (False, True):
                     got = k3_grads(torch, flash_attention, q, k, v, causal,
                                    dout)
+                    again = k3_grads(torch, flash_attention, q, k, v,
+                                     causal, dout)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(
+                            f"K3 {name} head_dim {d}, T {t}, causal "
+                            f"{causal}: two launches differ")
+                    del again
                     ref = k3_reference(torch, lambda *a: chunked_attention(
                         *a, block=512), q, k, v, causal, dout, got[0])
                     key = f"{d}/{t}/{'causal' if causal else 'full'}"
@@ -664,7 +700,7 @@ def check_k3_shapes(torch) -> None:
                     errs[key] = [case[n] for n in ("out", "dq", "dk", "dv")]
         worst = max(errs.items(), key=lambda kv: max(kv[1]))
         log("flash_attention_shapes", dtype=name, cases=len(errs),
-            heads=heads, max_out_err=max(e[0] for e in errs.values()),
+            heads=heads, bit_identical=True, max_out_err=max(e[0] for e in errs.values()),
             max_grad_err=max(max(e[1:]) for e in errs.values()),
             worst_case=worst, tol=tol)
 
@@ -909,7 +945,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build_all()
     log("build", seconds=time.perf_counter() - t0,
-        ptxas={name: [ln.strip() for ln in rep.splitlines()
+        source_seconds={name: rep["seconds"] for name, rep in reports.items()},
+        ptxas={name: [ln.strip() for ln in rep["ptxas"].splitlines()
                       if "registers" in ln or "spill" in ln]
                for name, rep in reports.items()})
 
@@ -1184,7 +1221,21 @@ def main() -> int:
     # -- phase 8: K3 against its plain version, then Ulysses ------------------
     k3 = check_k3(torch, LONG_T, 8, 8, torch.bfloat16)  # main-path shape
     check_k3(torch, LONG_T, 8, 8, torch.float32)
-    check_k3(torch, LONG_T, 4, 128, torch.bfloat16)
+    wide = check_k3(torch, LONG_T, 4, 128, torch.bfloat16)
+    if wide["route"] != "sm90":
+        raise AssertionError(f"[{LONG_T}, 4, 128] bf16 took the "
+                             f"{wide['route']} route, not sm90")
+    # The K3 rows are the main path's shape; the head_dim-128 figures
+    # ride along under "at_head_dim_128".
+    for part in ("fwd", "bwd"):
+        k3[part]["k3_route"] = k3["route"]
+        k3[part]["backward_parts_ms"] = k3["parts_ms"]
+        k3[part]["at_head_dim_128"] = {
+            key: wide[part][key] for key in
+            ("source", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "max_abs_err")} | {
+            "k3_route": wide["route"], "shape": wide["shape"],
+            "backward_parts_ms": wide["parts_ms"]}
     rows += [k3["fwd"], k3["bwd"]]
     check_k3_shapes(torch)
     ulysses_launches = run_ulysses(torch, counts)

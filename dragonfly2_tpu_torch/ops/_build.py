@@ -19,14 +19,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 SOURCES = ("table_gather", "table_scatter_add", "graph_flash_attention",
-           "flash_attention")
+           "flash_attention", "flash_attention_sm90")
 # --split-compile=0: optimize a source's kernels in parallel on every core
-# (the flash-attention source holds 48 kernel instances).
+# (flash_attention.cu holds 36 kernel instances).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
@@ -54,11 +55,12 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, str]:
+def build_all() -> dict[str, dict]:
     """Compile every missing kernel library, all ``nvcc`` runs started
-    together. Returns ``{source name: ptxas report}`` for the sources
-    built by this call (empty for ones already built). Raises with the
-    compiler's output when any build fails."""
+    together. Returns ``{source name: {"ptxas": report, "seconds": wall
+    time of its nvcc}}`` for the sources built by this call (empty for
+    ones already built). Raises with the compiler's output when any build
+    fails."""
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo = {name: _target(name) for name in SOURCES
@@ -66,22 +68,31 @@ def build_all() -> dict[str, str]:
         if not todo:
             return {}
         nvcc = nvcc_path()
-        procs = {}
+        procs, start = {}, time.perf_counter()
         for name, target in todo.items():
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            log = target.with_suffix(f".{os.getpid()}.log")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, target)
+            with open(log, "w") as fh:
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=fh, stderr=subprocess.STDOUT), tmp, target,
+                    log)
+        seconds = {}
+        while len(seconds) < len(procs):
+            for name, (proc, *_rest) in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - start
+            time.sleep(0.05)
         reports, failures = {}, []
-        for name, (proc, tmp, target) in procs.items():
-            out, _ = proc.communicate()
+        for name, (proc, tmp, target, log) in procs.items():
+            out = log.read_text()
+            log.unlink()
             if proc.returncode != 0:
                 failures.append(f"--- {name}.cu (exit {proc.returncode})\n{out}")
                 tmp.unlink(missing_ok=True)
                 continue
             os.replace(tmp, target)
-            reports[name] = out
+            reports[name] = {"ptxas": out, "seconds": seconds[name]}
         if failures:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
         return reports

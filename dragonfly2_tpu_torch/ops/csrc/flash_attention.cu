@@ -23,25 +23,30 @@
 // the exponentials set the bound. At [32768, 4, 128] the products do
 // (~1.1e12 flops, ~1.1 ms). Bytes are small (17 MB and 134 MB in bf16).
 //
-// The design is the simple one, right first. bf16 inputs take the tensor
-// cores through mma.sync m16n8k16 in FlashAttention-2's warp layout: a
-// block of 4 warps per (query tile of 64 rows, head), each warp owning 16
-// rows whose scores stay in its registers, K and V tiles of 64 rows staged
-// in shared memory (see the bf16 section below). f32 inputs take f32 FMAs
-// out of shared memory: a block of 256 threads per (query tile, head),
-// each thread owning one tile row and every fourth column, so a warp reads
-// one tile row's values as broadcasts and the row-per-lane operand at an
-// odd stride, free of bank conflicts. Under causal the key loop stops at
-// the diagonal tile (K3's block skip as a loop bound), the blocks with the
+// This source takes f32 at every head_dim and bf16 below 64;
+// flash_attention_sm90.cu takes bf16 at 64 and 128 (TMA and wgmma). bf16
+// inputs take the tensor cores through mma.sync m16n8k16 in
+// FlashAttention-2's warp layout: a block of 4 warps per (tile of 64
+// rows, head), each warp owning 16 rows whose scores stay in its
+// registers, the other side's tiles of 64 rows staged in shared memory
+// (see the bf16 section below). f32 inputs take f32 FMAs out of shared
+// memory: a block of 256 threads per (query tile, head), each thread
+// owning one tile row and every fourth column, so a warp reads one tile
+// row's values as broadcasts and the row-per-lane operand at an odd
+// stride, free of bank conflicts. Under causal the key loop stops at the
+// diagonal tile (K3's block skip as a loop bound), the blocks with the
 // most key tiles are scheduled first; the bf16 kernels test positions
-// only on tiles that hold a masked pair. No TMA, wgmma or pipelining yet.
+// only on tiles that hold a masked pair.
 //
-// The backward is FlashAttention-2's recompute, three kernels and no
+// The f32 backward is FlashAttention-2's recompute, three kernels and no
 // atomics: delta = rowsum(dO * O); dK/dV with one block per (key tile,
 // head) walking the query tiles, recomputing p = exp(s - lse) and
 // ds = p * (dO . v - delta); dQ with one block per (query tile, head)
-// walking the key tiles. Each output is owned by one block and summed in
-// a fixed order, so results are bit-identical across launches.
+// walking the key tiles. The bf16 backward here is bound by the per-pair
+// exponential and FP32 work, so it computes p once: delta, then one block
+// per (key tile, head) that gives dK, dV and, in a fixed order, dQ (see
+// bwd_fused_kernel). Every output is summed in a fixed order, so results
+// are bit-identical across launches.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -701,65 +706,228 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Query rows a dK/dV block stages at once: fewer at head_dim 128, where
-// the two [16, 128] accumulators of a warp take 128 registers a lane.
-template <int D>
-constexpr int kBwdQueries = D > 64 ? 32 : 64;
+// ---------------------------------------------------------------------------
+// bf16 backward below head_dim 64: one block per (key tile, head) computes
+// P and dS once per visible pair and gives all three gradients. dK and dV
+// sum in registers over the query tiles; each step's dQ terms (dS K over
+// the tile's 64 keys) are added to an f32 dQ in device memory in
+// descending key-tile order, through a per-(head, query tile) turn
+// counter that the block waits on before adding (the semaphore of
+// FlashAttention-3's deterministic mode): bit-identical across launches,
+// no atomics on the sums. Descending, because a block walks its query
+// tiles upward from the first it sees (under causal, its own diagonal),
+// so the block of the key tile above reaches every query tile a step
+// earlier and, in steady state, no block waits. Blocks launch highest key
+// tile first, so the block waited on has the lower index and was
+// scheduled first. A block adds a query tile's terms a step late, so the
+// loads of the sums overlap the next tile's products. Key tile 0, the
+// last to add, writes dq in bf16 and resets the counter to 0. Query tiles
+// (q, dO, lse, delta) are double-buffered with cp.async.
+
+// 8 or 16 bytes (or 4) from global to shared memory without the
+// registers; a source that is not valid fills zeros and is not read.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// stage_rows through cp.async: rows at or past t_len fill with zeros.
+template <int D, int N>
+__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* src,
+                                                 int row0, int t_len,
+                                                 long long row_stride) {
+  constexpr int V = D < 8 ? D : 8;  // bf16 a copy
+  constexpr int kPerRow = D / V;
+  for (int i = threadIdx.x; i < N * kPerRow; i += kMmaThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * V;
+    const int t = row0 + r;
+    const bool ok = t < t_len;
+    cp_async<V * 2>(dst + r * kRowPitch<D> + c,
+                    src + static_cast<long long>(ok ? t : 0) * row_stride + c,
+                    ok);
+  }
+}
+
+// src[row0 .. row0 + kTile) into dst; rows at or past t_len read 0.
+__device__ __forceinline__ void stage_floats_async(float* dst,
+                                                   const float* src, int row0,
+                                                   int t_len) {
+  if (threadIdx.x < kTile) {
+    const int t = row0 + threadIdx.x;
+    cp_async<4>(dst + threadIdx.x, src + (t < t_len ? t : 0), t < t_len);
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+constexpr int kDsPitch = kTile + 8;  // bf16 a row of the dS^T tile
 
 template <int D>
-constexpr size_t dkdv_mma_smem() {
-  return sizeof(bf16) * 2 * (kTile + kBwdQueries<D>) * kRowPitch<D> +
-         sizeof(float) * 2 * kBwdQueries<D>;
+constexpr size_t fused_smem() {
+  return sizeof(bf16) * (6 * kTile * kRowPitch<D> + kTile * kDsPitch) +
+         sizeof(float) * 4 * kTile;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len,
-                int heads, bool causal, float scale) {
-  constexpr int KP = kRowPitch<D>, QN = kBwdQueries<D>;
+bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 int* __restrict__ dq_turn, bf16* __restrict__ dq,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len,
+                 int heads, bool causal, float scale) {
+  constexpr int KP = kRowPitch<D>;
   constexpr int NO = kWidth<D> / 8;
+  constexpr int kElems = kTile * KP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile * KP;
-  bf16* qs = vs + kTile * KP;   // [QN][KP]
-  bf16* dos = qs + QN * KP;     // [QN][KP]
-  float* lse_s = reinterpret_cast<float*>(dos + QN * KP);
-  float* delta_s = lse_s + QN;
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;        // [2][kTile][KP]
+  bf16* dos = qs + 2 * kElems;   // [2][kTile][KP]
+  bf16* dss = dos + 2 * kElems;  // [kTile keys][kDsPitch]: dS^T
+  float* lse_s = reinterpret_cast<float*>(dss + kTile * kDsPitch);  // [2][kTile]
+  float* delta_s = lse_s + 2 * kTile;                               // [2][kTile]
 
-  const int head = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;  // causal: key tile 0, the heaviest, first
+  // Heads along x and key tiles from the top along y: blocks launch in
+  // linear order, so every head's tiles run together, and the block a
+  // block waits on (same head, key tile + 1) has the lower index.
+  const int head = blockIdx.x;
+  const int k_tile = gridDim.y - 1 - blockIdx.y;
+  const int k0 = k_tile * kTile;
+  const int n_t = (t_len + kTile - 1) / kTile;
+  const int first = causal ? k_tile : 0;
   const long long rs = static_cast<long long>(heads) * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = k0 + warp * 16 + g;  // and key0 + 8
   const float scale2 = scale * kLog2e;
 
-  zero_pad<D, 2 * (kTile + QN)>(ks);  // the four tiles lie back to back
+  auto stage_query_tile = [&](int qi, int buf) {
+    const int q0 = qi * kTile;
+    stage_rows_async<D, kTile>(qs + buf * kElems, q + head * D, q0, t_len, rs);
+    stage_rows_async<D, kTile>(dos + buf * kElems, dout + head * D, q0, t_len,
+                               rs);
+    const long long row = static_cast<long long>(head) * t_len;
+    stage_floats_async(lse_s + buf * kTile, lse + row, q0, t_len);
+    stage_floats_async(delta_s + buf * kTile, delta + row, q0, t_len);
+    cp_async_commit();
+  };
+
+  // dQ's ordered add (see the note above), in pieces so that the loads of
+  // the higher key tiles' sums fly during a step's products: wait for
+  // query tile qi's turn, load, then add dq_part (this key tile's terms of
+  // qi) and store, and, after a barrier, pass the turn on.
+  float dq_part[NO][4], dq_before[NO][4];
+  auto turn = [&](int qi) {
+    return dq_turn + static_cast<long long>(head) * n_t + qi;
+  };
+  // The first key tile to add to query tile qi; this one's place after it.
+  auto top_of = [&](int qi) { return causal ? qi : n_t - 1; };
+  auto wait_turn = [&](int qi) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(turn(qi)) != top_of(qi) - k_tile) {
+      }
+    }
+  };
+  auto dq_offset = [&](int qi, int h, int nb) -> long long {
+    const int row = qi * kTile + warp * 16 + g + 8 * h;
+    const int col = nb * 8 + 2 * t;
+    if (row >= t_len || col >= D) return -1;
+    return (static_cast<long long>(row) * heads + head) * D + col;
+  };
+  auto load_before = [&](int qi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int nb = 0; nb < NO; ++nb) {
+        const long long i = dq_offset(qi, h, nb);
+        float2 b = make_float2(0.f, 0.f);
+        if (i >= 0 && k_tile < top_of(qi)) {  // the first to add stores
+          b = __ldcg(reinterpret_cast<const float2*>(dq_acc + i));
+        }
+        dq_before[nb][2 * h] = b.x;
+        dq_before[nb][2 * h + 1] = b.y;
+      }
+    }
+  };
+  auto store_sum = [&](int qi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int nb = 0; nb < NO; ++nb) {
+        const long long i = dq_offset(qi, h, nb);
+        if (i < 0) continue;
+        const float2 sum =
+            make_float2(dq_part[nb][2 * h] + dq_before[nb][2 * h],
+                        dq_part[nb][2 * h + 1] + dq_before[nb][2 * h + 1]);
+        if (k_tile == 0) {
+          *reinterpret_cast<uint32_t*>(dq + i) =
+              pack_bf16(sum.x * scale, sum.y * scale);
+        } else {
+          __stcg(reinterpret_cast<float2*>(dq_acc + i), sum);
+        }
+      }
+    }
+  };
+  // After a barrier behind store_sum: the release store publishes every
+  // thread's adds (the barrier orders them before it).
+  auto pass_turn = [&](int qi) {
+    if (threadIdx.x == 0) {
+      st_release(turn(qi), k_tile == 0 ? 0 : top_of(qi) - k_tile + 1);
+    }
+  };
+
+  zero_pad<D, 6 * kTile>(ks);  // the six tiles lie back to back
   stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
   stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
+  stage_query_tile(first, 0);
   float dk_acc[NO][4], dv_acc[NO][4];
   zero_acc(dk_acc);
   zero_acc(dv_acc);
 
-  const int n_q = (t_len + QN - 1) / QN;
-  for (int qi = causal ? k0 / QN : 0; qi < n_q; ++qi) {
-    const int q0 = qi * QN;
-    __syncthreads();
-    stage_rows<D, QN>(qs, q + head * D, q0, t_len, rs);
-    stage_rows<D, QN>(dos, dout + head * D, q0, t_len, rs);
-    if (threadIdx.x < QN) {
-      const int row = q0 + threadIdx.x;
-      const long long i = static_cast<long long>(head) * t_len + row;
-      lse_s[threadIdx.x] = row < t_len ? lse[i] * kLog2e : 0.f;  // log2
-      delta_s[threadIdx.x] = row < t_len ? delta[i] : 0.f;
-    }
-    __syncthreads();
+  for (int qi = first; qi < n_t; ++qi) {
+    const int buf = (qi - first) & 1, q0 = qi * kTile;
+    cp_async_wait_all();
+    if (qi > first) wait_turn(qi - 1);
+    __syncthreads();  // tile qi is in; the other buffer and dss are free
+    if (qi + 1 < n_t) stage_query_tile(qi + 1, buf ^ 1);
+    if (qi > first) load_before(qi - 1);
+    const bf16* qt = qs + buf * kElems;
+    const bf16* dt = dos + buf * kElems;
+    const float* ls = lse_s + buf * kTile;
+    const float* dl = delta_s + buf * kTile;
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by QN queries.
-    float s[QN / 8][4], dp[QN / 8][4];
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by 64 queries.
+    float s[kTile / 8][4], dp[kTile / 8][4];
     zero_acc(s);
     zero_acc(dp);
 #pragma unroll
@@ -768,142 +936,79 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ld_a(ka, ks, KP, warp * 16, kd * 16, lane);
       ld_a(va, vs, KP, warp * 16, kd * 16, lane);
 #pragma unroll
-      for (int nb = 0; nb < QN / 8; nb += 2) {
+      for (int nb = 0; nb < kTile / 8; nb += 2) {
         uint32_t bq[4], bd[4];
-        ld_b<false>(bq, qs, KP, nb * 8, kd * 16, lane);
-        ld_b<false>(bd, dos, KP, nb * 8, kd * 16, lane);
+        ld_b<false>(bq, qt, KP, nb * 8, kd * 16, lane);
+        ld_b<false>(bd, dt, KP, nb * 8, kd * 16, lane);
         mma_bf16(s[nb], ka, bq[0], bq[1]);
         mma_bf16(s[nb + 1], ka, bq[2], bq[3]);
         mma_bf16(dp[nb], va, bd[0], bd[1]);
         mma_bf16(dp[nb + 1], va, bd[2], bd[3]);
       }
     }
-    const bool edge = (causal && q0 < k0 + kTile - 1) || q0 + QN > t_len ||
+    // P once a pair, and dS = P (dP - delta).
+    const bool edge = (causal && q0 < k0 + kTile - 1) || q0 + kTile > t_len ||
                       k0 + kTile > t_len;
-#pragma unroll
-    for (int nb = 0; nb < QN / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nb * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + ql, kpos = key0 + 8 * (e >> 1);
-        const bool hide =
-            edge && !(qpos < t_len && visible(qpos, kpos, t_len, causal));
-        const float p =
-            hide ? 0.f : exp2_approx(fmaf(s[nb][e], scale2, -lse_s[ql]));
-        s[nb][e] = p;
-        dp[nb][e] = p * (dp[nb][e] - delta_s[ql]);  // ds
-      }
-    }
-    // dV += P^T dO and dK += dS^T Q over the QN queries.
-#pragma unroll
-    for (int kk = 0; kk < QN / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
-      repack_a(da, dp[2 * kk], dp[2 * kk + 1]);
-      mma_rows<D>(dv_acc, pa, dos, KP, kk * 16, lane);
-      mma_rows<D>(dk_acc, da, qs, KP, kk * 16, lane);
-    }
-  }
-  store_rows<D>(dk, dk_acc, key0, head, heads, t_len, scale, scale, t);
-  store_rows<D>(dv, dv_acc, key0, head, heads, t_len, 1.f, 1.f, t);
-}
-
-template <int D>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * 4 * kTile * kRowPitch<D>;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int t_len, int heads, bool causal,
-              float scale) {
-  constexpr int KP = kRowPitch<D>;
-  constexpr int NO = kWidth<D> / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile * KP;
-  bf16* ks = dos + kTile * KP;
-  bf16* vs = ks + kTile * KP;
-
-  const int head = blockIdx.y;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
-  const int q0 = q_tile * kTile;
-  const long long rs = static_cast<long long>(heads) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
-  const float scale2 = scale * kLog2e;
-
-  zero_pad<D, 4 * kTile>(qs);  // the four tiles lie back to back
-  stage_rows<D, kTile>(qs, q + head * D, q0, t_len, rs);
-  stage_rows<D, kTile>(dos, dout + head * D, q0, t_len, rs);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
-    const long long i = static_cast<long long>(head) * t_len + row;
-    row_lse[h] = row < t_len ? lse[i] * kLog2e : 0.f;  // log2 units
-    row_delta[h] = row < t_len ? delta[i] : 0.f;
-  }
-  float dq_acc[NO][4];
-  zero_acc(dq_acc);
-
-  const int n_k = (t_len + kTile - 1) / kTile;
-  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
-    stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries by 64 keys.
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    zero_acc(s);
-    zero_acc(dp);
-#pragma unroll
-    for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
-      uint32_t qa[4], da[4];
-      ld_a(qa, qs, KP, warp * 16, kd * 16, lane);
-      ld_a(da, dos, KP, warp * 16, kd * 16, lane);
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; nb += 2) {
-        uint32_t bk[4], bv[4];
-        ld_b<false>(bk, ks, KP, nb * 8, kd * 16, lane);
-        ld_b<false>(bv, vs, KP, nb * 8, kd * 16, lane);
-        mma_bf16(s[nb], qa, bk[0], bk[1]);
-        mma_bf16(s[nb + 1], qa, bk[2], bk[3]);
-        mma_bf16(dp[nb], da, bv[0], bv[1]);
-        mma_bf16(dp[nb + 1], da, bv[2], bv[3]);
-      }
-    }
-    const bool edge = (causal && q0 < k0 + kTile - 1) || k0 + kTile > t_len ||
-                      q0 + kTile > t_len;
 #pragma unroll
     for (int nb = 0; nb < kTile / 8; ++nb) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int qpos = row0 + 8 * h, kpos = k0 + nb * 8 + 2 * t + (e & 1);
-        const bool hide =
-            edge && !(qpos < t_len && visible(qpos, kpos, t_len, causal));
-        const float p =
-            hide ? 0.f : exp2_approx(fmaf(s[nb][e], scale2, -row_lse[h]));
-        dp[nb][e] = p * (dp[nb][e] - row_delta[h]);  // ds
+      for (int j = 0; j < 2; ++j) {
+        const int ql = nb * 8 + 2 * t + j;
+        const float neg_lse = -ls[ql] * kLog2e, row_delta = dl[ql];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + j;
+          const int qpos = q0 + ql, kpos = key0 + 8 * h;
+          const bool hide =
+              edge && !(qpos < t_len && visible(qpos, kpos, t_len, causal));
+          const float p =
+              hide ? 0.f : exp2_approx(fmaf(s[nb][e], scale2, neg_lse));
+          s[nb][e] = p;
+          dp[nb][e] = p * (dp[nb][e] - row_delta);  // ds
+        }
       }
     }
-    // dQ += dS K over the tile's 64 keys.
+    // dV += P^T dO and dK += dS^T Q over the 64 queries; dS^T, rounded to
+    // bf16 as the dK product takes it, to shared memory for dQ.
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t da[4];
+      uint32_t pa[4], da[4];
+      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
       repack_a(da, dp[2 * kk], dp[2 * kk + 1]);
-      mma_rows<D>(dq_acc, da, ks, KP, kk * 16, lane);
+      mma_rows<D>(dv_acc, pa, dt, KP, kk * 16, lane);
+      mma_rows<D>(dk_acc, da, qt, KP, kk * 16, lane);
+      bf16* row = dss + (warp * 16 + g) * kDsPitch + kk * 16 + 2 * t;
+      *reinterpret_cast<uint32_t*>(row) = da[0];
+      *reinterpret_cast<uint32_t*>(row + 8 * kDsPitch) = da[1];
+      *reinterpret_cast<uint32_t*>(row + 8) = da[2];
+      *reinterpret_cast<uint32_t*>(row + 8 * kDsPitch + 8) = da[3];
+    }
+    // The previous query tile's dQ terms are added a step late, so the
+    // wait for the key tile above and the loads overlap this step.
+    if (qi > first) store_sum(qi - 1);
+    __syncthreads();  // dS^T is in shared memory; the adds are done
+    if (qi > first) pass_turn(qi - 1);
+
+    // dQ terms of queries q0 + 16 warp .. + 15: dS K over the 64 keys, dS
+    // read back transposed (row = query) by ldmatrix.trans.
+    zero_acc(dq_part);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4<true>(a, dss + (kk * 16 + (lane & 7) + 8 * (lane >> 4)) *
+                                 kDsPitch +
+                           warp * 16 + 8 * ((lane >> 3) & 1));
+      mma_rows<D>(dq_part, a, ks, KP, kk * 16, lane);
     }
   }
-  store_rows<D>(dq, dq_acc, row0, head, heads, t_len, scale, scale, t);
+  wait_turn(n_t - 1);
+  __syncthreads();
+  load_before(n_t - 1);
+  store_sum(n_t - 1);
+  __syncthreads();
+  pass_turn(n_t - 1);
+  store_rows<D>(dk, dk_acc, key0, head, heads, t_len, scale, scale, t);
+  store_rows<D>(dv, dv_acc, key0, head, heads, t_len, 1.f, 1.f, t);
 }
 
 template <int D>
@@ -924,6 +1029,11 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// bf16 at head_dim 64 and 128 is flash_attention_sm90.cu's: no instance
+// of the mma.sync kernels exists at those widths.
+template <typename T, int D>
+constexpr bool kSm90Route = std::is_same_v<T, bf16> && D >= 64;
+
 template <typename T, int D>
 cudaError_t forward(const void* q, const void* k, const void* v, void* out,
                     float* lse, int t_len, int heads, bool causal, float scale,
@@ -932,7 +1042,9 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out,
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (kSm90Route<T, D>) {
+    return cudaErrorInvalidValue;
+  } else if constexpr (std::is_same_v<T, bf16>) {
     fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
         qt, kt, vt, static_cast<T*>(out), lse, t_len, heads, causal, scale);
   } else {
@@ -944,51 +1056,66 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// parts: 1 delta, 2 dK/dV (bf16: the fused dK/dV/dQ block), 4 dQ (f32
+// only); the later ones read delta.
 template <typename T, int D>
 cudaError_t backward(const void* q, const void* k, const void* v,
                      const void* out, const void* dout, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, int t_len,
-                     int heads, bool causal, float scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(t_len) * heads;
-  delta_kernel<T, D><<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
-                       kThreads, 0, stream>>>(static_cast<const T*>(out), dot,
-                                              delta, t_len, heads);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 grid((t_len + kTile - 1) / kTile, heads);
-  if constexpr (std::is_same_v<T, bf16>) {
-    err = allow_smem(dkdv_mma_kernel<D>, dkdv_mma_smem<D>());
-    if (err != cudaSuccess) return err;
-    dkdv_mma_kernel<D><<<grid, kMmaThreads, dkdv_mma_smem<D>(), stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        t_len, heads, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = allow_smem(dq_mma_kernel<D>, dq_mma_smem<D>());
-    if (err != cudaSuccess) return err;
-    dq_mma_kernel<D><<<grid, kMmaThreads, dq_mma_smem<D>(), stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), t_len, heads,
-        causal, scale);
+                     float* delta, float* dq_acc, int* dq_turn, void* dq,
+                     void* dk, void* dv, int t_len, int heads, bool causal,
+                     float scale, int parts, cudaStream_t stream) {
+  if constexpr (kSm90Route<T, D>) {
+    return cudaErrorInvalidValue;
   } else {
-    err = allow_smem(dkdv_kernel<D>, bwd_smem<D>());
-    if (err != cudaSuccess) return err;
-    dkdv_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        t_len, heads, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = allow_smem(dq_kernel<D>, bwd_smem<D>());
-    if (err != cudaSuccess) return err;
-    dq_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), t_len, heads,
-        causal, scale);
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    const T* dot = static_cast<const T*>(dout);
+    const long long rows = static_cast<long long>(t_len) * heads;
+    cudaError_t err;
+    if (parts & 1) {
+      delta_kernel<T, D>
+          <<<static_cast<unsigned>((rows + kThreads - 1) / kThreads), kThreads,
+             0, stream>>>(static_cast<const T*>(out), dot, delta, t_len,
+                          heads);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((t_len + kTile - 1) / kTile, heads);
+    if constexpr (std::is_same_v<T, bf16>) {
+      if (parts & 2) {
+        err = allow_smem(bwd_fused_kernel<D>, fused_smem<D>());
+        if (err != cudaSuccess) return err;
+        const dim3 by_head(heads, (t_len + kTile - 1) / kTile);
+        bwd_fused_kernel<D><<<by_head, kMmaThreads, fused_smem<D>(), stream>>>(
+            qt, kt, vt, dot, lse, delta, dq_acc, dq_turn,
+            static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+            t_len, heads, causal, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+      }
+    } else {
+      if (parts & 2) {
+        err = allow_smem(dkdv_kernel<D>, bwd_smem<D>());
+        if (err != cudaSuccess) return err;
+        dkdv_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
+            qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+            static_cast<T*>(dv), t_len, heads, causal, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+      }
+      if (parts & 4) {
+        err = allow_smem(dq_kernel<D>, bwd_smem<D>());
+        if (err != cudaSuccess) return err;
+        dq_kernel<D><<<grid, kThreads, bwd_smem<D>(), stream>>>(
+            qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), t_len, heads,
+            causal, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+      }
+    }
+    return cudaSuccess;
   }
-  return cudaGetLastError();
 }
 
 // Calls F<T, D>::run(args...) for the runtime (is_bf16, d), or returns
@@ -1022,8 +1149,9 @@ cudaError_t backward(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: [t_len, heads, d] contiguous, all bf16 (is_bf16) or all
-// f32; lse: [heads, t_len] f32. d in {4, 8, 16, 32, 64, 128}, else
-// cudaErrorInvalidValue without launching.
+// f32; lse: [heads, t_len] f32. d in {4, 8, 16, 32, 64, 128} for f32 and
+// {4, 8, 16, 32} for bf16 (flash_attention_sm90.cu takes bf16 at 64 and
+// 128), else cudaErrorInvalidValue without launching.
 extern "C" int df2_flash_attention_fwd(int is_bf16, const void* q,
                                        const void* k, const void* v, void* out,
                                        float* lse, int t_len, int heads, int d,
@@ -1036,16 +1164,18 @@ extern "C" int df2_flash_attention_fwd(int is_bf16, const void* q,
 
 // The gradient of df2_flash_attention_fwd: out and lse as it wrote them,
 // dout like out; delta: [heads, t_len] f32 scratch; dq, dk, dv like q.
-// Three launches (delta, dK/dV, dQ); returns the first error.
-extern "C" int df2_flash_attention_bwd(int is_bf16, const void* q,
-                                       const void* k, const void* v,
-                                       const void* out, const void* dout,
-                                       const float* lse, float* delta, void* dq,
-                                       void* dk, void* dv, int t_len, int heads,
-                                       int d, int causal, float scale,
-                                       void* stream) {
+// bf16 also takes dq_acc, [t_len, heads, d] f32 scratch, and dq_turn,
+// [heads, ceil(t_len / 64)] int32 zeros (left zero on return). `parts`
+// picks the launches: 1 delta, 2 dK/dV (bf16: the fused block that also
+// gives dQ), 4 dQ (f32); 7 for all. Returns the first error.
+extern "C" int df2_flash_attention_bwd(
+    int is_bf16, const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* delta, float* dq_acc,
+    int* dq_turn, void* dq, void* dk, void* dv, int t_len, int heads, int d,
+    int causal, float scale, int parts, void* stream) {
   if (t_len <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(DF2_DISPATCH(
-      backward, is_bf16, d, q, k, v, out, dout, lse, delta, dq, dk, dv, t_len,
-      heads, causal != 0, scale, static_cast<cudaStream_t>(stream)));
+      backward, is_bf16, d, q, k, v, out, dout, lse, delta, dq_acc, dq_turn,
+      dq, dk, dv, t_len, heads, causal != 0, scale, parts,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -10,7 +10,9 @@ raising) and running its plain PyTorch twin on CPU tensors:
   only: on the card it refuses to run under autograd (blocks/flash-mode
   training there is a later slice, ROADMAP.md Queue 1), while on the CPU
   the plain version trains through PyTorch's autograd.
-- :func:`flash_attention` (K3, ``csrc/flash_attention.cu``): plain or
+- :func:`flash_attention` (K3, ``csrc/flash_attention_sm90.cu`` for bf16
+  at head_dim 64 and 128, ``csrc/flash_attention.cu`` otherwise; see
+  :func:`k3_route`): plain or
   causal softmax attention over ``[T, heads, head_dim]``, forward and a
   hand-written backward joined in :class:`FlashAttention`; its twin is
   :func:`chunked_attention`, which the JAX package's backward
@@ -216,6 +218,79 @@ def chunked_attention(q, k, v, causal: bool = False, block: int = 512):
 chunked_attention.calls = 0
 
 
+def _tile_scores(q, k, q0: int, k0: int, t: int, causal: bool,
+                 scale: float):
+    """Scaled f32 scores [h, tq, tk] of a query tile (rows q0 ..) against
+    a key tile (rows k0 ..) of length-t sequences, and the mask of visible
+    pairs (keys past T absent; under causal no later key)."""
+    s = torch.einsum("nhd,mhd->hnm", q.float(), k.float()) * scale
+    q_pos = q0 + torch.arange(q.shape[0], device=q.device)
+    k_pos = k0 + torch.arange(k.shape[0], device=q.device)
+    mask = (k_pos < t)[None, :] & (q_pos < t)[:, None]
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    return s, mask[None]
+
+
+def flash_forward_plain(q, k, v, causal: bool, tile: int = 128):
+    """Plain twin of the K3 forward kernels' arithmetic, tile by tile:
+    (out like q, lse [h, T] f32), online softmax over key tiles of
+    ``tile`` rows with f32 (m, l, acc), p rounded to q's dtype before
+    P·V, lse = m + log(l)."""
+    t, heads, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((heads, t), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((heads, t, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, t, tile):
+        s, mask = _tile_scores(q, k[k0:k0 + tile], 0, k0, t, causal,
+                               scale)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        fold = torch.exp(m - m_new)
+        l = l * fold + p.sum(-1)
+        acc = acc * fold[..., None] + torch.einsum(
+            "hnm,mhd->hnd", p.to(q.dtype).float(), v[k0:k0 + tile].float())
+        m = m_new
+    out = (acc / l.clamp_min(1e-20)[..., None]).transpose(0, 1)
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def flash_backward_plain(q, k, v, out, dout, lse, causal: bool,
+                         tile: int = 64):
+    """Plain twin of the K3 backward kernels' order, tile by tile:
+    delta = rowsum(dO ∘ O) from ``out`` as given (the kernel's rounded
+    out); for each key tile from the last, for each query tile in
+    ascending order, P once (p = exp(s − lse), masked) and dS = P ∘ (dP −
+    delta), both rounded to q's dtype where a product takes them; dK and
+    dV summed over the query tiles, dQ's terms added in descending
+    key-tile order. Returns (dq, dk, dv) like q."""
+    t, heads, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    delta = (dout.float() * out.float()).sum(-1).transpose(0, 1)  # [h, T]
+    dq = torch.zeros((heads, t, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for k0 in reversed(range(0, t, tile)):
+        kj, vj = k[k0:k0 + tile], v[k0:k0 + tile]
+        for q0 in range(k0 if causal else 0, t, tile):
+            qi, doi = q[q0:q0 + tile], dout[q0:q0 + tile]
+            s, mask = _tile_scores(qi, kj, q0, k0, t, causal, scale)
+            p = torch.exp(s - lse[:, q0:q0 + tile, None]) * mask
+            dp = torch.einsum("nhd,mhd->hnm", doi.float(), vj.float())
+            ds = (p * (dp - delta[:, q0:q0 + tile, None])).to(q.dtype).float()
+            p = p.to(q.dtype).float()
+            dv[:, k0:k0 + tile] += torch.einsum("hnm,nhd->hmd", p,
+                                                doi.float())
+            dk[:, k0:k0 + tile] += torch.einsum("hnm,nhd->hmd", ds,
+                                                qi.float())
+            dq[:, q0:q0 + tile] += torch.einsum("hnm,mhd->hnd", ds,
+                                                kj.float())
+    return tuple((g * mul).transpose(0, 1).to(q.dtype)
+                 for g, mul in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
 def check_flash_inputs(q, k, v) -> None:
     """Raise unless q/k/v are what the K3 kernels take: one shape
     [T, h, d] with T, h >= 1 and d in :data:`HEAD_DIMS`, one dtype (bf16
@@ -239,22 +314,110 @@ def check_flash_inputs(q, k, v) -> None:
         raise ValueError("q, k and v must be 16-byte aligned")
 
 
+SM90_HEAD_DIMS = (64, 128)  # bf16 widths of csrc/flash_attention_sm90.cu
+BWD_DELTA, BWD_KV, BWD_Q = 1, 2, 4   # the backward's launches (``parts``)
+BWD_ALL = BWD_DELTA | BWD_KV | BWD_Q
+
+
+def k3_route(dtype, head_dim: int, row_bytes: int) -> str:
+    """Which K3 kernels take q/k/v of this dtype, head_dim and row stride
+    (bytes from one position to the next, heads · head_dim · element
+    size): ``"sm90"`` (TMA + wgmma, ``csrc/flash_attention_sm90.cu``) for
+    bf16 at head_dim 64 or 128, where TMA's 16-byte global strides hold;
+    ``"mma"`` (``mma.sync`` and ``cp.async``, ``csrc/flash_attention.cu``)
+    for other bf16; ``"fma"`` (f32 FMAs, same file) for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if head_dim in SM90_HEAD_DIMS and row_bytes % 16 == 0:
+        return "sm90"
+    return "mma"
+
+
+def _route(q) -> str:
+    _, heads, d = q.shape
+    return k3_route(q.dtype, d, heads * d * q.element_size())
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_lib() -> ctypes.CDLL:
     return bind_flash_library(load_library("flash_attention"))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm90_lib() -> ctypes.CDLL:
+    return bind_sm90_library(load_library("flash_attention_sm90"))
+
+
 def bind_flash_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the K3 entry points' C signatures on a loaded library."""
+    """Declare the C signatures of ``csrc/flash_attention.cu``."""
     lib.df2_flash_attention_fwd.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p])
     lib.df2_flash_attention_bwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.df2_flash_attention_fwd.restype = ctypes.c_int
     lib.df2_flash_attention_bwd.restype = ctypes.c_int
     return lib
+
+
+def bind_sm90_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/flash_attention_sm90.cu``."""
+    lib.df2_flash_attention_sm90_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.df2_flash_attention_sm90_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.df2_flash_attention_sm90_fwd.restype = ctypes.c_int
+    lib.df2_flash_attention_sm90_bwd.restype = ctypes.c_int
+    return lib
+
+
+def backward_scratch(q) -> dict:
+    """The backward's device scratch for q's shape and route: delta
+    [h, T] f32; on the "mma" route also dQ's f32 sum [T, h, d] and its
+    per-(head, 64-row query tile) turn counters, int32 zeros that the
+    kernel leaves zero."""
+    t, heads, d = q.shape
+    scratch = {"delta": torch.empty((heads, t), dtype=torch.float32,
+                                    device=q.device),
+               "dq_acc": None, "dq_turn": None}
+    if _route(q) == "mma":
+        scratch["dq_acc"] = torch.empty((t, heads, d), dtype=torch.float32,
+                                        device=q.device)
+        scratch["dq_turn"] = torch.zeros((heads, -(-t // 64)),
+                                         dtype=torch.int32, device=q.device)
+    return scratch
+
+
+def launch_backward(q, k, v, out, dout, lse, causal: bool, dq, dk, dv,
+                    scratch: dict, parts: int = BWD_ALL) -> str:
+    """Launch the K3 backward's ``parts`` (``BWD_DELTA``, ``BWD_KV``,
+    ``BWD_Q``; later parts read delta from ``scratch``) into dq, dk and
+    dv; counts nothing. On the "mma" route ``BWD_KV`` is the fused block
+    that also gives dq, and ``BWD_Q`` launches nothing. Returns the
+    route."""
+    t, heads, d = q.shape
+    route = _route(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch["delta"].data_ptr()]
+    grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+    scale = 1.0 / math.sqrt(d)
+    if route == "sm90":
+        lib = _sm90_lib()
+        rc = lib.df2_flash_attention_sm90_bwd(
+            *ptrs, *grads, t, heads, d, int(causal), scale, parts, stream)
+    else:
+        fused = [None if scratch[n] is None else scratch[n].data_ptr()
+                 for n in ("dq_acc", "dq_turn")]
+        lib = _flash_lib()
+        rc = lib.df2_flash_attention_bwd(
+            int(q.dtype == torch.bfloat16), *ptrs, *fused, *grads, t, heads,
+            d, int(causal), scale, parts, stream)
+    check(lib, rc, "flash_attention backward launch")
+    return route
 
 
 def flash_forward(q, k, v, causal: bool):
@@ -263,31 +426,30 @@ def flash_forward(q, k, v, causal: bool):
     t, heads, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((heads, t), dtype=torch.float32, device=q.device)
-    lib = _flash_lib()
-    check(lib, lib.df2_flash_attention_fwd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), lse.data_ptr(), t, heads, d,
-        int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream),
-        "flash_attention launch")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    if _route(q) == "sm90":
+        lib = _sm90_lib()
+        rc = lib.df2_flash_attention_sm90_fwd(
+            *ptrs, t, heads, d, int(causal), 1.0 / math.sqrt(d), stream)
+    else:
+        lib = _flash_lib()
+        rc = lib.df2_flash_attention_fwd(
+            int(q.dtype == torch.bfloat16), *ptrs, t, heads, d, int(causal),
+            1.0 / math.sqrt(d), stream)
+    check(lib, rc, "flash_attention launch")
     flash_attention.launches += 1
     return out, lse
 
 
 def flash_backward(q, k, v, out, dout, lse, causal: bool):
-    """Launch the K3 backward (delta, dK/dV, dQ kernels) for the forward
-    that gave out and lse; dout like out. Returns dq, dk, dv like q."""
-    t, heads, d = q.shape
+    """Launch the K3 backward (delta, then dK/dV and dQ: two kernels on
+    the "sm90" and "fma" routes, one fused on "mma") for the forward that
+    gave out and lse; dout like out. Returns dq, dk, dv like q."""
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((heads, t), dtype=torch.float32, device=q.device)
-    lib = _flash_lib()
-    check(lib, lib.df2_flash_attention_bwd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), t,
-        heads, d, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream),
-        "flash_attention backward launch")
+    launch_backward(q, k, v, out, dout, lse, causal, dq, dk, dv,
+                    backward_scratch(q))
     flash_attention.backward_launches += 1
     return dq, dk, dv
 
@@ -321,8 +483,8 @@ def flash_attention(q, k, v, causal: bool = False):
     :data:`CPU_BLOCK` columns, with PyTorch's autograd. CUDA tensors
     launch the K3 kernels (forward, and the backward under autograd) or
     raise — see :func:`check_flash_inputs` for what they take. Unlike the
-    JAX function this takes no ``block_q``/``block_k``: the kernels tile
-    by 64 rows, and the CPU scan's block is fixed.
+    JAX function this takes no ``block_q``/``block_k``: the kernels pick
+    their own tiles, and the CPU scan's block is fixed.
     """
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return chunked_attention(q, k, v, causal, block=CPU_BLOCK)

@@ -23,6 +23,9 @@ from dragonfly2_tpu_torch.ops.flash_attention import (
     HEAD_DIMS,
     check_flash_inputs,
     chunked_attention,
+    flash_backward_plain,
+    flash_forward_plain,
+    k3_route,
 )
 
 # The JAX tests' own tolerances: forward in f32 (the same algebra in
@@ -192,3 +195,66 @@ def test_off_cpu_never_falls_back_to_the_scan():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     assert chunked_attention.calls == before
+
+
+@pytest.mark.parametrize("dtype,d,heads,route", [
+    pytest.param(torch.bfloat16, 128, 4, "sm90", id="bf16-128"),
+    pytest.param(torch.bfloat16, 64, 3, "sm90", id="bf16-64"),
+    pytest.param(torch.bfloat16, 32, 8, "mma", id="bf16-32"),
+    pytest.param(torch.bfloat16, 8, 8, "mma", id="bf16-8"),
+    pytest.param(torch.bfloat16, 4, 3, "mma", id="bf16-4x3-24-byte-rows"),
+    pytest.param(torch.float32, 128, 4, "fma", id="f32-128"),
+    pytest.param(torch.float32, 8, 8, "fma", id="f32-8"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, heads, route):
+    row_bytes = heads * d * torch.empty((), dtype=dtype).element_size()
+    assert k3_route(dtype, d, row_bytes) == route
+
+
+def test_route_never_gives_tma_a_stride_it_cannot_take():
+    """TMA needs 16-byte global strides: a head_dim-64 row of 24 bytes
+    (not a shape the wrapper takes, but the rule the route holds) and
+    head_dim 4 with 3 heads (24-byte rows) stay off the sm90 route."""
+    assert k3_route(torch.bfloat16, 64, 24) == "mma"
+    assert all(k3_route(torch.bfloat16, 4, heads * 8) == "mma"
+               for heads in range(1, 9))
+
+
+def _jax_loss_grads(q, k, v, causal):
+    return jax.grad(lambda q, k, v: (jax_chunked_attention(
+        q, k, v, causal, 512) ** 2).sum(), argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("t", [1, 100, 300])
+def test_tile_backward_matches_jax_gradient(t, d, causal):
+    """The kernels' order written as plain tile loops (forward with lse;
+    backward with P once, dS rounded where a product takes it, dQ added
+    in ascending key-tile order) against JAX's gradient of
+    chunked_attention for the loss sum(out²), in f32."""
+    q, k, v = _qkv(t, 2, d, seed=t + d)
+    ref_out = np.asarray(jax_chunked_attention(q, k, v, causal, 512))
+    ref = _jax_loss_grads(q, k, v, causal)
+    tq, tk, tv = _torch(q, k, v)
+    out, lse = flash_forward_plain(tq, tk, tv, causal)
+    _close(out.numpy(), ref_out, FWD_TOL)
+    grads = flash_backward_plain(tq, tk, tv, out, 2 * out, lse, causal)
+    for got, want in zip(grads, ref):
+        _close(got.numpy(), want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tile_backward_bf16_near_f32(causal):
+    """In bf16 (p and dS rounded as the kernels round them) the tile loops
+    stay within the bf16 tolerance of JAX's f32 gradient, relative to its
+    largest entry."""
+    q, k, v = _qkv(100, 2, 8, seed=11)
+    ref = _jax_loss_grads(q, k, v, causal)
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _torch(q, k, v))
+    out, lse = flash_forward_plain(tq, tk, tv, causal)
+    grads = flash_backward_plain(tq, tk, tv, out, 2 * out, lse, causal)
+    for got, want in zip(grads, ref):
+        want = np.asarray(want)
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= BF16_TOL * np.abs(want).max(), err
