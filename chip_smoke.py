@@ -47,9 +47,12 @@ Phases (any failure exits nonzero, before the final line):
 7. embedding-pass times and peak device memory;
 8. K3 (``flash_attention``, forward and backward) at the long-context
    tier, T = 32k causal: [32768, 8, 8] in bf16 (the main path's shape,
-   the "mma" route: ``mma.sync`` forward, fused backward) and f32 (the
-   "fma" route), [32768, 4, 128] in bf16 (the "sm90" route: TMA +
-   ``wgmma``, which it must take), against the plain version
+   the "mma" route: the ``mma.sync`` ring forward with its exponentials
+   split between the SFU and an FP32 polynomial, whose split the library
+   must report as the plain twin has it, and the fused backward) and f32
+   (the "fma" route), [32768, 4, 128] in bf16 (the "sm90" route: TMA +
+   ``wgmma``, which it must take), [32768, 8, 32] in bf16 (the "mma"
+   route at its widest), against the plain version
    (``chunked_attention``) run in f32 on the same values, row by row,
    bit-identical across two launches, timed beside the plain version,
    SDPA and the bound (bytes, products or exponentials), the backward
@@ -647,6 +650,8 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
                bound_by=bwd_b[1], library_ms=lib_bwd_ms)
     exp_ms = {"sfu_and_fp32_poly": pairs / PEAK_EXP_PER_S * 1e3,
               "sfu_only": pairs / SFU_EXP_PER_S * 1e3}
+    if route == "mma":
+        fwd["exp_split"] = k3_exp_split(torch, d)
     log("kernel", **fwd, k3_route=route, shape=shape, errors=errs, tol=tol,
         exp_ms=exp_ms, product_ms=4 * d * pairs / peak * 1e3,
         sdpa_max_abs_diff=sdpa_err, bit_identical=True,
@@ -657,6 +662,38 @@ def check_k3(torch, t, heads, d, dtype) -> dict:
         backward_parts_ms=parts_ms)
     return {"fwd": fwd, "bwd": bwd, "route": route, "parts_ms": parts_ms,
             "shape": shape}
+
+
+def k3_exp_split(torch, d: int) -> dict:
+    """The bf16 forward kernel's tiling and exponential split as its
+    library reports them, which must be the plain twin's at every
+    head_dim; at head_dim d the polynomial's share of the pairs, its
+    stated relative-error limit, and the largest relative error of the
+    plain ``exp2_poly`` (the kernel's arithmetic) against exp2 in f64
+    over [-126, 0] on the card."""
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        EXP2_POLY_REL_ERR,
+        FORWARD_TILING,
+        exp2_poly,
+        kernel_exp_split,
+    )
+
+    for dim, tiling in FORWARD_TILING.items():
+        if kernel_exp_split(dim) != tiling:
+            raise AssertionError(f"head_dim {dim}: the kernel tiles "
+                                 f"{kernel_exp_split(dim)}, the plain twin "
+                                 f"{tiling}")
+    tile, poly = FORWARD_TILING[d]
+    x = torch.linspace(-126, 0, 1_000_001, dtype=torch.float64,
+                       device="cuda")
+    err = float((exp2_poly(x.float()).double() / torch.exp2(x) - 1)
+                .abs().max())
+    if not err <= EXP2_POLY_REL_ERR:
+        raise AssertionError(f"exp2_poly relative error {err} over "
+                             f"{EXP2_POLY_REL_ERR}")
+    return {"poly_share": 8 * poly / tile, "poly_blocks": poly,
+            "key_tile": tile, "poly_rel_err_limit": EXP2_POLY_REL_ERR,
+            "poly_max_rel_err": err}
 
 
 def check_k3_shapes(torch) -> None:
@@ -1225,17 +1262,24 @@ def main() -> int:
     if wide["route"] != "sm90":
         raise AssertionError(f"[{LONG_T}, 4, 128] bf16 took the "
                              f"{wide['route']} route, not sm90")
-    # The K3 rows are the main path's shape; the head_dim-128 figures
-    # ride along under "at_head_dim_128".
+    dim32 = check_k3(torch, LONG_T, 8, 32, torch.bfloat16)
+    if dim32["route"] != "mma":
+        raise AssertionError(f"[{LONG_T}, 8, 32] bf16 took the "
+                             f"{dim32['route']} route, not mma")
+    # The K3 rows are the main path's shape; the head_dim-128 and
+    # head_dim-32 figures ride along under "at_head_dim_128" / "_32".
     for part in ("fwd", "bwd"):
         k3[part]["k3_route"] = k3["route"]
         k3[part]["backward_parts_ms"] = k3["parts_ms"]
-        k3[part]["at_head_dim_128"] = {
-            key: wide[part][key] for key in
-            ("source", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "max_abs_err")} | {
-            "k3_route": wide["route"], "shape": wide["shape"],
-            "backward_parts_ms": wide["parts_ms"]}
+        for key, other in (("at_head_dim_128", wide),
+                           ("at_head_dim_32", dim32)):
+            k3[part][key] = {
+                name: other[part][name] for name in
+                ("source", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err", "exp_split")
+                if name in other[part]} | {
+                "k3_route": other["route"], "shape": other["shape"],
+                "backward_parts_ms": other["parts_ms"]}
     rows += [k3["fwd"], k3["bwd"]]
     check_k3_shapes(torch)
     ulysses_launches = run_ulysses(torch, counts)

@@ -19,21 +19,24 @@
 // What bounds it on this card: operations. At the long-context shape
 // ([32768, 8, 8] causal) the products are 4.3e9 (q, k) pairs x 4d flops,
 // ~0.14 ms at the bf16 tensor-core rate, but every pair also needs one
-// exp, 4.3e9 of them, ~1 ms at the SFU's 16 a clock an SM: at head_dim 8
-// the exponentials set the bound. At [32768, 4, 128] the products do
-// (~1.1e12 flops, ~1.1 ms). Bytes are small (17 MB and 134 MB in bf16).
+// exp, 4.3e9 of them, ~1 ms at the SFU's 16 a clock an SM, and a few
+// issue slots of FP32 work: at head_dim 8 the per-pair work sets the
+// bound. At [32768, 4, 128] the products do (~1.1e12 flops, ~1.1 ms).
+// Bytes are small (17 MB and 134 MB in bf16).
 //
 // This source takes f32 at every head_dim and bf16 below 64;
 // flash_attention_sm90.cu takes bf16 at 64 and 128 (TMA and wgmma). bf16
 // inputs take the tensor cores through mma.sync m16n8k16 in
-// FlashAttention-2's warp layout: a block of 4 warps per (tile of 64
-// rows, head), each warp owning 16 rows whose scores stay in its
-// registers, the other side's tiles of 64 rows staged in shared memory
-// (see the bf16 section below). f32 inputs take f32 FMAs out of shared
-// memory: a block of 256 threads per (query tile, head), each thread
-// owning one tile row and every fourth column, so a warp reads one tile
-// row's values as broadcasts and the row-per-lane operand at an odd
-// stride, free of bank conflicts. Under causal the key loop stops at the
+// FlashAttention-2's warp layout, each warp owning 16 rows whose scores
+// stay in its registers: the forward is a producer warp feeding a
+// cp.async ring of 128-key tiles to 8 consumer warps (128 query rows),
+// with the exponentials split between the SFU and a polynomial on the
+// FP32 pipes (see fwd_ring_kernel); the backward stages the other side's
+// tiles of 64 rows in shared memory (see the bf16 section below). f32
+// inputs take f32 FMAs out of shared memory: a block of 256 threads per
+// (query tile, head), each thread owning one tile row and every fourth
+// column, so a warp reads one tile row's values as broadcasts and the
+// row-per-lane operand at an odd stride, free of bank conflicts. Under causal the key loop stops at the
 // diagonal tile (K3's block skip as a loop bound), the blocks with the
 // most key tiles are scheduled first; the bf16 kernels test positions
 // only on tiles that hold a masked pair.
@@ -404,17 +407,17 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 
 // ---------------------------------------------------------------------------
 // bf16: the products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate), FlashAttention-2's warp layout. A block of 4 warps owns
-// 64 rows, each warp 16 of them; a warp's scores sit in its registers as
-// mma accumulators, and the accumulator of P (or dS) is repacked in
-// registers as the A operand of the next product, so no score leaves the
-// warp and the only block-wide syncs are around staging the next tile.
-// Tiles are staged row-major as they lie in memory, 16 bytes a load, and
-// every operand comes out of shared memory with ldmatrix (transposed where
-// the product wants the other orientation), so nothing is staged twice.
-// Rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall on
-// distinct banks; head_dim below 16 is padded with zeros to the mma's
-// depth (k 16) and width (n 8).
+// f32 accumulate), FlashAttention-2's warp layout. A backward block of 4
+// warps owns 64 rows (a forward block 8 warps and 128, see
+// fwd_ring_kernel), each warp 16 of them; a warp's scores sit in its
+// registers as mma accumulators, and the accumulator of P (or dS) is
+// repacked in registers as the A operand of the next product, so no score
+// leaves the warp. Tiles are staged row-major as they lie in memory, 16
+// bytes a load, and every operand comes out of shared memory with
+// ldmatrix (transposed where the product wants the other orientation), so
+// nothing is staged twice. Rows are padded by 16 bytes, so the 8 rows an
+// ldmatrix reads fall on distinct banks; head_dim below 16 is padded with
+// zeros to the mma's depth (k 16) and width (n 8).
 
 using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows = kTile
@@ -435,11 +438,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With trans each matrix arrives transposed.
+// row l % 8 of matrix l / 8 (a shared-space address, or a pointer). With
+// trans each matrix arrives transposed.
 template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
   if constexpr (kTrans) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -452,6 +459,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(addr));
   }
+}
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  ldsm_x4_at<kTrans>(r, smem_u32(p));
 }
 
 // The A operand: rows row0 .. row0 + 15, columns col .. col + 15 of a
@@ -477,6 +488,16 @@ __device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile,
   }
 }
 
+// mma.sync m16n8k8: A 16 x 8 (a0 rows g, a1 rows g + 8), B 8 x 8.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x on the special-function unit (denormal results flush to 0). The
@@ -486,6 +507,27 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 2^x on the FP32 pipes, FlashAttention-4's way: 2^x = 2^j * 2^f with j =
+// floor(x) and f = x - j in [0, 1); 2^f is a cubic (the minimax fit of
+// relative error with p(0) = 1, at most 8.6e-5: ops/flash_attention.py's
+// EXP2_POLY), which stays in [1, 2), so j is added to its exponent bits
+// exactly. Adding 1.5 * 2^23 rounding down leaves j in the low mantissa
+// bits of t, so t's bits shifted by 23 are j << 23 (mod 2^32). Like
+// ex2.approx.ftz, below -126 (a masked -inf too) it gives exactly 0.
+// Three FADDs, three FFMAs, a shift and an add, a compare and a select:
+// no SFU.
+constexpr float kPoly1 = 0.6951168f, kPoly2 = 0.22764485f,
+                kPoly3 = 0.077067174f;
+__device__ __forceinline__ float exp2_poly(float x) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+  const float t = __fadd_rd(x, kMagic);
+  const float f = x - (t - kMagic);
+  const float p = fmaf(fmaf(fmaf(kPoly3, f, kPoly2), f, kPoly1), f, 1.f);
+  const float r =
+      __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+  return x < -126.f ? 0.f : r;
 }
 
 template <int N>
@@ -513,11 +555,11 @@ __device__ __forceinline__ void repack_a(uint32_t (&a)[4], const float (&lo)[4],
 
 // Zeroes columns D .. kDepth - 1 of N staged rows: the depth padding,
 // written once, since staging writes only the first D columns.
-template <int D, int N>
+template <int D, int N, int kN = kMmaThreads>
 __device__ __forceinline__ void zero_pad(bf16* dst) {
   constexpr int W = kDepth<D> - D;
   if constexpr (W > 0) {
-    for (int i = threadIdx.x; i < N * W; i += kMmaThreads) {
+    for (int i = threadIdx.x; i < N * W; i += kN) {
       dst[(i / W) * kRowPitch<D> + D + i % W] = __float2bfloat16(0.f);
     }
   }
@@ -525,15 +567,15 @@ __device__ __forceinline__ void zero_pad(bf16* dst) {
 
 // Rows [row0, row0 + N) of one head of a [T, heads, D] bf16 tensor into
 // dst[N][kRowPitch], 16 bytes a load (8 at head_dim 4); rows at or past
-// t_len are 0.
-template <int D, int N>
+// t_len are 0. kN threads share the work.
+template <int D, int N, int kN = kMmaThreads>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            int row0, int t_len,
                                            long long row_stride) {
   constexpr int V = D < 8 ? D : 8;  // bf16 a vector
   constexpr int kPerRow = D / V;
   using Vec = std::conditional_t<V == 8, uint4, uint2>;
-  for (int i = threadIdx.x; i < N * kPerRow; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < N * kPerRow; i += kN) {
     const int r = i / kPerRow, c = (i % kPerRow) * V;
     const int t = row0 + r;
     Vec val{};
@@ -584,128 +626,6 @@ __device__ __forceinline__ void mma_rows(float (&acc)[kWidth<D> / 8][4],
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out,
-               float* __restrict__ lse, int t_len, int heads, bool causal,
-               float scale) {
-  constexpr int KP = kRowPitch<D>;
-  constexpr int NO = kWidth<D> / 8;  // output accumulators, 8 columns each
-  __shared__ __align__(16) bf16 ks[kTile * KP];  // Q first, then K tiles
-  __shared__ __align__(16) bf16 vs[kTile * KP];
-
-  const int head = blockIdx.y;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest first
-  const int q0 = q_tile * kTile;
-  const long long rs = static_cast<long long>(heads) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
-  const float scale2 = scale * kLog2e;
-
-  zero_pad<D, kTile>(ks);
-  zero_pad<D, kTile>(vs);
-  stage_rows<D, kTile>(ks, q + head * D, q0, t_len, rs);
-  __syncthreads();
-  uint32_t qa[kDepth<D> / 16][4];
-#pragma unroll
-  for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
-    ld_a(qa[kd], ks, KP, warp * 16, kd * 16, lane);
-  }
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NO][4];
-  zero_acc(o);
-
-  const int n_k = (t_len + kTile - 1) / kTile;
-  const int last = causal ? min(n_k - 1, q_tile) : n_k - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    stage_rows<D, kTile>(ks, k + head * D, k0, t_len, rs);
-    stage_rows<D, kTile>(vs, v + head * D, k0, t_len, rs);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-    zero_acc(s);
-#pragma unroll
-    for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; nb += 2) {
-        uint32_t b[4];
-        ld_b<false>(b, ks, KP, nb * 8, kd * 16, lane);
-        mma_bf16(s[nb], qa[kd], b[0], b[1]);
-        mma_bf16(s[nb + 1], qa[kd], b[2], b[3]);
-      }
-    }
-    // The running max m is kept in unscaled score units (scale > 0, so
-    // the max commutes with it); a masked score counts as NEG_INF there.
-    const bool edge = (causal && q0 < k0 + kTile - 1) || k0 + kTile > t_len;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (edge && !visible(row0 + 8 * (e >> 1), k0 + nb * 8 + 2 * t + (e & 1),
-                             t_len, causal)) {
-          s[nb][e] = -CUDART_INF_F;  // exp2 of it is 0: p is masked
-        }
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
-      }
-    }
-    float fold[2], sum[2] = {0.f, 0.f}, shift[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      mx[h] = fmaxf(m[h], mx[h]);  // the new running max
-      shift[h] = -mx[h] * scale2;
-    }
-#pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2_approx(fmaf(s[nb][e], scale2, shift[e >> 1]));
-        s[nb][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      fold[h] = exp2_approx((m[h] - mx[h]) * scale2);
-      l[h] = l[h] * fold[h] + sum[h];
-      m[h] = mx[h];
-    }
-#pragma unroll
-    for (int nb = 0; nb < NO; ++nb) {
-      o[nb][0] *= fold[0];
-      o[nb][1] *= fold[0];
-      o[nb][2] *= fold[1];
-      o[nb][3] *= fold[1];
-    }
-    // O += P . V, p rounded to bf16 in the repack (K3's rule).
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
-      mma_rows<D>(o, pa, vs, KP, kk * 16, lane);
-    }
-  }
-  store_rows<D>(out, o, row0, head, heads, t_len, 1.f / fmaxf(l[0], 1e-20f),
-                1.f / fmaxf(l[1], 1e-20f), t);
-  if (t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (row0 + 8 * h < t_len) {
-        lse[static_cast<long long>(head) * t_len + row0 + 8 * h] =
-            m[h] * scale + logf(l[h]);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16 backward below head_dim 64: one block per (key tile, head) computes
 // P and dS once per visible pair and gives all three gradients. dK and dV
@@ -749,13 +669,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // stage_rows through cp.async: rows at or past t_len fill with zeros.
-template <int D, int N>
+// kN threads share the work, `first` this thread's place among them (the
+// block's threads, or one warp's lanes).
+template <int D, int N, int kN = kMmaThreads>
 __device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* src,
                                                  int row0, int t_len,
-                                                 long long row_stride) {
+                                                 long long row_stride,
+                                                 int first) {
   constexpr int V = D < 8 ? D : 8;  // bf16 a copy
   constexpr int kPerRow = D / V;
-  for (int i = threadIdx.x; i < N * kPerRow; i += kMmaThreads) {
+  for (int i = first; i < N * kPerRow; i += kN) {
     const int r = i / kPerRow, c = (i % kPerRow) * V;
     const int t = row0 + r;
     const bool ok = t < t_len;
@@ -833,9 +756,10 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage_query_tile = [&](int qi, int buf) {
     const int q0 = qi * kTile;
-    stage_rows_async<D, kTile>(qs + buf * kElems, q + head * D, q0, t_len, rs);
+    stage_rows_async<D, kTile>(qs + buf * kElems, q + head * D, q0, t_len, rs,
+                               threadIdx.x);
     stage_rows_async<D, kTile>(dos + buf * kElems, dout + head * D, q0, t_len,
-                               rs);
+                               rs, threadIdx.x);
     const long long row = static_cast<long long>(head) * t_len;
     stage_floats_async(lse_s + buf * kTile, lse + row, q0, t_len);
     stage_floats_async(delta_s + buf * kTile, delta + row, q0, t_len);
@@ -1011,6 +935,324 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv, dv_acc, key0, head, heads, t_len, 1.f, 1.f, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward below head_dim 64, the Ulysses path's forward. It replaces
+// `_kernel` / `_pallas_forward` (dragonfly2_tpu/ops/flash_attention.py:113)
+// at these widths.
+//
+// What bounds it: the work of each (query, key) pair, not bytes and not
+// the products. At [32768, 8, 8] causal each of the 4.3e9 visible pairs
+// needs one exponential (the SFU does 16 a clock an SM: 1.03 ms for all
+// of them) and about 4.5 issue slots beside it (the score's FMA, the max,
+// the row sum's add, half a bf16 pack) against 4 warp instructions a
+// clock an SM: ~0.6 ms, or ~0.9 ms with the per-tile work. The products
+// run beside both on mma.sync: 0.14 ms at the tensor cores' peak, so
+// mma.sync is enough; wgmma would pad head_dim 4 and 8 the same way and
+// add descriptors and fences to a pipe that is not the limit.
+//
+// The design:
+// - Loads off the critical path. A producer warp keeps kFwdStages tiles
+//   of K and V in flight in a ring in shared memory with cp.async (16-byte
+//   copies, 8 at head_dim 4: TMA cannot take those, a box's inner extent
+//   must be 16 bytes, nor the 24-byte rows of [T, 3, 4]). Each producer
+//   lane's copies arrive on the stage's full mbarrier as they land
+//   (cp.async.mbarrier.arrive.noinc); each consumer warp arrives on the
+//   stage's empty mbarrier when it has read the stage. No block-wide
+//   barrier after the start. Producer and consumers walk the same key
+//   tiles, 0 .. last, so nobody waits on a stage nobody fills. Keys at or
+//   past T land as zeros; the depth padding at head_dim 4 and 8 is zeroed
+//   in every stage before the ring starts and never written.
+// - Fewer instructions a pair. 128 query rows a block (8 consumer warps
+//   of 16 rows) against 128-key tiles (64 at head_dim 32), so a warp pays
+//   the max's shuffles, a row's fold exponential and the rescale of o
+//   once in 2048 pairs; the row sum stays a per-lane part until the end
+//   (the fold is common to a row's four lanes); the position test runs
+//   in a branch of its own, only on a tile that holds a masked pair
+//   (under causal the diagonal ones, and the tile that holds T); S = Q K^T
+//   takes mma m16n8k8 at head_dim <= 8 (half the products and operand
+//   loads of a depth padded to 16); ldmatrix addresses are computed once.
+// - Latency hidden inside a warp: the exponentials of 16 keys at a time
+//   are followed by their P . V products, so the SFU and the tensor cores
+//   overlap; the max and the sum run as independent chains.
+// - Exponentials split between the SFU and the FP32 pipes: the last
+//   kPolyBlocks of a tile's blocks of 8 keys take exp2_poly, the rest
+//   ex2.approx, so 1/16 of the pairs (1/8 at head_dim 32) skip the SFU.
+//   Fixed by position, so results are bit-identical across launches;
+//   both forms give exactly 0 below -126 and for a masked score. On the
+//   H100 the split does not pay: a polynomial exp2 costs about 9 issue
+//   slots where ex2.approx costs one, and issue slots are as scarce as
+//   the SFU here, so a share of 0 measured fastest (PERF.md,
+//   tests/k3_forward_timing.py --poly-blocks); one block a tile, the
+//   smallest share, keeps the split in use.
+// Heads lie along the grid's fast axis and query tiles run from the last,
+// so blocks launch heaviest first.
+
+// The tiling per head_dim, picked on the card (PERF.md): 128-key tiles
+// and two blocks an SM below head_dim 32; at 32, where the products and
+// the wider rows take more registers, 64-key tiles and three blocks an SM.
+template <int D>
+constexpr int kKeyTile = D < 32 ? 128 : 64;  // keys of a ring stage
+template <int D>
+constexpr int kFwdMinBlocks = D < 32 ? 2 : 3;  // blocks an SM holds at once
+// How many of a key tile's blocks of 8 keys (the last ones) take exp2_poly.
+constexpr int kPolyBlocks = 1;
+constexpr int kFwdWarps = 8;                       // consumer warps
+constexpr int kFwdRows = 16 * kFwdWarps;           // query rows a block
+constexpr int kFwdThreads = 32 * (kFwdWarps + 1);  // and the producer warp
+constexpr int kFwdStages = 3;
+constexpr int kBarBytes = 64;  // the ring's mbarriers, ahead of the tiles
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// One arrival on bar once this thread's earlier cp.async copies have
+// landed; the arrival counts against bar's initial count.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int D>
+constexpr size_t ring_fwd_smem() {
+  return kBarBytes + sizeof(bf16) *
+                         (kFwdRows + 2 * kFwdStages * kKeyTile<D>) *
+                         kRowPitch<D>;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks<D>)
+fwd_ring_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ lse, int t_len, int heads, bool causal,
+                float scale) {
+  constexpr int KT = kKeyTile<D>;
+  constexpr int KP = kRowPitch<D>;
+  constexpr int NO = kWidth<D> / 8;  // output accumulators, 8 columns each
+  constexpr int NB = KT / 8;         // score accumulators, 8 keys each
+  constexpr int kStage = KT * KP;    // bf16 of one operand's stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kFwdStages;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + kBarBytes);
+  bf16* ks = qs + kFwdRows * KP;        // [kFwdStages][KT][KP]
+  bf16* vs = ks + kFwdStages * kStage;  // [kFwdStages][KT][KP]
+
+  const int head = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int q0 = q_tile * kFwdRows;
+  const long long rs = static_cast<long long>(heads) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_k = (t_len + KT - 1) / KT;
+  const int last = causal ? min(n_k - 1, (q0 + kFwdRows - 1) / KT) : n_k - 1;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kFwdStages; ++st) {
+      bar_init(&full[st], 32);          // each producer lane once
+      bar_init(&empty[st], kFwdWarps);  // each consumer warp once
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q and every stage lie back to back: one pass zeroes all the padding.
+  zero_pad<D, kFwdRows + 2 * kFwdStages * KT, kFwdThreads>(qs);
+  stage_rows<D, kFwdRows, kFwdThreads>(qs, q + head * D, q0, t_len, rs);
+  __syncthreads();
+
+  if (warp == kFwdWarps) {  // the producer
+    for (int kt = 0; kt <= last; ++kt) {
+      const int st = kt % kFwdStages, k0 = kt * KT;
+      if (kt >= kFwdStages) {
+        bar_wait(&empty[st], ((kt / kFwdStages) & 1) ^ 1);
+      }
+      stage_rows_async<D, KT, 32>(ks + st * kStage, k + head * D, k0, t_len,
+                                  rs, lane);
+      stage_rows_async<D, KT, 32>(vs + st * kStage, v + head * D, k0, t_len,
+                                  rs, lane);
+      cp_async_arrive(&full[st]);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+  const float scale2 = scale * kLog2e;
+  // This lane's ldmatrix addresses in a stage, in bytes from its start:
+  // K as the B of S = Q K^T, over 16 keys x 16 of depth (k_lane) or, at
+  // head_dim <= 8, 32 keys x 8 (k8_lane); V, transposed, as the B of
+  // O += P V over 16 keys x 16 columns (v_lane).
+  constexpr bool kDepth8 = D <= 8;  // S = Q K^T with mma m16n8k8
+  const uint32_t k_lane =
+      (kDepth8 ? (lane & 7) + 8 * (lane >> 3)
+               : (lane & 7) + 8 * (lane >> 4)) * KP * 2 +
+      (kDepth8 ? 0 : 16 * ((lane >> 3) & 1));
+  const uint32_t v_lane = (lane & 15) * KP * 2 + 16 * (lane >> 4);
+  const uint32_t ks_u32 = smem_u32(ks), vs_u32 = smem_u32(vs);
+  uint32_t qa[kDepth<D> / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+    ld_a(qa[kd], qs, KP, warp * 16, kd * 16, lane);
+  }
+  // l is this lane's part of the row sums until the end.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+  zero_acc(o);
+  // The warp has read stage st: its lanes' reads come before lane 0's
+  // arrival (which releases them).
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  };
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int st = kt % kFwdStages, k0 = kt * KT;
+    bar_wait(&full[st], (kt / kFwdStages) & 1);
+    const uint32_t kst = ks_u32 + st * kStage * 2 + k_lane;
+    const uint32_t vst = vs_u32 + st * kStage * 2 + v_lane;
+
+    float s[NB][4];
+    zero_acc(s);
+    if constexpr (kDepth8) {
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 4) {
+        uint32_t b[4];
+        ldsm_x4_at<false>(b, kst + nb * 8 * KP * 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16_k8(s[nb + j], qa[0][0], qa[0][1], b[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kd = 0; kd < kDepth<D> / 16; ++kd) {
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          uint32_t b[4];
+          ldsm_x4_at<false>(b, kst + nb * 8 * KP * 2 + kd * 32);
+          mma_bf16(s[nb], qa[kd], b[0], b[1]);
+          mma_bf16(s[nb + 1], qa[kd], b[2], b[3]);
+        }
+      }
+    }
+    // Positions only on a tile that holds a masked pair, in a branch of
+    // its own, so the other tiles run none of it.
+    if ((causal && q0 < k0 + KT - 1) || k0 + KT > t_len) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!visible(row0 + 8 * (e >> 1), k0 + nb * 8 + 2 * t + (e & 1),
+                       t_len, causal)) {
+            s[nb][e] = -CUDART_INF_F;  // either exp2 of it is 0: masked
+          }
+        }
+      }
+    }
+    // The running max m is kept in unscaled score units (scale > 0, so the
+    // max commutes with it); a masked score counts as NEG_INF there. Four
+    // chains a row: column parity, block parity.
+    float mx4[2][4], shift[2], fold[2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx4[i >> 2][i & 3] = kNegInf;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& c = mx4[e >> 1][(e & 1) + 2 * (nb & 1)];
+        c = fmaxf(c, s[nb][e]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx =
+          fmaxf(fmaxf(mx4[h][0], mx4[h][1]), fmaxf(mx4[h][2], mx4[h][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(m[h], mx);  // the new running max
+      shift[h] = -mx * scale2;
+      fold[h] = exp2_approx((m[h] - mx) * scale2);
+      m[h] = mx;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NO; ++nb) {
+      o[nb][0] *= fold[0];
+      o[nb][1] *= fold[0];
+      o[nb][2] *= fold[1];
+      o[nb][3] *= fold[1];
+    }
+    // p for 16 keys at a time, then O += P . V over them, so the
+    // exponentials overlap the products; p rounded to bf16 in the repack
+    // (K3's rule).
+    float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+#pragma unroll
+      for (int nb = 2 * kk; nb < 2 * kk + 2; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fmaf(s[nb][e], scale2, shift[e >> 1]);
+          const float p =
+              nb >= NB - kPolyBlocks ? exp2_poly(x) : exp2_approx(x);
+          s[nb][e] = p;
+          sum[e >> 1][nb & 1] += p;
+        }
+      }
+      uint32_t pa[4];
+      repack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int nb = 0; nb < NO; nb += 2) {
+        uint32_t b[4];  // at head_dim <= 8 the second block is padding
+        ldsm_x4_at<true>(b, vst + kk * 16 * KP * 2 + nb * 16);
+        mma_bf16(o[nb], pa, b[0], b[1]);
+        if (nb + 1 < NO) mma_bf16(o[nb + 1], pa, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * fold[h] + (sum[h][0] + sum[h][1]);
+    }
+    release(st);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  store_rows<D>(out, o, row0, head, heads, t_len, 1.f / fmaxf(l[0], 1e-20f),
+                1.f / fmaxf(l[1], 1e-20f), t);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row0 + 8 * h < t_len) {
+        lse[static_cast<long long>(head) * t_len + row0 + 8 * h] =
+            m[h] * scale + logf(l[h]);
+      }
+    }
+  }
+}
+
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) *
@@ -1045,7 +1287,10 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out,
   if constexpr (kSm90Route<T, D>) {
     return cudaErrorInvalidValue;
   } else if constexpr (std::is_same_v<T, bf16>) {
-    fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+    cudaError_t err = allow_smem(fwd_ring_kernel<D>, ring_fwd_smem<D>());
+    if (err != cudaSuccess) return err;
+    const dim3 by_head(heads, (t_len + kFwdRows - 1) / kFwdRows);
+    fwd_ring_kernel<D><<<by_head, kFwdThreads, ring_fwd_smem<D>(), stream>>>(
         qt, kt, vt, static_cast<T*>(out), lse, t_len, heads, causal, scale);
   } else {
     cudaError_t err = allow_smem(fwd_kernel<D>, fwd_smem<D>());
@@ -1160,6 +1405,32 @@ extern "C" int df2_flash_attention_fwd(int is_bf16, const void* q,
   return static_cast<int>(DF2_DISPATCH(
       forward, is_bf16, d, q, k, v, out, lse, t_len, heads, causal != 0, scale,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 forward's tiling at head_dim d: keys a tile, and how many of
+// its blocks of 8 keys (the last ones) take the FP32 polynomial exp2;
+// cudaErrorInvalidValue for a head_dim the forward does not take.
+template <int D>
+int exp_split(int* key_tile, int* poly_blocks) {
+  *key_tile = kKeyTile<D>;
+  *poly_blocks = kPolyBlocks;
+  return 0;
+}
+
+extern "C" int df2_flash_attention_exp_split(int d, int* key_tile,
+                                             int* poly_blocks) {
+  switch (d) {
+    case 4:
+      return exp_split<4>(key_tile, poly_blocks);
+    case 8:
+      return exp_split<8>(key_tile, poly_blocks);
+    case 16:
+      return exp_split<16>(key_tile, poly_blocks);
+    case 32:
+      return exp_split<32>(key_tile, poly_blocks);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The gradient of df2_flash_attention_fwd: out and lse as it wrote them,

@@ -232,29 +232,88 @@ def _tile_scores(q, k, q0: int, k0: int, t: int, causal: bool,
     return s, mask[None]
 
 
-def flash_forward_plain(q, k, v, causal: bool, tile: int = 128):
+# The bf16 forward kernel's tiling (csrc/flash_attention.cu,
+# fwd_ring_kernel) by head_dim: (keys a tile, how many of its blocks of 8
+# keys, the last ones, take the polynomial exp2 on the FP32 pipes; the
+# rest take the SFU's ex2.approx). Other head_dims: 128-key tiles, no
+# polynomial. EXP2_POLY: the cubic's coefficients (constant first) as
+# float32, the minimax fit of relative error to 2^f on [0, 1) with
+# p(0) = 1 (so p stays in [1, 2) and j lands in the exponent exactly):
+# 8.6e-5 at most. EXP2_POLY_REL_ERR bounds it over [-126, 0].
+FORWARD_TILING = {4: (128, 1), 8: (128, 1), 16: (128, 1), 32: (64, 1)}
+EXP2_POLY = (1.0, 0.6951168, 0.22764485, 0.077067174)
+EXP2_POLY_REL_ERR = 1e-4
+LOG2E = 1.4426950408889634
+
+
+def exp2_ftz(x):
+    """2^x as ``ex2.approx.ftz`` gives it: results below 2^-126 (x below
+    -126, a masked -inf too) flush to exactly 0."""
+    return torch.where(x < -126, 0.0, torch.exp2(x))
+
+
+def exp2_poly(x):
+    """2^x as the kernel's ``exp2_poly`` computes it on f32 ``x``: 2^j ·
+    p(f) with j = floor(x), f = x − j and p the cubic :data:`EXP2_POLY`,
+    j added to p's exponent bits; exactly 0 below -126 (a masked -inf
+    too), where ``ex2.approx.ftz`` gives 0."""
+    zero = x < -126
+    x = torch.where(zero, 0.0, x)
+    j = torch.floor(x)
+    f = x - j
+    c0, c1, c2, c3 = (torch.tensor(c, dtype=torch.float32)
+                      for c in EXP2_POLY)
+    p = ((c3 * f + c2) * f + c1) * f + c0
+    bits = p.view(torch.int32).long() + j.long() * (1 << 23)
+    return torch.where(zero, 0.0, bits.int().view(torch.float32))
+
+
+def forward_tiling(head_dim: int) -> tuple[int, int]:
+    """(key tile, polynomial blocks) of the bf16 forward at head_dim."""
+    return FORWARD_TILING.get(head_dim, (128, 0))
+
+
+def poly_columns(tile: int, poly_blocks: int, device=None):
+    """Which of a key tile's columns take :func:`exp2_poly`: the last
+    ``poly_blocks`` blocks of 8."""
+    return torch.arange(tile, device=device) // 8 >= tile // 8 - poly_blocks
+
+
+def flash_forward_plain(q, k, v, causal: bool,
+                        poly_blocks: int | None = None):
     """Plain twin of the K3 forward kernels' arithmetic, tile by tile:
-    (out like q, lse [h, T] f32), online softmax over key tiles of
-    ``tile`` rows with f32 (m, l, acc), p rounded to q's dtype before
-    P·V, lse = m + log(l)."""
+    (out like q, lse [h, T] f32), online softmax over the bf16 kernel's
+    key tiles (:func:`forward_tiling`) with f32 (m, l, acc) and p =
+    2^(s·scale·log2e − m·scale·log2e), p rounded to q's dtype before P·V,
+    lse = m + log(l). Of each tile's columns, the last ``poly_blocks``
+    blocks of 8 take :func:`exp2_poly` and the rest :func:`exp2_ftz`, as
+    the bf16 kernel splits them; ``None`` means the kernel's split for
+    bf16 and none for f32 (the f32 kernel has no split)."""
     t, heads, d = q.shape
     scale = 1.0 / math.sqrt(d)
+    scale2 = scale * LOG2E
+    tile, kernel_poly = forward_tiling(d)
+    if poly_blocks is None:
+        poly_blocks = kernel_poly if q.dtype == torch.bfloat16 else 0
+    poly = poly_columns(tile, poly_blocks, q.device)
     m = torch.full((heads, t), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((heads, t, d), dtype=torch.float32, device=q.device)
     for k0 in range(0, t, tile):
-        s, mask = _tile_scores(q, k[k0:k0 + tile], 0, k0, t, causal,
-                               scale)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None]) * mask
-        fold = torch.exp(m - m_new)
+        # Unscaled scores: m is kept in their units, as the kernel keeps it.
+        s, mask = _tile_scores(q, k[k0:k0 + tile], 0, k0, t, causal, 1.0)
+        m_new = torch.maximum(m, torch.where(mask, s, NEG_INF).amax(-1))
+        x = torch.where(mask, s * scale2 - (m_new * scale2)[..., None],
+                        -math.inf)
+        cols = poly[:x.shape[-1]]
+        p = torch.where(cols, exp2_poly(x), exp2_ftz(x))
+        fold = exp2_ftz((m - m_new) * scale2)
         l = l * fold + p.sum(-1)
         acc = acc * fold[..., None] + torch.einsum(
             "hnm,mhd->hnd", p.to(q.dtype).float(), v[k0:k0 + tile].float())
         m = m_new
     out = (acc / l.clamp_min(1e-20)[..., None]).transpose(0, 1)
-    return out.to(q.dtype), m + torch.log(l)
+    return out.to(q.dtype), m * scale + torch.log(l)
 
 
 def flash_backward_plain(q, k, v, out, dout, lse, causal: bool,
@@ -356,9 +415,24 @@ def bind_flash_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.df2_flash_attention_bwd.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.df2_flash_attention_exp_split.argtypes = [
+        ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.df2_flash_attention_fwd.restype = ctypes.c_int
     lib.df2_flash_attention_bwd.restype = ctypes.c_int
+    lib.df2_flash_attention_exp_split.restype = ctypes.c_int
     return lib
+
+
+def kernel_exp_split(head_dim: int) -> tuple[int, int]:
+    """(key tile, polynomial blocks) as the built bf16 forward kernel has
+    them at head_dim; the plain twin's are :func:`forward_tiling`'s.
+    Builds the library."""
+    tile, poly = ctypes.c_int(), ctypes.c_int()
+    lib = _flash_lib()
+    check(lib, lib.df2_flash_attention_exp_split(
+        head_dim, ctypes.byref(tile), ctypes.byref(poly)),
+          "flash_attention exp split")
+    return tile.value, poly.value
 
 
 def bind_sm90_library(lib: ctypes.CDLL) -> ctypes.CDLL:

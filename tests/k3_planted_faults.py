@@ -8,7 +8,9 @@ Needs one CUDA card and nvcc. Writes copies of ``ops/csrc`` into a
 temporary directory, each with one fault planted in the source text of
 both K3 sources (``flash_attention_sm90.cu``, the TMA + wgmma route at
 head_dim 128, and ``flash_attention.cu``, the mma.sync route with the
-fused backward at head_dim 8), builds them (and the unmodified sources)
+ring forward and the fused backward at head_dim 8), or of the one that
+has the code at fault (the forward's polynomial exp2 exists only in
+``flash_attention.cu``), builds them (and the unmodified sources)
 with ``ops/_build``'s flags, four nvcc runs at a time, and runs each pair of
 libraries through the K3 wrapper at [32768, 8, 8] and [32768, 4, 128]
 (bf16, causal) against the plain version in f32, as
@@ -16,7 +18,8 @@ libraries through the K3 wrapper at [32768, 8, 8] and [32768, 4, 128]
 chip_smoke's row errors and limits, and the max |err| check (5e-2 on
 out, 2e-2 on max |err| / max(max |ref|, 1) for the gradients) that the
 row check replaced. Exits 1 unless the unmodified sources pass at both
-shapes and every fault fails the row check at both.
+shapes and every fault fails the row check at each shape whose source
+it was planted in (and passes at the other).
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((32_768, 8, 8), (32_768, 4, 128))
 SM90, MMA = "flash_attention_sm90.cu", "flash_attention.cu"
+# The source whose kernels take each shape: a variant must fail at a
+# shape exactly when it plants a fault in that source.
+SOURCE_OF = {SHAPES[0]: MMA, SHAPES[1]: SM90}
 
 # variant: [(source, kernel whose body is changed, text there, its
 # replacement)]. At T = 32k a causal row reads 256 key tiles of 128 rows
@@ -44,9 +50,10 @@ FAULTS = {
         (SM90, "fwd_kernel(const __grid_constant__",
          "bar_wait(&full[s], (kt / kStages) & 1);\n",
          "bar_wait(&full[s], (kt / kStages) & 1);\n" + _SKIP_FWD.format(s="s")),
-        (MMA, "fwd_mma_kernel(", "for (int kt = 0; kt <= last; ++kt) {\n",
-         "for (int kt = 0; kt <= last; ++kt) {\n"
-         "    if (kt == n_k / 2 && kt < last) continue;\n"),
+        (MMA, "fwd_ring_kernel(",
+         "bar_wait(&full[st], (kt / kFwdStages) & 1);\n",
+         "bar_wait(&full[st], (kt / kFwdStages) & 1);\n"
+         "    if (kt == n_k / 2 && kt < last) { release(st); continue; }\n"),
     ],
     "dq_drops_middle_key_tile": [
         (SM90, "dq_kernel(const __grid_constant__",
@@ -69,6 +76,12 @@ FAULTS = {
          "if (!(qi == n_t - 1 && qi > first + 4)) {\n"
          "        mma_rows<D>(dv_acc, pa, dt, KP, kk * 16, lane);\n"
          "        mma_rows<D>(dk_acc, da, qt, KP, kk * 16, lane);\n      }"),
+    ],
+    # The pairs of the "mma" forward that take the FP32 polynomial get
+    # an exponent one too high (p doubled); the sm90 kernels have none.
+    "poly_pairs_wrong_exponent": [
+        (MMA, "exp2_poly(float x)", "(__float_as_int(t) << 23)",
+         "((__float_as_int(t) + 1) << 23)"),
     ],
 }
 # The causal bound one key late in every kernel (the diagonal tiles).
@@ -179,8 +192,9 @@ def main() -> int:
         for shape, x4 in inputs.items()}
     tol = chip_smoke.K3_TOL["bf16"]
     ok = True
+    texts = variants(sources)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp, variants(sources))
+        libs = build(tmp, texts)
         for name, paths in libs.items():
             sm90 = fa.bind_sm90_library(_build.open_library(paths[SM90]))
             mma = fa.bind_flash_library(_build.open_library(paths[MMA]))
@@ -192,9 +206,12 @@ def main() -> int:
                                               dout, got[0])
                 errs = chip_smoke.k3_errors(torch, got, ref)
                 passes = chip_smoke.k3_within(errs, tol)
-                ok &= passes == (name == "unmodified")
+                planted = (texts[name][SOURCE_OF[shape]]
+                           != sources[SOURCE_OF[shape]])
+                ok &= passes != planted
                 print(json.dumps({
                     "variant": name, "shape": list(shape),
+                    "planted_in_this_route": planted,
                     "route": fa.k3_route(q.dtype, shape[2],
                                          shape[1] * shape[2] * 2),
                     "passes_row_check": passes, "row_errors": errs,

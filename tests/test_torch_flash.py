@@ -6,6 +6,8 @@ tests/test_flash_attention.py; plus the plain scan against JAX's and the
 wrapper's refusals. The CUDA kernels themselves run in
 ``chip_smoke.py`` on the card."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +22,20 @@ from dragonfly2_tpu.ops.flash_attention import (
 )
 from dragonfly2_tpu_torch.ops import flash_attention
 from dragonfly2_tpu_torch.ops.flash_attention import (
+    EXP2_POLY_REL_ERR,
+    FORWARD_TILING,
     HEAD_DIMS,
+    LOG2E,
+    NEG_INF,
     check_flash_inputs,
     chunked_attention,
+    exp2_ftz,
+    exp2_poly,
     flash_backward_plain,
     flash_forward_plain,
+    forward_tiling,
     k3_route,
+    poly_columns,
 )
 
 # The JAX tests' own tolerances: forward in f32 (the same algebra in
@@ -258,3 +268,123 @@ def test_tile_backward_bf16_near_f32(causal):
         want = np.asarray(want)
         err = np.abs(got.float().numpy() - want).max()
         assert err <= BF16_TOL * np.abs(want).max(), err
+
+
+# -- the bf16 forward kernel's exponential split ----------------------------
+
+
+@pytest.mark.parametrize("lo,hi", [(-126, -100), (-100, -10), (-10, -1),
+                                   (-1, 0), (-0.01, 0)])
+def test_exp2_poly_relative_error(lo, hi):
+    """The FP32-pipe exp2 against torch.exp2 in f64 over the range the
+    kernel feeds it (scores minus the running max, so x <= 0): within
+    the stated relative error, and never 0 at or above -126."""
+    x = torch.linspace(lo, hi, 200_001, dtype=torch.float64).float()
+    got = exp2_poly(x).double()
+    err = (got / torch.exp2(x.double()) - 1).abs().max().item()
+    assert err <= EXP2_POLY_REL_ERR, err
+    assert (got > 0).all()
+
+
+@pytest.mark.parametrize("lo,hi", [(-150, -126), (-127, -125),
+                                   (-126.001, -125.999)])
+def test_exp2_poly_and_ex2_agree_on_zeros(lo, hi):
+    """Both exp2 forms give exactly 0 below -126 and nowhere else, so a
+    pair is masked or flushed alike whichever form its position takes."""
+    x = torch.linspace(lo, hi, 100_001, dtype=torch.float64).float()
+    poly, ftz = exp2_poly(x), exp2_ftz(x)
+    assert torch.equal(poly == 0, ftz == 0)
+    assert torch.equal(poly == 0, x < -126)
+
+
+@pytest.mark.parametrize("x", [-math.inf, NEG_INF, NEG_INF * LOG2E / 2,
+                               -126.5, -1e30])
+def test_exp2_poly_masked_scores_give_zero(x):
+    """A masked score (-inf in the kernel, NEG_INF in the running max)
+    and any argument below -126 give exactly 0 in both forms."""
+    arg = torch.tensor([x], dtype=torch.float32)
+    assert exp2_poly(arg).item() == 0.0 and exp2_ftz(arg).item() == 0.0
+
+
+@pytest.mark.parametrize("tile,poly", [(128, 1), (128, 3), (64, 0),
+                                       (64, 2)])
+def test_poly_columns_are_a_tiles_last_blocks(tile, poly):
+    cols = poly_columns(tile, poly)
+    assert cols.shape == (tile,) and int(cols.sum()) == 8 * poly
+    assert cols[tile - 8 * poly:].all() and not cols[:tile - 8 * poly].any()
+
+
+def test_forward_tiling_covers_the_mma_route():
+    """Every bf16 head_dim of the "mma" route has a tiling: a whole number
+    of 16-key steps, and at most all of a tile's blocks on the
+    polynomial; other widths fall back to 128-key tiles, no split."""
+    for d in HEAD_DIMS:
+        if k3_route(torch.bfloat16, d, 8 * d * 2) == "mma":
+            tile, poly = FORWARD_TILING[d]
+            assert tile % 16 == 0 and 0 <= poly <= tile // 8
+    assert forward_tiling(128) == (128, 0)
+
+
+# Any share exercises the twin's split in f32; the kernel's own share is
+# held in bf16 below.
+SPLIT_BLOCKS = 3
+
+
+SPLIT_CASES = [pytest.param(t, d, causal, id=f"t{t}-d{d}-{name}")
+               for d in (4, 8, 16, 32) for t in (1, 100, 300)
+               for causal, name in ((False, "full"), (True, "causal"))]
+
+
+def _jax_refs(q, k, v, causal):
+    """JAX's Pallas forward in interpret mode and its chunked scan."""
+    return (np.asarray(jax_flash_attention(q, k, v, causal, 128, 128, True)),
+            np.asarray(jax_chunked_attention(q, k, v, causal, 512)))
+
+
+@pytest.mark.parametrize("t,d,causal", SPLIT_CASES)
+def test_split_forward_bf16_matches_jax(t, d, causal):
+    """The bf16 forward's twin (the kernel's key tiles at this head_dim,
+    the last blocks of 8 keys of each on the polynomial exp2 as the
+    kernel splits them) against JAX's kernel and scan in f32 on the same
+    values, within the bf16 tolerance."""
+    q, k, v = _qkv(t, 2, d, seed=17 * t + d)
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _torch(q, k, v))
+    out, lse = flash_forward_plain(tq, tk, tv, causal)
+    assert out.dtype == torch.bfloat16 and lse.shape == (2, t)
+    assert torch.isfinite(lse).all()
+    for ref in _jax_refs(q, k, v, causal):
+        _close(out.float().numpy(), ref, BF16_TOL)
+
+
+@pytest.mark.parametrize("t,d,causal", SPLIT_CASES)
+def test_split_forward_f32_within_poly_error(t, d, causal):
+    """In f32 the split moves out only by the polynomial's error: each p
+    is off by a factor within 1 ± EXP2_POLY_REL_ERR, so out = Σ p v / Σ p
+    moves by at most about 2 · EXP2_POLY_REL_ERR · max |v|; without the
+    split the twin holds JAX's f32 tolerance."""
+    q, k, v = _qkv(t, 2, d, seed=17 * t + d)
+    tq, tk, tv = _torch(q, k, v)
+    split, _ = flash_forward_plain(tq, tk, tv, causal,
+                                   poly_blocks=SPLIT_BLOCKS)
+    plain, _ = flash_forward_plain(tq, tk, tv, causal, poly_blocks=0)
+    bound = 2 * EXP2_POLY_REL_ERR * float(np.abs(v).max())
+    for ref in _jax_refs(q, k, v, causal):
+        _close(plain.numpy(), ref, FWD_TOL)
+        assert np.abs(split.numpy() - ref).max() <= bound + FWD_TOL
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [4, 8, 32])
+@pytest.mark.parametrize("t", [1, 100, 300])
+def test_backward_takes_the_split_forwards_lse(t, d, causal):
+    """The backward's twin (unchanged, exp only) fed the lse of the split
+    forward still gives JAX's gradient of chunked_attention within
+    test_tile_backward_matches_jax_gradient's tolerance, in f32."""
+    q, k, v = _qkv(t, 2, d, seed=t + 3 * d)
+    ref = _jax_loss_grads(q, k, v, causal)
+    tq, tk, tv = _torch(q, k, v)
+    out, lse = flash_forward_plain(tq, tk, tv, causal,
+                                   poly_blocks=SPLIT_BLOCKS)
+    grads = flash_backward_plain(tq, tk, tv, out, 2 * out, lse, causal)
+    for got, want in zip(grads, ref):
+        _close(got.numpy(), want, GRAD_TOL)
