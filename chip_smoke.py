@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
-scorer (BASELINE config #3) and the MLP scorer, and train the
-GraphTransformer in gather mode and serve the result, on one NVIDIA H100
-through ``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
+scorer (BASELINE config #3) and the MLP scorer, train the GraphTransformer
+in gather mode and in blocks mode and serve the results, run ring mode in
+a world of one, and run Ulysses attention, on one NVIDIA H100 through
+``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -14,18 +15,19 @@ Phases (any failure exits nonzero, before the final line):
 2. build every kernel from ``dragonfly2_tpu_torch/ops/csrc`` (nvcc, in
    parallel);
 3. each kernel against its plain PyTorch version at the config #3 shapes
-   (``table_gather`` bit-equal, ``graph_flash_attention`` within the
-   stated tolerances, ``table_scatter_add`` on the trainer's inverse index
-   and on its own derived transpose, bit-identical across launches — run
-   after phase 6, when the trainer's index exists),
+   (``table_gather`` bit-equal, ``graph_flash_attention`` (K1) within the
+   stated tolerances with its lse, ``table_scatter_add`` on the trainer's
+   inverse index and on its own derived transpose, bit-identical across
+   launches — run after phase 5, when the trainer's index exists),
    timed with CUDA events beside the plain version, one PyTorch library
-   call and the byte/operation bound; the flash kernel on every row
-   layout it takes, with ragged and all-padding rows; the scatter-add on
-   random indices with many duplicates and rows that receive nothing;
-   and the whole model on a small graph, card against CPU, in f32:
-   embeddings in both kernel-carrying modes, and every parameter's
-   gradient of the training loss in gather mode, while the flash kernel
-   must refuse to run under autograd;
+   call and the byte/operation bound, K1 with lse off (serving) and on
+   (training); K1's forward and backward on every row layout they take,
+   with ragged and all-padding rows, an id out of range and K up to 512;
+   the scatter-add on random indices with many duplicates and rows that
+   receive nothing; and the whole model on a small graph, card against
+   CPU, in f32: embeddings in both kernel-carrying modes, and every
+   parameter's gradient of the training loss in gather, blocks and ring
+   mode, while K1 must refuse autograd without the inverse index;
 4. the main path: config #3 (20k hosts, 500k probes, hidden 128, embed
    64, 2 layers, 4 heads, neighbor cap 64, chunk 1024, bf16 compute) with
    seeded random weights, written as a port artifact and loaded through
@@ -35,15 +37,24 @@ Phases (any failure exits nonzero, before the final line):
    Every kernel's launch count is set to 0 just before and read just
    after; each must have launched;
 5. train: config #3 trained in gather mode (``GATTrainer.fit``, the body
-   of ``train_gat``; 2 epochs, 60 s cap) with the launch counts set to 0
+   of ``train_gat``; 8 epochs, 60 s cap) with the launch counts set to 0
    just before and read just after — the gather and scatter-add kernels
-   must both have launched, the loss must be finite and fall — then the
+   must have launched exactly once a layer a forward and a backward, no
+   other kernel at all, the loss must be finite and fall — then the
    steady step time (CUDA events), samples/s, F1, accuracy, peak memory,
    and a profile of 3 steps (device time by kernel, the device's busy
-   share);
-6. train_to_serve: the trained result as a port artifact, loaded through
-   ``_gat_scorer_from_artifact`` and answering ModelInfer requests that
-   must equal the trained model's own scores;
+   share); train_to_serve: the trained result as a port artifact, loaded
+   through ``_gat_scorer_from_artifact`` and answering ModelInfer
+   requests that must equal the trained model's own scores;
+6. train_blocks: the same run in blocks mode, through K1's forward and
+   backward (launch counts exactly as many as the path needs, F1 and
+   accuracy within the parity tests' band of gather mode's), served the
+   same way; then k1_backward: the K1 backward against its plain twin on
+   the blocks trainer's graph and inverse index, bf16 and f32, row by
+   row, bit-identical across two launches, timed beside its plain twin,
+   SDPA's backward over the dense mask and the bound
+   (``tests/k1_planted_faults.py`` shows that the row check fails
+   kernels with planted faults);
 7. embedding-pass times and peak device memory;
 8. K3 (``flash_attention``, forward and backward) at the long-context
    tier, T = 32k causal: [32768, 8, 8] in bf16 (the main path's shape,
@@ -57,16 +68,20 @@ Phases (any failure exits nonzero, before the final line):
    bit-identical across two launches, timed beside the plain version,
    SDPA and the bound (bytes, products or exponentials), the backward
    also launch by launch (delta, dK/dV, dQ or the fused block); then
-   every head_dim the kernels take at ragged and tiny T, causal and not,
-   f32 and bf16, each case bit-identical across two launches
+   every head_dim the kernels take, and 24 and 96 (zero-padded by the
+   wrapper), at ragged and tiny T, causal and not, f32 and bf16, each
+   case bit-identical across two launches
    (``tests/k3_planted_faults.py`` shows that the row check fails
    kernels with planted faults on both bf16 routes);
-9. ulysses, the slice's main path: ``ulysses_attention`` on an NCCL
+9. ulysses, the slice 3 path: ``ulysses_attention`` on an NCCL
    group of one rank at [32768, 8, 8] bf16 causal, chunk 2048, forward
    and backward, with every launch count set to 0 just before and read
    just after — both K3 counts must be above 0 and the plain scan never
    called — against the plain version, peak memory below one head's
-   dense [T, T] f32 scores (4.29 GB), fwd and fwd+bwd times.
+   dense [T, T] f32 scores (4.29 GB), fwd and fwd+bwd times;
+10. ring_one: ring mode in a world of one at small width — a ring
+   trainer's launches of K1 exactly as its path needs, its embeddings
+   equal to blocks mode's on the same weights, its result served.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -105,8 +120,8 @@ NEIGHBOR_CAP = 64
 # rounds scores to bf16 and rescales p per 1024-column key block, the
 # kernel keeps f32 scores and one exact max, so p rounds to bf16 against
 # a different reference — a few bf16 ulps of |out| ≤ ~4. f32: the same
-# algebra in another order.
-FLASH_TOL = {"bf16": 5e-2, "f32": 2e-5}
+# algebra in another order; lse (f32, |lse| up to ~10) likewise, 1e-4.
+FLASH_TOL = {"bf16": 5e-2, "f32": 2e-5, "lse": 1e-4}
 # Gather vs blocks embeddings (and scores) of the same model: the
 # tolerance tests/test_gat.py holds the JAX package's modes to.
 MODE_TOL = 6e-2
@@ -144,15 +159,39 @@ ROW_FLOOR = 1e-3
 # or query tile dropped far from the diagonal fails these limits.
 K3_TOL = {"f32": {"out": 5e-5, "grad": 1e-4},
           "bf16": {"out": 3e-2, "grad": 6e-2}}
+# K1's gradients against its plain twin run in f32 on the same values,
+# row by row as K3's (k1_errors): dq, dk, dv and dval, K3's gradient
+# limits. bf16: the kernel reads bf16 and sums in f32, then rounds dq, dk
+# and dv once; f32: another summation order. tests/k1_planted_faults.py
+# shows that a dropped slot, a dropped position, delta taken as 0 or a
+# one-head dval fails them.
+K1_GRADS = ("dq", "dk", "dv", "dval")
+K1_TOL = {name: tol["grad"] for name, tol in K3_TOL.items()}
 # The long-context tier (tests/test_ulysses.py:106-131): T = 32k causal,
 # 8 heads of 8, chunk 2048; and the TPU smoke's head width, 4 x 128.
 LONG_T = 32_768
+# head_dims that are not kernel widths: flash_attention zero-pads them.
+PADDED_HEAD_DIMS = (24, 96)
 # The memory class of that tier: below one head's dense [T, T] f32 scores.
 DENSE_SCORES_BYTES = LONG_T * LONG_T * 4
-# The train phase: artifacts/gat_bench.py:36-43 with a short run.
+# The train phase: artifacts/gat_bench.py:36-43 with a short run: 8
+# epochs (472 steps). Where a run leaves the majority-class plateau, and
+# then its second drop, move by tens of steps with rounding, so a short
+# run gives the two modes different F1 (after 2 epochs 0 and 0.60, after
+# 4 0.9994 and 0.70); after 6, 8 and 12 epochs, and at seeds 1 and 2,
+# both measured the same F1 (PERF.md).
 TRAIN_CFG = dict(hidden=128, embed=64, layers=2, heads=4, neighbor_cap=64,
-                 edge_batch_size=8192, eval_fraction=0.02, epochs=2,
+                 edge_batch_size=8192, eval_fraction=0.02, epochs=8,
                  max_seconds=60)
+# Blocks mode trains the same run (rows padded to the 1024-row chunks)
+# and must land within the CPU parity tests' F1 and accuracy band
+# (tests/test_torch_train.py) of gather mode's on the same split.
+TRAIN_F1_ATOL, TRAIN_ACCURACY_ATOL = 0.1, 0.05
+# Ring mode in a world of one, at small width: 300 hosts, rows padded to
+# 64-row chunks.
+RING_CFG = dict(hidden=32, embed=16, layers=2, heads=4, neighbor_cap=16,
+                chunk=64, edge_batch_size=256, epochs=1, eval_fraction=0.1,
+                attention="ring")
 
 
 def log(phase: str, **fields) -> None:
@@ -200,7 +239,8 @@ def nbytes(*tensors) -> int:
 
 class Counts:
     """Every kernel's launch count, by its row name in the kernels line;
-    K3's forward and backward counts both live on ``flash_attention``."""
+    K3's forward and backward counts both live on ``flash_attention``,
+    K1's on ``graph_flash_attention``."""
 
     def __init__(self):
         from dragonfly2_tpu_torch.ops.flash_attention import (
@@ -219,6 +259,8 @@ class Counts:
             "flash_attention": (flash_attention, "launches"),
             "flash_attention_backward": (flash_attention,
                                          "backward_launches"),
+            "graph_flash_attention_backward": (graph_flash_attention,
+                                               "backward_launches"),
         }
 
     def reset(self) -> None:
@@ -379,9 +421,14 @@ def check_scatter_cases(torch) -> None:
 
 
 def check_graph_flash(torch, q, k, v, nbr, val, block) -> dict:
+    """K1's forward at the serving path's shapes against its plain twin
+    (bf16 and f32; lse too), timed with lse off (serving) and on
+    (training) in turns, beside the plain twin and SDPA over the dense
+    mask."""
     from dragonfly2_tpu_torch.ops.flash_attention import (
         graph_flash_attention,
         graph_flash_attention_plain,
+        graph_flash_forward,
     )
 
     errs = {}
@@ -397,7 +444,23 @@ def check_graph_flash(torch, q, k, v, nbr, val, block) -> dict:
             raise AssertionError(f"graph_flash_attention {name}: max abs err "
                                  f"{errs[name]} > {FLASH_TOL[name]}")
     out = graph_flash_attention(q, k, v, nbr, val)
-    ms = cuda_ms(torch, lambda: graph_flash_attention(q, k, v, nbr, val))
+    # Serving's forward (no lse) and training's (lse on), in turns.
+    ms_by_lse = {"off": [], "on": []}
+    for _ in range(2):
+        for key, with_lse in (("off", False), ("on", True)):
+            ms_by_lse[key].append(cuda_ms(torch, lambda w=with_lse: (
+                graph_flash_forward(q, k, v, nbr, val, w))))
+    ms, ms_lse = (min(ms_by_lse[key]) for key in ("off", "on"))
+    # lse in f32, where the plain twin's scores are not rounded to bf16.
+    f32 = [t.float() for t in (q, k, v)]
+    _, lse = graph_flash_forward(*f32, nbr, val, True)
+    _, ref_lse = graph_flash_attention_plain(*f32, nbr, val, block,
+                                             return_lse=True)
+    del f32
+    lse_err = float((lse - ref_lse).abs().max())
+    if not lse_err <= FLASH_TOL["lse"]:
+        raise AssertionError(f"graph_flash_attention lse: max abs err "
+                             f"{lse_err} > {FLASH_TOL['lse']}")
     plain_ms = cuda_ms(torch, lambda: graph_flash_attention_plain(
         q, k, v, nbr, val, block), iters=5, warmup=1)
 
@@ -419,51 +482,211 @@ def check_graph_flash(torch, q, k, v, nbr, val, block) -> dict:
 
     n_valid = int(valid.sum())
     flops = n_valid * heads * 4 * d          # q·k and p·v per valid slot
-    b_ms, b_by = bound_ms(nbytes(q, k, v, nbr, val, out), flops)
+    # f32 FMAs and one exp a (valid slot, head).
+    b_ms, b_by = bound_ms(nbytes(q, k, v, nbr, val, out), flops,
+                          PEAK_F32_FLOPS, n_valid * heads)
     row = dict(name="graph_flash_attention", route="cuda",
                source="dragonfly2_tpu_torch/ops/csrc/graph_flash_attention.cu",
                replaces="dragonfly2_tpu/ops/flash_attention.py:249",
                max_abs_err=errs["bf16"], ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-    log("kernel", **row, max_abs_err_f32=errs["f32"],
-        sdpa_max_abs_diff=sdpa_err, valid_slots=n_valid,
+    log("kernel", **row, max_abs_err_f32=errs["f32"], lse_max_abs_err=lse_err,
+        ms_with_lse=ms_lse, ms_by_lse=ms_by_lse,
+        lse_cost=ms_lse / ms - 1.0, sdpa_max_abs_diff=sdpa_err,
+        valid_slots=n_valid,
         shape={"q": list(q.shape), "nbr": list(nbr.shape)})
     return row
 
 
 def check_flash_shapes(torch) -> None:
-    """The flash kernel on every row layout it takes (heads × head_dim
-    spread 1, 2, 4 or 8 elements a lane), ragged neighbor counts, a row
-    whose slots are all padding and K past one warp, in f32 against the
-    plain version."""
-    from dragonfly2_tpu_torch.models.graph_transformer import PAD_ID
+    """K1 forward and backward on every row layout they take (heads ×
+    head_dim spread 1, 2, 4, 8 or 16 elements a lane), ragged neighbor
+    counts, a row whose slots are all padding, an id out of range and K
+    past one warp up to 512, in f32: the kernels through
+    ``graph_flash_attention`` under autograd, with the inverse index,
+    against the plain twins run on the card (with TF32 off; a host's
+    BLAS may round f32 products more coarsely — one card machine's put
+    the plain forward 5e-5 off)."""
+    from dragonfly2_tpu_torch.models.graph_transformer import (
+        PAD_ID,
+        build_inverse_index,
+    )
     from dragonfly2_tpu_torch.ops.flash_attention import (
         graph_flash_attention,
+        graph_flash_attention_backward_plain,
         graph_flash_attention_plain,
     )
 
     gen = torch.Generator().manual_seed(SEED)
-    n, kw = 300, 40
-    errs = {}
-    for heads, d in ((2, 16), (4, 16), (4, 32), (8, 32), (1, 64)):
-        q, k, v = (torch.randn(n, heads, d, generator=gen) for _ in range(3))
+    errs, grad_errs = {}, {}
+    for heads, d, kw in ((4, 8, 40), (2, 16, 40), (4, 16, 40), (4, 32, 40),
+                         (8, 32, 40), (1, 64, 40), (8, 64, 40),
+                         (16, 32, 40), (4, 32, 300), (2, 16, 512)):
+        n = max(300, kw + 88)
+        q, k, v, dout = (torch.randn(n, heads, d, generator=gen)
+                         for _ in range(4))
         # Distinct neighbors per row (the dedup invariant), self slot
-        # first, a ragged tail of PAD_ID, and row 7 all padding.
+        # first, a ragged tail of PAD_ID, row 7 all padding, and one id
+        # past the rows in row 9.
         order = torch.rand(n, n, generator=gen)
         order.fill_diagonal_(-1.0)
         nbr = torch.argsort(order, dim=1)[:, :kw].to(torch.int32)
         deg = torch.randint(1, kw + 1, (n, 1), generator=gen)
         nbr[torch.arange(kw)[None, :] >= deg] = int(PAD_ID)
         nbr[7] = int(PAD_ID)
+        nbr[9, -1] = n + 5
         val = -torch.rand(n, kw, generator=gen)
-        ref = graph_flash_attention_plain(q, k, v, nbr, val, 128)
-        out = graph_flash_attention(*(t.cuda() for t in (q, k, v, nbr, val)))
-        err = float((out.cpu() - ref).abs().max())
-        errs[f"{heads}x{d}"] = err
-        if not err <= FLASH_TOL["f32"] or out[7].abs().max() != 0:
-            raise AssertionError(f"graph_flash_attention {heads}x{d}: max "
-                                 f"abs err {err} or a nonzero padded row")
-    log("flash_shapes", max_abs_err=errs, tol=FLASH_TOL["f32"])
+        inv = torch.from_numpy(build_inverse_index(nbr.numpy()))
+        q, k, v, dout, nbr, val, inv = (t.cuda() for t in (q, k, v, dout, nbr,
+                                                           val, inv))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, val)]
+        out = graph_flash_attention(*leaves[:3], nbr, leaves[3], inv=inv)
+        got = [out.detach(), *torch.autograd.grad(out, leaves, dout)]
+        ref, lse = graph_flash_attention_plain(q, k, v, nbr, val, 128,
+                                               return_lse=True)
+        ref = [ref, *graph_flash_attention_backward_plain(
+            q, k, v, nbr, val, lse, dout, inv)]
+        key = f"{heads}x{d}/K{kw}"
+        errs[key] = float((got[0] - ref[0]).abs().max())
+        grad_errs[key] = k1_errors(torch, got[1:], ref[1:])
+        if (not errs[key] <= FLASH_TOL["f32"] or got[0][7].abs().max() != 0
+                or not k1_within(grad_errs[key], K1_TOL["f32"])):
+            raise AssertionError(f"graph_flash_attention {key}: max abs err "
+                                 f"{errs[key]}, grads {grad_errs[key]} or a "
+                                 f"nonzero padded row")
+    log("flash_shapes", max_abs_err=errs, tol=FLASH_TOL["f32"],
+        grad_row_errors={key: {n: e[n] for n in K1_GRADS}
+                         for key, e in grad_errs.items()},
+        grad_tol=K1_TOL["f32"])
+
+
+def k1_errors(torch, got, ref) -> dict:
+    """Row errors (see ROW_TILE) of K1's (dq, dk, dv, dval) against the
+    reference's: dq, dk and dv per (row, head), floored at the rms row
+    norm of the three together; dval per query row over its K slots; and
+    max |got − ref| of each under "abs"."""
+    unit = rms_row_norm(*ref[:3])
+    errs = {n: row_err(torch, a, b, unit)
+            for n, a, b in zip(K1_GRADS[:3], got[:3], ref[:3])}
+    dval, ref_dval = got[3][:, None, :], ref[3][:, None, :]
+    errs["dval"] = row_err(torch, dval, ref_dval, rms_row_norm(ref_dval))
+    errs["abs"] = {n: float((a.float() - b.float()).abs().max())
+                   for n, a, b in zip(K1_GRADS, got, ref)}
+    return errs
+
+
+def k1_within(errs, tol: float) -> bool:
+    return max(errs[n] for n in K1_GRADS) <= tol
+
+
+def k1_backward_case(torch, q, k, v, dout, nbr, val, inv):
+    """(row errors, bit-identical, finite) of the K1 backward at q's
+    dtype for the kernel forward's lse, against its plain twin run in f32
+    on the same values (``k1_errors``), over two launches."""
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        graph_flash_attention_backward_plain,
+        graph_flash_backward,
+        graph_flash_forward,
+    )
+
+    _, lse = graph_flash_forward(q, k, v, nbr, val, True)
+    got = graph_flash_backward(q, k, v, nbr, val, lse, dout, inv)
+    again = graph_flash_backward(q, k, v, nbr, val, lse, dout, inv)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ref = graph_flash_attention_backward_plain(
+        *(t.float() for t in (q, k, v)), nbr, val, lse, dout.float(), inv)
+    return k1_errors(torch, got, ref), same, finite
+
+
+def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
+    """The K1 backward at the training path's shapes (the trainer's nbr,
+    val and inverse index; seeded random q, k, v, dO), bf16 and f32,
+    against its plain twin run in f32 on the same values and on the
+    kernel forward's lse, row by row (``k1_errors``), bit-identical
+    across two launches; timed as a whole and pass by pass beside the
+    plain twin and SDPA's backward over the dense [N, N] additive mask.
+    Returns the kernels line's row."""
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        GBWD_DQ,
+        GBWD_KV,
+        graph_backward_scratch,
+        graph_flash_attention_backward_plain,
+        graph_flash_backward,
+        graph_flash_forward,
+        launch_graph_backward,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    errs = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        errs[name], same, finite = k1_backward_case(
+            torch, *(t.to(dtype) for t in (q, k, v, dout)), nbr, val, inv)
+        if not (same and finite):
+            raise AssertionError(f"K1 backward {name}: two launches differ "
+                                 f"({not same}) or non-finite ({not finite})")
+        if not k1_within(errs[name], K1_TOL[name]):
+            raise AssertionError(f"K1 backward {name}: errors {errs[name]} "
+                                 f"over {K1_TOL[name]}")
+    # Times in bf16, the training dtype.
+    _, lse = graph_flash_forward(q, k, v, nbr, val, True)
+    dout = dout.to(q.dtype)
+    grads = graph_flash_backward(q, k, v, nbr, val, lse, dout, inv)
+    scratch = graph_backward_scratch(q, nbr)
+    ms = cuda_ms(torch, lambda: launch_graph_backward(
+        q, k, v, nbr, val, lse, dout, inv, *grads, scratch))
+    parts_ms = {part: cuda_ms(torch, lambda p=bits: launch_graph_backward(
+        q, k, v, nbr, val, lse, dout, inv, *grads, scratch, p))
+        for part, bits in (("dq_dval", GBWD_DQ), ("dk_dv", GBWD_KV))}
+    wrapper_ms = cuda_ms(torch, lambda: graph_flash_backward(
+        q, k, v, nbr, val, lse, dout, inv))
+    plain_ms = cuda_ms(torch, lambda: graph_flash_attention_backward_plain(
+        q, k, v, nbr, val, lse, dout, inv), iters=3, warmup=1)
+    del scratch
+
+    # Library yardstick: SDPA's backward on a kept graph, over the
+    # materialized [N, N] additive mask (−inf off the neighbor lists), in
+    # its [1, h, N, d] layout, transposed before the clock. Timed only;
+    # the port never calls it.
+    n, heads, d = q.shape
+    valid = (nbr >= 0) & (nbr < k.shape[0])
+    rows = torch.arange(n, device=q.device)[:, None].expand_as(nbr)
+    mask = torch.full((n, k.shape[0]), float("-inf"), dtype=q.dtype,
+                      device=q.device)
+    mask[rows[valid], nbr[valid].long()] = val[valid].to(q.dtype)
+    leaves = [t.permute(1, 0, 2)[None].contiguous().requires_grad_()
+              for t in (q, k, v)]
+    doh = dout.permute(1, 0, 2)[None].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s_out = sdpa(*leaves, attn_mask=mask)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        s_out, leaves, doh, retain_graph=True), iters=5, warmup=1)
+    del s_out, leaves, doh, mask
+
+    n_valid = int(valid.sum())
+    # Bytes: each input and output once. Operations: f32 FMAs — s, dp and
+    # dq (dQ pass), dk and dv (dK/dV pass), 2·d flops each a (valid slot,
+    # head) — and one exp each.
+    b_ms, b_by = bound_ms(
+        nbytes(q, k, v, dout, lse, nbr, val, inv, *grads),
+        n_valid * heads * 10 * d, PEAK_F32_FLOPS, n_valid * heads)
+    row = dict(name="graph_flash_attention_backward", route="cuda",
+               source="dragonfly2_tpu_torch/ops/csrc/graph_flash_attention.cu",
+               replaces="dragonfly2_tpu/ops/flash_attention.py:383",
+               max_abs_err=max(errs["bf16"]["abs"].values()), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms)
+    log("k1_backward", **row, row_errors={
+        name: {n: e[n] for n in K1_GRADS} for name, e in errs.items()},
+        abs_errors={name: e["abs"] for name, e in errs.items()}, tol=K1_TOL,
+        bit_identical=True, parts_ms=parts_ms, wrapper_ms=wrapper_ms,
+        library_is="SDPA backward, dense [N, N] additive mask",
+        valid_slots=n_valid, shape={"q": list(q.shape),
+                                    "nbr": list(nbr.shape),
+                                    "inv": list(inv.shape)})
+    return row
 
 
 def k3_grads(torch, fn, q, k, v, causal, dout):
@@ -697,10 +920,12 @@ def k3_exp_split(torch, d: int) -> dict:
 
 
 def check_k3_shapes(torch) -> None:
-    """K3 forward and gradients on every head_dim it takes, ragged and
-    tiny T, causal and not, with fewer heads than a tile's rows, in f32
-    (the FMA kernels) and bf16 (the tensor-core kernels), against the
-    plain version run in f32 on the same values on the card."""
+    """K3 forward and gradients on every head_dim the kernels take, and
+    at head_dims 24 and 96 (which the wrapper zero-pads to 32 and 128),
+    ragged and tiny T, causal and not, with fewer heads than a tile's
+    rows, in f32 (the FMA kernels) and bf16 (the tensor-core kernels),
+    against the plain version run in f32 on the same values on the
+    card."""
     from dragonfly2_tpu_torch.ops.flash_attention import (
         HEAD_DIMS,
         chunked_attention,
@@ -711,7 +936,7 @@ def check_k3_shapes(torch) -> None:
     heads = 3
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         errs, tol = {}, K3_TOL[name]
-        for d in HEAD_DIMS:
+        for d in HEAD_DIMS + PADDED_HEAD_DIMS:
             for t in (1, 100, 1000, 4096):
                 q, k, v, dout = (torch.randn(t, heads, d, generator=gen,
                                              device="cuda").to(dtype)
@@ -847,28 +1072,32 @@ def check_small_model(torch) -> None:
         if mode == "blocks":
             try:
                 model.node_embeddings(*(t.cuda() for t in inputs))
-            except NotImplementedError:
+            except ValueError:
                 pass
             else:
                 raise AssertionError("graph_flash_attention ran under "
-                                     "autograd on the card")
+                                     "autograd on the card without the "
+                                     "inverse index")
 
-    # Gradients of the training loss in gather mode: the card (gather and
-    # scatter-add kernels) against the CPU (their plain versions), with
-    # the trainer's inverse index and with the transpose derived on the
-    # card.
+    # Gradients of the training loss: the card (gather and scatter-add
+    # kernels in gather mode, with the trainer's inverse index and with
+    # the transpose derived on the card; K1's forward and backward in
+    # blocks and ring mode) against the CPU (their plain versions).
     rng = np.random.default_rng(SEED)
     src, dst = (torch.from_numpy(rng.integers(0, g.n_nodes, 256).astype(
         np.int32)) for _ in range(2))
     y = torch.from_numpy((rng.random(256) < 0.5).astype(np.float32))
     inv = torch.from_numpy(build_inverse_index(nbr))
     grad_errs = {}
-    for name, use_inv in (("inv", inv), ("derived", None)):
+    for name, mode, use_inv in (("gather_inv", "gather", inv),
+                                ("gather_derived", "gather", None),
+                                ("blocks", "blocks", inv),
+                                ("ring", "ring", inv)):
         grads = {}
         for dev in ("cpu", "cuda"):
             model = GraphTransformer(
                 hidden=32, embed=16, layers=2, heads=4, chunk=16,
-                dtype=torch.float32,
+                attention=mode, dtype=torch.float32,
                 generator=torch.Generator().manual_seed(1)).to(dev)
             args = [t.to(dev) for t in (*inputs, src, dst)]
             logits = model(*args, inv=None if use_inv is None
@@ -890,7 +1119,208 @@ def check_small_model(torch) -> None:
                                  f"{grad_errs[name]} > {GRAD_F32_TOL}")
     log("small_model", max_abs_err=errs, tol=SMALL_F32_TOL,
         grad_rel_err=grad_errs, grad_tol=GRAD_F32_TOL,
-        flash_refuses_grad=True)
+        flash_refuses_grad_without_inv=True)
+
+
+def run_train(torch, graph, cfg, counts, phase: str):
+    """Train config #3 (``GATTrainer.fit``, the body of ``train_gat``)
+    with every launch count set to 0 just before and read just after. The
+    mode's kernels must have launched exactly as often as its path needs
+    — its forward kernel once a layer in every forward (train steps and
+    eval chunks), its backward kernel once a layer in every backward —
+    and the other mode's and K3's never; the loss must be finite and
+    fall. Then the steady step time (10 steps after 3 warm ones, CUDA
+    events), samples/s, F1, accuracy, peak memory, and a profile of 3
+    steps (device time by kernel, the device's busy share), logged as
+    ``phase`` and ``phase``_profile. Returns (trainer, result, launches)."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = GATTrainer(graph, cfg)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(result.step_losses)
+    eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    forwards = cfg.layers * (steps + eval_chunks)
+    backwards = cfg.layers * steps
+    expected = dict.fromkeys(launches, 0)
+    if cfg.attention == "gather":
+        expected.update(table_gather=forwards, table_scatter_add=backwards)
+    else:
+        expected.update(graph_flash_attention=forwards,
+                        graph_flash_attention_backward=backwards)
+    if steps < 1 or launches != expected:
+        raise AssertionError(f"{phase}: launches {launches} on the train "
+                             f"path, expected {expected}")
+    losses = np.asarray(result.step_losses)
+    if len(losses) < 21 or not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: {len(losses)} steps, finite: "
+                             f"{bool(np.isfinite(losses).all())}")
+    early, late = float(losses[1:11].mean()), float(losses[-10:].mean())
+    if not late < early:
+        raise AssertionError(f"{phase}: loss did not fall: steps 2-11 mean "
+                             f"{early}, last 10 mean {late}")
+    # Steady step time: 10 steps after 3 warm ones, CUDA events.
+    order = np.random.default_rng(SEED + 1).permutation(trainer.train_ids)
+    batches = order[:13 * trainer.batch].reshape(13, trainer.batch)
+    for ids in batches[:3]:
+        trainer.step(ids)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for ids in batches[3:]:
+        trainer.step(ids)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+    # Where a step's device time goes: kernels by name over 3 steps.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ids in batches[:3]:
+            trainer.step(ids)
+        torch.cuda.synchronize()
+    # Kernels only: a CPU op's entry, and a user annotation's range on the
+    # device (the optimizer's step), repeat the time of the kernels inside.
+    kernel_ms = sorted(((e.key, e.self_device_time_total / 3e3)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)
+                        and e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    device_ms = sum(ms for _, ms in kernel_ms)
+    log(f"{phase}_profile", device_ms_per_step=device_ms,
+        busy_share=device_ms / step_ms, top_kernels_ms=kernel_ms[:15])
+    log(phase, attention=cfg.attention, seconds=train_s, steps=steps,
+        launches=launches, expected_launches=expected,
+        loss_first=float(losses[0]), loss_steps_2_11=early,
+        loss_last_10=late, history=result.history, step_ms=step_ms,
+        samples_per_sec=result.samples_per_sec, f1=result.f1,
+        accuracy=result.accuracy, precision=result.precision,
+        recall=result.recall, peak_memory_gib=peak_gib,
+        rows=int(trainer.nbr.shape[0]),
+        inverse_index=list(trainer.g_inv.shape),
+        train_edges=len(trainer.train_ids), eval_edges=len(trainer.eval_ids),
+        batch=trainer.batch)
+    return trainer, result, launches
+
+
+def serve_trained(torch, result, graph, service, ctx, pairs,
+                  phase: str) -> None:
+    """The trained result as a port artifact, loaded through
+    ``_gat_scorer_from_artifact`` and answering ModelInfer requests, which
+    must equal the trained model's own scores."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        ModelInferRequest,
+        _gat_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import gat_artifact_from_result
+
+    t0 = time.perf_counter()
+    trained = _gat_scorer_from_artifact(gat_artifact_from_result(
+        result, graph, f"smoke-gat-{phase}"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    service.install_scorer("gat", trained, version=phase)
+    served = [service.ModelInfer(ModelInferRequest("gat", p), ctx).outputs
+              for p in pairs]
+    own = result.model.cuda().eval()
+    with torch.no_grad():
+        own_emb = own.node_embeddings(*(torch.from_numpy(a).cuda() for a in (
+            result.node_features, result.neighbors, result.neighbor_vals)))
+        own_scores = [own.score_pairs(
+            own_emb, *torch.from_numpy(p.astype(np.int32)).cuda().T
+        ).float().cpu().numpy() for p in pairs]
+    if not all(np.isfinite(o).all() and o.shape == (len(p),)
+               for o, p in zip(served, pairs)):
+        raise AssertionError(f"{phase}: bad response shapes or values")
+    served_err = max(float(np.abs(a - b).max())
+                     for a, b in zip(served, own_scores))
+    if served_err > MODE_TOL:
+        raise AssertionError(f"{phase}: served vs the model's own scores: "
+                             f"{served_err} > {MODE_TOL}")
+    log(phase, attention=result.config.attention, load_seconds=load_s,
+        max_abs_diff=served_err, tol=MODE_TOL, requests=len(served))
+
+
+def run_ring_one(torch, counts) -> dict:
+    """Ring mode in a world of one, at small width: a ring trainer on the
+    card (rows padded to whole chunks) with every launch count set to 0
+    just before and read just after — K1's forward and backward must have
+    launched once a layer a forward and a backward, nothing else — and a
+    finite loss; its trained embeddings on the card must equal blocks
+    mode's on the same weights (the same K1 forward); and the ring result
+    must serve through a port artifact. Returns the launches."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+    )
+    from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
+    from dragonfly2_tpu_torch.train.gat_trainer import (
+        GATTrainConfig,
+        GATTrainer,
+    )
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+
+    graph = SyntheticCluster(n_hosts=300, seed=SEED).probe_graph(6000)
+    cfg = GATTrainConfig(**RING_CFG)
+    counts.reset()
+    trainer = GATTrainer(graph, cfg)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    launches = counts.read()
+    steps = len(result.step_losses)
+    eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    expected = dict.fromkeys(launches, 0)
+    expected.update(graph_flash_attention=cfg.layers * (steps + eval_chunks),
+                    graph_flash_attention_backward=cfg.layers * steps)
+    rows = trainer.nbr.shape[0]
+    if steps < 3 or launches != expected or rows % cfg.chunk:
+        raise AssertionError(f"ring_one: {steps} steps, {rows} rows, "
+                             f"launches {launches}, expected {expected}")
+    if not np.isfinite(result.step_losses).all():
+        raise AssertionError("ring_one: non-finite loss")
+    graph_in = [torch.from_numpy(a).cuda() for a in (
+        result.node_features, result.neighbors, result.neighbor_vals)]
+    emb = {}
+    for mode in ("ring", "blocks"):
+        model = GraphTransformer(
+            in_features=result.node_features.shape[1], hidden=cfg.hidden,
+            embed=cfg.embed, layers=cfg.layers, heads=cfg.heads,
+            chunk=cfg.chunk, attention=mode)
+        model.load_state_dict(result.state_dict)
+        with torch.no_grad():
+            emb[mode] = model.cuda().node_embeddings(*graph_in).float()
+    emb_err = float((emb["ring"] - emb["blocks"]).abs().max())
+    if not torch.isfinite(emb["ring"]).all() or emb_err > MODE_TOL:
+        raise AssertionError(f"ring_one: ring vs blocks embeddings "
+                             f"{emb_err} > {MODE_TOL}")
+    pairs = [np.random.default_rng(SEED + 2).integers(
+        0, graph.n_nodes, (16, 2)) for _ in range(3)]
+    serve_trained(torch, result, graph, InferenceService(), CallContext(),
+                  pairs, "ring_to_serve")
+    log("ring_one", steps=steps, rows=rows, launches=launches,
+        expected_launches=expected, history=result.history,
+        ring_vs_blocks_embeddings=emb_err,
+        bit_equal=bool(torch.equal(emb["ring"], emb["blocks"])),
+        tol=MODE_TOL, f1=result.f1, accuracy=result.accuracy)
+    return launches
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -958,16 +1388,11 @@ def main() -> int:
         ModelMetadata,
         flax_from_gat_state_dict,
         flax_from_mlp_state_dict,
-        gat_artifact_from_result,
         gat_tree,
         mlp_tree,
         write_artifact,
     )
-    from dragonfly2_tpu_torch.train.gat_trainer import (
-        GATTrainConfig,
-        GATTrainer,
-    )
-    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1131,105 +1556,12 @@ def main() -> int:
     }
     log("requests", p50_ms=request_p50, rows={"gat": 16, "mlp": 15})
 
-    # -- phase 5: train, the slice's main path --------------------------------
-    cfg = GATTrainConfig(**TRAIN_CFG)
-    counts.reset()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    trainer = GATTrainer(graph, cfg)
-    result = trainer.fit()
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    train_launches = counts.read()
-    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    steps = len(result.step_losses)
-    eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
-    # One gather per layer in every forward (train steps and eval chunks),
-    # one scatter-add per layer in every backward.
-    expected = {"table_gather": cfg.layers * (steps + eval_chunks),
-                "table_scatter_add": cfg.layers * steps}
-    for name, count in expected.items():
-        if train_launches[name] < 1 or train_launches[name] != count:
-            raise AssertionError(f"{name}: {train_launches[name]} launches "
-                                 f"on the train path, expected {count}")
-    losses = np.asarray(result.step_losses)
-    if len(losses) < 21 or not np.isfinite(losses).all():
-        raise AssertionError(f"{len(losses)} steps, finite: "
-                             f"{bool(np.isfinite(losses).all())}")
-    early, late = float(losses[1:11].mean()), float(losses[-10:].mean())
-    if not late < early:
-        raise AssertionError(f"loss did not fall: steps 2-11 mean {early}, "
-                             f"last 10 mean {late}")
-    # Steady step time: 10 steps after 3 warm ones, CUDA events.
-    order = np.random.default_rng(SEED + 1).permutation(trainer.train_ids)
-    batches = order[:13 * trainer.batch].reshape(13, trainer.batch)
-    for ids in batches[:3]:
-        trainer.step(ids)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for ids in batches[3:]:
-        trainer.step(ids)
-    end.record()
-    end.synchronize()
-    step_ms = start.elapsed_time(end) / 10
-    # Where a step's device time goes: kernels by name over 3 steps.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for ids in batches[:3]:
-            trainer.step(ids)
-        torch.cuda.synchronize()
-    # Kernels only: a CPU op's entry, and a user annotation's range on the
-    # device (the optimizer's step), repeat the time of the kernels inside.
-    kernel_ms = sorted(((e.key, e.self_device_time_total / 3e3)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)
-                        and e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])
-    device_ms = sum(ms for _, ms in kernel_ms)
-    log("train_profile", device_ms_per_step=device_ms,
-        busy_share=device_ms / step_ms, top_kernels_ms=kernel_ms[:15])
-    log("train", seconds=train_s, steps=steps, launches=train_launches,
-        expected_launches=expected, loss_first=float(losses[0]),
-        loss_steps_2_11=early, loss_last_10=late, history=result.history,
-        step_ms=step_ms, samples_per_sec=result.samples_per_sec,
-        f1=result.f1, accuracy=result.accuracy, precision=result.precision,
-        recall=result.recall, peak_memory_gib=train_peak_gib,
-        inverse_index=list(trainer.g_inv.shape),
-        train_edges=len(trainer.train_ids), eval_edges=len(trainer.eval_ids),
-        batch=trainer.batch)
-
-    # -- phase 6: the trained model served ------------------------------------
-    t0 = time.perf_counter()
-    trained = _gat_scorer_from_artifact(
-        gat_artifact_from_result(result, graph, "smoke-gat-trained"))
-    torch.cuda.synchronize()
-    trained_load_s = time.perf_counter() - t0
-    service.install_scorer("gat", trained, version="trained")
-    served = [service.ModelInfer(ModelInferRequest("gat", p), ctx).outputs
-              for p in pairs]
-    own = result.model.to(dev).eval()
-    with torch.no_grad():
-        own_emb = own.node_embeddings(*(torch.from_numpy(a).to(dev) for a in (
-            result.node_features, result.neighbors, result.neighbor_vals)))
-        own_scores = [own.score_pairs(
-            own_emb, *torch.from_numpy(p.astype(np.int32)).to(dev).T
-        ).float().cpu().numpy() for p in pairs]
-    if not all(np.isfinite(o).all() and o.shape == (16,) for o in served):
-        raise AssertionError("trained model: bad response shapes or values")
-    served_err = max(float(np.abs(a - b).max())
-                     for a, b in zip(served, own_scores))
-    if served_err > MODE_TOL:
-        raise AssertionError(f"trained model served vs its own scores: "
-                             f"{served_err} > {MODE_TOL}")
-    log("train_to_serve", load_seconds=trained_load_s,
-        max_abs_diff=served_err, tol=MODE_TOL, requests=len(served))
-    del own, own_emb
+    # -- phase 5: train in gather mode, slice 2's path --------------------
+    trainer, result, train_launches = run_train(
+        torch, graph, GATTrainConfig(**TRAIN_CFG), counts, "train")
+    serve_trained(torch, result, graph, service, ctx, pairs, "train_to_serve")
+    gather_quality = {"f1": result.f1, "accuracy": result.accuracy}
+    del result
 
     # -- the scatter-add kernel on the trainer's own inverse index ------------
     ct = torch.randn(trainer.nbr.size, 2 * heads * head_dim, generator=gen,
@@ -1239,6 +1571,32 @@ def main() -> int:
     rows.append(check_table_scatter_add(torch, ct, t_idx, trainer.g_inv,
                                         trainer.nbr.shape[0]))
     del ct, t_idx, trainer
+
+    # -- phase 6: train in blocks mode through K1's forward and backward ----
+    blocks_cfg = GATTrainConfig(**TRAIN_CFG, attention="blocks")
+    trainer, result, blocks_launches = run_train(
+        torch, graph, blocks_cfg, counts, "train_blocks")
+    gaps = {"f1": abs(result.f1 - gather_quality["f1"]),
+            "accuracy": abs(result.accuracy - gather_quality["accuracy"])}
+    log("train_blocks_vs_gather", f1={"blocks": result.f1,
+                                      "gather": gather_quality["f1"]},
+        accuracy={"blocks": result.accuracy,
+                  "gather": gather_quality["accuracy"]},
+        gaps=gaps, tol={"f1": TRAIN_F1_ATOL,
+                        "accuracy": TRAIN_ACCURACY_ATOL})
+    if gaps["f1"] > TRAIN_F1_ATOL or gaps["accuracy"] > TRAIN_ACCURACY_ATOL:
+        raise AssertionError(f"blocks vs gather quality gaps {gaps}")
+    serve_trained(torch, result, graph, service, ctx, pairs,
+                  "train_blocks_to_serve")
+    del result
+
+    # -- the K1 backward on the blocks trainer's graph and inverse index ----
+    b_rows = trainer.nbr.shape[0]
+    q, k, v = (torch.randn(b_rows, heads, head_dim, generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    rows.append(check_k1_backward(torch, q, k, v, trainer.g_nbr,
+                                  trainer.g_val, trainer.g_inv))
+    del q, k, v, trainer
 
     # -- phase 7: embedding-pass times (launches here are not counted) -------
     pass_ms = {}
@@ -1253,7 +1611,7 @@ def main() -> int:
     log("embedding_pass", ms=pass_ms,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         total_seconds=time.perf_counter() - t_start)
-    del scorers, service, trained
+    del scorers, service
 
     # -- phase 8: K3 against its plain version, then Ulysses ------------------
     k3 = check_k3(torch, LONG_T, 8, 8, torch.bfloat16)  # main-path shape
@@ -1286,11 +1644,16 @@ def main() -> int:
 
     # Each kernel counts on the path of the slice that ported it.
     home = {"table_scatter_add": "train", "flash_attention": "ulysses",
-            "flash_attention_backward": "ulysses"}
+            "flash_attention_backward": "ulysses",
+            "graph_flash_attention_backward": "train_blocks"}
+    ring_launches = run_ring_one(torch, counts)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
-                   "ulysses": ulysses_launches[row["name"]]}
+                   "train_blocks": blocks_launches[row["name"]],
+                   "ulysses": ulysses_launches[row["name"]],
+                   "ring_one": ring_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

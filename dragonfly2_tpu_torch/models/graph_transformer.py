@@ -12,20 +12,24 @@ Attention modes, all computing the same function:
 - ``"gather"``: each row attends to its ≤K gathered neighbor rows; the
   ``[k|v]`` gather is ``neighbor_gather``, the ``table_gather`` kernel on
   the card with the ``table_scatter_add`` kernel as its backward.
-- ``"blocks"`` and ``"flash"``: the ``graph_flash_attention`` kernel on
-  the card (the plain key-block online softmax on the CPU). The kernel is
-  forward only, so these modes train on the CPU alone.
-- ``"ring"`` needs several devices and is not ported yet (ROADMAP.md
-  Queue 1, parallel set).
+- ``"blocks"`` and ``"flash"``: ``graph_flash_attention`` (K1), the
+  forward and backward kernels on the card (the plain key-block online
+  softmax and its plain backward on the CPU).
+- ``"ring"``: in a world of one (no ``torch.distributed`` group, or one
+  of size 1) the blocks math with the key block ``_divisor_block(N,
+  chunk)``, the JAX package's fallback without a mesh — K1 on the card.
+  Row-sharded K/V across several processes is not ported yet (ROADMAP.md
+  Queue 1, parallel set): a larger world raises.
 
 Parameters keep flax's names (``Dense_i``, ``LayerNorm_i``,
 ``input_proj``...) so a flax tree maps onto the state dict key for key
 (``train/checkpoint.py``); computation follows flax: f32 params cast to
 the compute dtype (bf16 by default), LayerNorm statistics in f32 with
-eps 1e-6, tanh GELU, an f32 output head. Training in gather mode passes
-``inv`` = :func:`build_inverse_index` of the neighbor lists down to the
-gather, whose backward then sums each table row's cotangent over the
-positions ``inv`` lists (``train/gat_trainer.py``).
+eps 1e-6, tanh GELU, an f32 output head. Training passes ``inv`` =
+:func:`build_inverse_index` of the neighbor lists down to the attention:
+the gather's backward (gather mode) and K1's (the other modes) sum each
+key row's gradient over the positions ``inv`` lists
+(``train/gat_trainer.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from dragonfly2_tpu_torch.ops.flash_attention import graph_flash_attention
-from dragonfly2_tpu_torch.ops.table_gather import neighbor_gather
+from dragonfly2_tpu_torch.ops.table_gather import (  # noqa: F401 (re-export)
+    build_inverse_index,
+    neighbor_gather,
+)
+from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
 
 NEG_INF = -1e9
 # Neighbor-list pad sentinel: never inside [0, N) for any padded N, so a
@@ -46,7 +54,7 @@ NEG_INF = -1e9
 PAD_ID = np.int32(2**30)
 
 NODE_FEATURE_DIM = 8
-ATTENTION_MODES = ("gather", "blocks", "flash")
+ATTENTION_MODES = ("gather", "blocks", "flash", "ring")
 
 
 def build_neighbor_lists(
@@ -152,27 +160,6 @@ def _flash_block(n: int, chunk: int) -> int:
     return min(chunk, ((n + 127) // 128) * 128)
 
 
-def build_inverse_index(nbr: np.ndarray) -> np.ndarray:
-    """Host-side transpose of the neighbor lists: ``inv[j]`` lists the
-    flat positions ``i*K + s`` with ``nbr[i, s] == j``, ascending, padded
-    with -1 to the max in-degree (int64 [N, D_max]); pad slots are left
-    out. Bit-identical to the JAX package's. The gather's backward sums
-    each table row's cotangent over these positions."""
-    n, k_width = nbr.shape
-    rows, slots = np.nonzero(nbr != PAD_ID)
-    cols = nbr[rows, slots]
-    flat = (rows * k_width + slots).astype(np.int64)
-    order = np.argsort(cols, kind="stable")
-    cols, flat = cols[order], flat[order]
-    start = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
-    counts = np.diff(np.r_[start, len(cols)])
-    d_max = max(int(counts.max()) if len(counts) else 1, 1)
-    rank = np.arange(len(cols)) - np.repeat(start, counts)
-    inv = np.full((n, d_max), -1, dtype=np.int64)
-    inv[cols, rank] = flat
-    return inv
-
-
 def gather_graph_attention(q, k, v, nbr, val, inv=None):
     """Neighbor-gather attention: each row attends to exactly its ≤K
     listed neighbors. q/k/v [N, heads, d]; nbr/val [N, K]; ``inv``
@@ -246,10 +233,6 @@ class GraphAttentionBlock(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if attention == "ring":
-            raise NotImplementedError(
-                "attention='ring' needs several devices; it comes with the "
-                "parallel set (ROADMAP.md Queue 1)")
         if attention not in ATTENTION_MODES:
             raise ValueError(f"unknown attention mode {attention!r}")
         self.hidden, self.heads = hidden, heads
@@ -272,11 +255,20 @@ class GraphAttentionBlock(nn.Module):
 
         q, k, v = (split(dense(x)) for dense in
                    (self.Dense_0, self.Dense_1, self.Dense_2))
+        n = q.shape[0]
         if self.attention == "gather":
             out = gather_graph_attention(q, k, v, nbr, val, inv)
         else:
-            out = graph_flash_attention(
-                q, k, v, nbr, val, block=_flash_block(q.shape[0], self.chunk))
+            if self.attention == "ring" and group_size_rank()[0] > 1:
+                raise NotImplementedError(
+                    "attention='ring' across several processes (K/V rows "
+                    "sharded around the ring) comes with the parallel set "
+                    "(ROADMAP.md Queue 1 item 8); in a world of one it is "
+                    "the blocks math")
+            # The CPU's key block; the kernel takes none.
+            block = (_divisor_block(n, self.chunk) if self.attention == "ring"
+                     else _flash_block(n, self.chunk))
+            out = graph_flash_attention(q, k, v, nbr, val, block, inv=inv)
         h = h + self.Dense_3(out.reshape(-1, self.hidden))
         y = self.LayerNorm_1(h)
         y = F.gelu(self.Dense_4(y), approximate="tanh")
@@ -305,7 +297,8 @@ class GraphTransformer(nn.Module):
 
     def node_embeddings(self, node_features, nbr, val, inv=None):
         """[N, F] → [N, E]; run once at model load for serving. ``inv``
-        (gather-mode training) = :func:`build_inverse_index` of ``nbr``."""
+        (training; required under autograd on the card in every mode but
+        gather) = :func:`build_inverse_index` of ``nbr``."""
         h = self.input_proj(node_features)
         for block in self.blocks:
             h = block(h, nbr, val, inv)

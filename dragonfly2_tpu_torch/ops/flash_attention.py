@@ -1,15 +1,16 @@
 """Attention kernels — port of ``dragonfly2_tpu/ops/flash_attention.py``.
 
-Two wrappers, each launching a hand-written kernel on CUDA tensors (or
-raising) and running its plain PyTorch twin on CPU tensors:
+Two wrappers, each launching hand-written kernels on CUDA tensors (or
+raising) and running their plain PyTorch twins on CPU tensors:
 
 - :func:`graph_flash_attention` (K1, ``csrc/graph_flash_attention.cu``):
   neighbor-masked graph attention; its twin
   :func:`graph_flash_attention_plain` ports ``sparse_graph_attention``.
-  The GraphTransformer's blocks/flash modes call it. The kernel is forward
-  only: on the card it refuses to run under autograd (blocks/flash-mode
-  training there is a later slice, ROADMAP.md Queue 1), while on the CPU
-  the plain version trains through PyTorch's autograd.
+  The GraphTransformer's blocks, flash and ring modes call it. Under
+  autograd it runs :class:`GraphFlashAttention`: the forward also writes
+  the row statistics (lse), and the backward is a two-pass gradient — dQ
+  and dval per query row, dK and dV per key row through the inverse index
+  — whose twin is :func:`graph_flash_attention_backward_plain`.
 - :func:`flash_attention` (K3, ``csrc/flash_attention_sm90.cu`` for bf16
   at head_dim 64 and 128, ``csrc/flash_attention.cu`` otherwise; see
   :func:`k3_route`): plain or
@@ -28,31 +29,42 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from dragonfly2_tpu_torch.ops._build import check, load_library
+from dragonfly2_tpu_torch.ops.table_gather import build_inverse_index
 
 NEG_INF = -1e9  # the mask value of both TPU kernels: finite, not -inf
 
-# The kernel keeps a row's neighbor ids in shared memory and spreads the
-# row's heads * d elements over one warp, the same number per lane, each
-# head on its own power-of-two group of lanes (csrc/graph_flash_attention.cu).
-MAX_SLOTS = 256
-ROW_WIDTHS = (32, 64, 128, 256)
+# The K1 kernels keep a row's valid neighbor ids in shared memory (the
+# backward 12 bytes a slot for each of 8 warps: K <= 512 stays within
+# 48 KB) and spread the row's heads * d elements over one warp, the same
+# number per lane (1 to 16), each head on its own power-of-two group of
+# lanes (csrc/graph_flash_attention.cu).
+MAX_SLOTS = 512
+ROW_WIDTHS = (32, 64, 128, 256, 512)
+# The backward's launches (``parts`` of :func:`launch_graph_backward`).
+GBWD_DQ, GBWD_KV = 1, 2
+GBWD_ALL = GBWD_DQ | GBWD_KV
 
 
-def graph_flash_attention_plain(q, k, v, nbr, val, block: int = 128):
+def graph_flash_attention_plain(q, k, v, nbr, val, block: int = 128,
+                                return_lse: bool = False):
     """Plain PyTorch twin: online softmax over key blocks of ``block``
-    columns with f32 (m, l, acc), the [rows, block] bias and mask
-    scattered from the neighbor lists per block — the algebra of
-    ``sparse_graph_attention``. The last key block may be ragged (the
+    columns with f32 scores and (m, l, acc), p rounded to q's dtype
+    before P·V, the [rows, block] bias and mask scattered from the
+    neighbor lists per block — the algebra of ``sparse_graph_attention``
+    (which rounds bf16 scores before the f32 softmax; the kernel does
+    not). The last key block may be ragged (the
     TPU kernel pads instead; padded columns are unreachable either way).
 
     q [Nq, h, d], k/v [Nk, h, d]; nbr/val [Nq, K] with ids in k's index
     space (ids outside [0, Nk) are masked). Returns [Nq, h, d] in q's
-    dtype; a row with no valid slot gives 0.
+    dtype; a row with no valid slot gives 0. With ``return_lse`` also
+    lse [Nq, h] f32 = m + log(l), −inf for a row with no valid slot.
     """
     n_q, heads, d = q.shape
     n_k = k.shape[0]
@@ -75,7 +87,9 @@ def graph_flash_attention_plain(q, k, v, nbr, val, block: int = 128):
         hits = torch.zeros_like(bias)
         hits.index_put_((rows, col), in_range.float(), accumulate=True)
         mask = (hits > 0)[:, None, :]
-        s = torch.einsum("nhd,bhd->nhb", q, kj).float() * scale
+        # f32 scores, as the kernel keeps them (its backward recomputes p
+        # from them against this lse).
+        s = torch.einsum("nhd,bhd->nhb", q.float(), kj.float()) * scale
         s = torch.where(mask, s + bias[:, None, :], NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         # The mask product guards fully masked rows: exp(NEG_INF − NEG_INF)
@@ -86,40 +100,75 @@ def graph_flash_attention_plain(q, k, v, nbr, val, block: int = 128):
         acc = acc * fold[..., None] + torch.einsum(
             "nhb,bhd->nhd", p.to(q.dtype), vj).float()
         m = m_new
-    return (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
+    out = (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load_library("graph_flash_attention")
-    lib.df2_graph_flash_attention.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.df2_graph_flash_attention.restype = ctypes.c_int
-    return lib
+def graph_flash_attention_backward_plain(q, k, v, nbr, val, lse, dout, inv):
+    """Plain twin of the K1 backward kernels' algorithm, in f32. Per
+    slot (a gather of its k and v rows): p = exp(s − lse), 0 at masked
+    slots, and d = dO·v − r, with r the row's first valid slot's dO·v.
+    Per (row, head): delta = Σ p·d / Σ p, dq = scale·(Σ p·d·k − delta·
+    Σ p·k); per slot ds = p·(d − delta), dval = Σ_heads ds. Then dk and
+    dv summed per key row over ``inv`` ([Nk, D] int64 flat positions
+    i·K + s, ascending, −1 padding; see ``build_inverse_index``) in
+    position order. This is the exact gradient (delta = Σ p·dO·v), not
+    FlashAttention-2's rowsum(dO ∘ out): out is rounded, and where a
+    row's softmax is peaked that rounding is as large as the dp − delta
+    it must cancel. Dividing by Σ p (1 up to lse's rounding) and the
+    shift by r keep that cancellation exact (see the kernel's note).
+    Returns (dq, dk, dv) in q's dtype and dval [Nq, K] f32."""
+    n_q, heads, d = q.shape
+    n_k, kw = k.shape[0], nbr.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    valid = (nbr >= 0) & (nbr < n_k)
+    idx = torch.where(valid, nbr, 0).long()
+    first = idx[torch.arange(n_q, device=q.device), valid.int().argmax(1)]
+    r = (dof * vf[first]).sum(-1)                               # [Nq, h]
+    p = torch.zeros((n_q, kw, heads), dtype=torch.float32, device=q.device)
+    dp = torch.zeros_like(p)
+    delta = torch.zeros((n_q, heads), dtype=torch.float32, device=q.device)
+    psum = torch.zeros_like(delta)
+    a, b = torch.zeros_like(qf), torch.zeros_like(qf)
+    for s in range(kw):
+        kc, vc = kf[idx[:, s]], vf[idx[:, s]]
+        score = (qf * kc).sum(-1) * scale + val[:, s, None]
+        p[:, s] = torch.where(valid[:, s, None], torch.exp(score - lse), 0.0)
+        dp[:, s] = (dof * vc).sum(-1) - r
+        pd = p[:, s] * dp[:, s]
+        delta += pd
+        psum += p[:, s]
+        a += pd[..., None] * kc
+        b += p[:, s, :, None] * kc
+    delta = torch.where(psum > 0, delta / psum, 0.0)
+    dq = a - delta[..., None] * b
+    ds = p * (dp - delta[:, None])
+    dval = ds.sum(-1)
+    p, ds = p.view(-1, heads), ds.view(-1, heads)
+    dk = torch.zeros((n_k, heads, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for j in range(inv.shape[1]):
+        pos = inv[:, j]
+        live = ((pos >= 0) & (pos < n_q * kw))[:, None]
+        pos = torch.where(live[:, 0], pos, 0)
+        rows = pos // kw
+        dv += torch.where(live, p[pos], 0.0)[..., None] * dof[rows]
+        dk += torch.where(live, ds[pos], 0.0)[..., None] * qf[rows]
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype), dval)
 
 
-def graph_flash_attention(q, k, v, nbr, val, block: int = 128):
-    """Neighbor-masked attention: scores + RTT bias on listed neighbors,
-    masked elsewhere, rows with no in-range neighbor give 0.
-
-    q [Nq, h, d], k/v [Nk, h, d] (one floating dtype); nbr [Nq, K] int32,
-    val [Nq, K] float32. CPU tensors take the plain version over key
-    blocks of ``block`` columns; CUDA tensors launch the kernel (which
-    needs no blocking) or raise, also when autograd would need a gradient
-    through it. Returns [Nq, h, d] in q's dtype.
-    """
-    tensors = (q, k, v, nbr, val)
-    if all(t.device.type == "cpu" for t in tensors):
-        return graph_flash_attention_plain(q, k, v, nbr, val, block)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
-        raise ValueError("q, k, v, nbr and val must all be on one CUDA device")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, val)):
-        raise NotImplementedError(
-            "graph_flash_attention has no backward on the card: blocks/"
-            "flash-mode training is a later slice (ROADMAP.md Queue 1); "
-            "train in gather mode")
+def check_graph_flash_inputs(q, k, v, nbr, val) -> None:
+    """Raise unless q/k/v/nbr/val are what the K1 kernels take, on any
+    device: q [Nq, h, d] and k/v [Nk, h, d] of one dtype (bf16 or f32),
+    nbr int32 and val float32 [Nq, K]; h dividing 32, h·d in
+    :data:`ROW_WIDTHS` and K ≤ :data:`MAX_SLOTS`; contiguous, and q, k, v
+    aligned to the h·d/32 elements a lane loads at once."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or nbr.dim() != 2:
+        raise ValueError(f"expected q/k/v [N, heads, head_dim] and nbr/val "
+                         f"[Nq, K], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(nbr.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q/k/v must share bf16 or f32, got "
@@ -135,28 +184,174 @@ def graph_flash_attention(q, k, v, nbr, val, block: int = 128):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, nbr "
                          f"{tuple(nbr.shape)}, val {tuple(val.shape)}")
-    if 32 % heads or heads * d not in ROW_WIDTHS or kw > MAX_SLOTS:
+    if (heads < 1 or 32 % heads or heads * d not in ROW_WIDTHS
+            or kw > MAX_SLOTS):
         raise ValueError(f"kernel takes heads dividing 32, heads * head_dim "
                          f"in {ROW_WIDTHS} and K <= {MAX_SLOTS}, got heads "
                          f"{heads}, head_dim {d}, K {kw}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in (q, k, v, nbr, val)):
         raise ValueError("q, k, v, nbr and val must be contiguous")
-    out = torch.empty_like(q)
     vec_bytes = heads * d // 32 * q.element_size()
-    if any(t.data_ptr() % vec_bytes for t in (q, k, v, out)):
-        raise ValueError(f"q, k, v and out must be {vec_bytes}-byte aligned")
+    if any(t.data_ptr() % vec_bytes for t in (q, k, v)):
+        raise ValueError(f"q, k and v must be {vec_bytes}-byte aligned")
+
+
+def check_inverse_index(inv, k) -> None:
+    """Raise unless ``inv`` is an inverse index for k's rows: int64
+    [Nk, D], contiguous, on k's device."""
+    if (inv.dtype != torch.int64 or inv.dim() != 2
+            or inv.shape[0] != k.shape[0] or not inv.is_contiguous()
+            or inv.device != k.device):
+        raise ValueError(f"inv must be a contiguous int64 [{k.shape[0]}, D] "
+                         f"tensor on {k.device}, got {inv.dtype} "
+                         f"{tuple(inv.shape)} on {inv.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind_graph_library(load_library("graph_flash_attention"))
+
+
+def bind_graph_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/graph_flash_attention.cu``."""
+    lib.df2_graph_flash_attention.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.df2_graph_flash_attention_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.df2_graph_flash_attention.restype = ctypes.c_int
+    lib.df2_graph_flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def graph_flash_forward(q, k, v, nbr, val, with_lse: bool):
+    """Launch the K1 forward on checked CUDA inputs: out like q and, with
+    ``with_lse``, lse [Nq, h] f32 (else None). Counts a launch."""
+    n_q, heads, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((n_q, heads), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(lib, lib.df2_graph_flash_attention(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), nbr.data_ptr(), val.data_ptr(), out.data_ptr(),
-        n_q, n_k, heads, d, kw, 1.0 / math.sqrt(d), stream),
+        None if lse is None else lse.data_ptr(), n_q, k.shape[0], heads, d,
+        nbr.shape[1], 1.0 / math.sqrt(d), stream),
         "graph_flash_attention launch")
     graph_flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def graph_backward_scratch(q, nbr) -> dict:
+    """The K1 backward's device scratch: p and dp (then ds), f32
+    [Nq·K, h] each."""
+    shape = (nbr.numel(), q.shape[1])
+    return {name: torch.empty(shape, dtype=torch.float32, device=q.device)
+            for name in ("p", "ds")}
+
+
+def launch_graph_backward(q, k, v, nbr, val, lse, dout, inv, dq, dk, dv, dval,
+                          scratch: dict, parts: int = GBWD_ALL) -> None:
+    """Launch the K1 backward's ``parts`` (``GBWD_DQ``: dq, dval and the
+    scratch; ``GBWD_KV``: dk and dv from the scratch) into dq, dk, dv and
+    dval; counts nothing."""
+    n_q, heads, d = q.shape
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, nbr, val, inv, dq,
+                                   dk, dv, dval, scratch["p"],
+                                   scratch["ds"])]
+    check(lib, lib.df2_graph_flash_attention_bwd(
+        int(q.dtype == torch.bfloat16), *ptrs, n_q, k.shape[0], heads, d,
+        nbr.shape[1], inv.shape[1], 1.0 / math.sqrt(d), parts, stream),
+        "graph_flash_attention backward launch")
+
+
+def graph_flash_backward(q, k, v, nbr, val, lse, dout, inv):
+    """Launch the K1 backward (the dQ pass, then the dK/dV pass) for the
+    forward that gave lse; dout like its out, contiguous. Returns dq, dk,
+    dv like q and k, and dval [Nq, K] f32. Counts one backward."""
+    vec_bytes = q.shape[1] * q.shape[2] // 32 * q.element_size()
+    if dout.data_ptr() % vec_bytes:
+        dout = dout.clone()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dval = torch.empty_like(val)
+    launch_graph_backward(q, k, v, nbr, val, lse, dout, inv, dq, dk, dv, dval,
+                          graph_backward_scratch(q, nbr))
+    graph_flash_attention.backward_launches += 1
+    return dq, dk, dv, dval
+
+
+class GraphFlashAttention(torch.autograd.Function):
+    """K1 under autograd. CUDA tensors: the forward kernel with lse, and
+    the two backward kernels. CPU tensors: the plain twins, with the
+    inverse index built from nbr when none is given."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, nbr, val, inv, block):
+        if q.device.type == "cpu":
+            out, lse = graph_flash_attention_plain(q, k, v, nbr, val, block,
+                                                   return_lse=True)
+            if inv is None:
+                inv = torch.from_numpy(build_inverse_index(nbr.numpy(),
+                                                           k.shape[0]))
+        else:
+            out, lse = graph_flash_forward(q, k, v, nbr, val, with_lse=True)
+        ctx.save_for_backward(q, k, v, nbr, val, lse, inv)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, nbr, val, lse, inv = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        backward = (graph_flash_attention_backward_plain
+                    if q.device.type == "cpu" else graph_flash_backward)
+        dq, dk, dv, dval = backward(q, k, v, nbr, val, lse, dout, inv)
+        return dq, dk, dv, None, dval, None, None
+
+
+def graph_flash_attention(q, k, v, nbr, val, block: int = 128, inv=None):
+    """Neighbor-masked attention: scores + RTT bias on listed neighbors,
+    masked elsewhere, rows with no in-range neighbor give 0.
+
+    q [Nq, h, d], k/v [Nk, h, d] (one floating dtype); nbr [Nq, K] int32,
+    val [Nq, K] float32; ``inv`` the inverse index of nbr over k's rows
+    (``build_inverse_index``), which the backward walks. CPU tensors take
+    the plain twins, the forward over key blocks of ``block`` columns (and
+    build ``inv`` themselves when it is None). CUDA tensors launch the
+    kernels (which need no blocking; see :func:`check_graph_flash_inputs`
+    for what they take) or raise — also under autograd without ``inv``,
+    which is never built on the device here. Whenever a gradient is
+    needed the call goes through :class:`GraphFlashAttention`. Returns
+    [Nq, h, d] in q's dtype.
+    """
+    tensors = (q, k, v, nbr, val)
+    cpu = all(t.device.type == "cpu" for t in tensors)
+    if not cpu:
+        if (any(t.device != q.device for t in tensors)
+                or q.device.type != "cuda"):
+            raise ValueError("q, k, v, nbr and val must all be on one CUDA "
+                             "device")
+        check_graph_flash_inputs(*tensors)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v, val))):
+        if cpu:
+            return graph_flash_attention_plain(q, k, v, nbr, val, block)
+        return graph_flash_forward(q, k, v, nbr, val, with_lse=False)[0]
+    if inv is None and not cpu:
+        raise ValueError("graph_flash_attention needs the inverse index "
+                         "under autograd on the card: pass inv = "
+                         "build_inverse_index(nbr), placed on the device")
+    if inv is not None:
+        check_inverse_index(inv, k)
+    return GraphFlashAttention.apply(q, k, v, nbr, val, inv, block)
 
 
 graph_flash_attention.launches = 0
+graph_flash_attention.backward_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -188,10 +383,12 @@ def _chunk_step(q, kj, vj, m, l, acc, start: int, causal: bool,
     return m_new, l, acc
 
 
-def chunked_attention(q, k, v, causal: bool = False, block: int = 512):
+def chunked_attention(q, k, v, causal: bool = False, block: int = 512,
+                      scale: float | None = None):
     """Key-blocked online-softmax attention in plain PyTorch (port of
     ``chunked_attention``): f32 (m, l, acc), p in q's dtype before P·V,
-    out = acc / max(l, 1e-20). The plain twin of the K3 kernel, forward
+    out = acc / max(l, 1e-20); scores scaled by ``scale`` (default
+    1/sqrt(head_dim)). The plain twin of the K3 kernel, forward
     and backward: under autograd each key block runs under
     ``torch.utils.checkpoint`` (``jax.checkpoint(step)``'s counterpart),
     so a backward keeps O(T·block) scores alive, not [T, T]. The last
@@ -199,7 +396,7 @@ def chunked_attention(q, k, v, causal: bool = False, block: int = 512):
     padded). q/k/v [T, h, d] → [T, h, d] in q's dtype."""
     chunked_attention.calls += 1
     t, heads, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     block = min(block, t)
     m = torch.full((heads, t), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
@@ -350,6 +547,28 @@ def flash_backward_plain(q, k, v, out, dout, lse, causal: bool,
                  for g, mul in ((dq, scale), (dk, scale), (dv, 1.0)))
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head width the K3 kernels run a head_dim-``d`` input at: the
+    least of :data:`HEAD_DIMS` that is at least d. Raises for d outside
+    [1, 128]."""
+    for width in HEAD_DIMS:
+        if 1 <= d <= width:
+            return width
+    raise ValueError(f"K3 takes head_dim from 1 to {HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(q, k, v):
+    """q, k, v ([T, h, d]) zero-padded along head_dim to
+    :func:`kernel_head_dim` (the same tensors when d is a width the
+    kernels take). Exact when the scores keep d's scale: zero columns add
+    nothing to q·k, and give zero output and gradient columns, which the
+    caller slices off."""
+    extra = kernel_head_dim(q.shape[-1]) - q.shape[-1]
+    if extra == 0:
+        return q, k, v
+    return tuple(F.pad(x, (0, extra)) for x in (q, k, v))
+
+
 def check_flash_inputs(q, k, v) -> None:
     """Raise unless q/k/v are what the K3 kernels take: one shape
     [T, h, d] with T, h >= 1 and d in :data:`HEAD_DIMS`, one dtype (bf16
@@ -466,19 +685,20 @@ def backward_scratch(q) -> dict:
 
 
 def launch_backward(q, k, v, out, dout, lse, causal: bool, dq, dk, dv,
-                    scratch: dict, parts: int = BWD_ALL) -> str:
+                    scratch: dict, parts: int = BWD_ALL,
+                    scale: float | None = None) -> str:
     """Launch the K3 backward's ``parts`` (``BWD_DELTA``, ``BWD_KV``,
     ``BWD_Q``; later parts read delta from ``scratch``) into dq, dk and
     dv; counts nothing. On the "mma" route ``BWD_KV`` is the fused block
-    that also gives dq, and ``BWD_Q`` launches nothing. Returns the
-    route."""
+    that also gives dq, and ``BWD_Q`` launches nothing. ``scale``
+    defaults to 1/sqrt(head_dim). Returns the route."""
     t, heads, d = q.shape
     route = _route(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch["delta"].data_ptr()]
     grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     if route == "sm90":
         lib = _sm90_lib()
         rc = lib.df2_flash_attention_sm90_bwd(
@@ -494,10 +714,12 @@ def launch_backward(q, k, v, out, dout, lse, causal: bool, dq, dk, dv,
     return route
 
 
-def flash_forward(q, k, v, causal: bool):
+def flash_forward(q, k, v, causal: bool, scale: float | None = None):
     """Launch the K3 forward on checked CUDA q/k/v: returns out (like q)
-    and lse [h, T] f32, the per-row log-sum-exp the backward needs."""
+    and lse [h, T] f32, the per-row log-sum-exp the backward needs.
+    ``scale`` defaults to 1/sqrt(head_dim)."""
     t, heads, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
     lse = torch.empty((heads, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -506,24 +728,25 @@ def flash_forward(q, k, v, causal: bool):
     if _route(q) == "sm90":
         lib = _sm90_lib()
         rc = lib.df2_flash_attention_sm90_fwd(
-            *ptrs, t, heads, d, int(causal), 1.0 / math.sqrt(d), stream)
+            *ptrs, t, heads, d, int(causal), scale, stream)
     else:
         lib = _flash_lib()
         rc = lib.df2_flash_attention_fwd(
             int(q.dtype == torch.bfloat16), *ptrs, t, heads, d, int(causal),
-            1.0 / math.sqrt(d), stream)
+            scale, stream)
     check(lib, rc, "flash_attention launch")
     flash_attention.launches += 1
     return out, lse
 
 
-def flash_backward(q, k, v, out, dout, lse, causal: bool):
+def flash_backward(q, k, v, out, dout, lse, causal: bool,
+                   scale: float | None = None):
     """Launch the K3 backward (delta, then dK/dV and dQ: two kernels on
     the "sm90" and "fma" routes, one fused on "mma") for the forward that
     gave out and lse; dout like out. Returns dq, dk, dv like q."""
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     launch_backward(q, k, v, out, dout, lse, causal, dq, dk, dv,
-                    backward_scratch(q))
+                    backward_scratch(q), scale=scale)
     flash_attention.backward_launches += 1
     return dq, dk, dv
 
@@ -532,10 +755,10 @@ class FlashAttention(torch.autograd.Function):
     """K3 on the card: forward kernel, backward kernels under autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_forward(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_forward(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
@@ -544,8 +767,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out,
                                     dout.to(q.dtype).contiguous(), lse,
-                                    ctx.causal)
-        return dq, dk, dv, None
+                                    ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False):
@@ -556,16 +779,22 @@ def flash_attention(q, k, v, causal: bool = False):
     CPU tensors take :func:`chunked_attention` over key blocks of
     :data:`CPU_BLOCK` columns, with PyTorch's autograd. CUDA tensors
     launch the K3 kernels (forward, and the backward under autograd) or
-    raise — see :func:`check_flash_inputs` for what they take. Unlike the
-    JAX function this takes no ``block_q``/``block_k``: the kernels pick
-    their own tiles, and the CPU scan's block is fixed.
+    raise — see :func:`check_flash_inputs` for what they take. A head_dim
+    up to 128 that is not one of :data:`HEAD_DIMS` runs zero-padded to the
+    next (:func:`pad_head_dim`), with the scale of the true head_dim.
+    Unlike the JAX function this takes no ``block_q``/``block_k``: the
+    kernels pick their own tiles, and the CPU scan's block is fixed.
     """
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return chunked_attention(q, k, v, causal, block=CPU_BLOCK)
     if any(x.device != q.device for x in (k, v)) or q.device.type != "cuda":
         raise ValueError("q, k and v must all be on one CUDA device")
+    d = q.shape[-1]
+    if q.dim() == 3 and k.shape == v.shape == q.shape:
+        q, k, v = pad_head_dim(q, k, v)
     check_flash_inputs(q, k, v)
-    return FlashAttention.apply(q, k, v, bool(causal))
+    out = FlashAttention.apply(q, k, v, bool(causal), 1.0 / math.sqrt(d))
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 flash_attention.launches = 0

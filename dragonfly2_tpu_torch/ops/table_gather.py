@@ -15,10 +15,36 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from dragonfly2_tpu_torch.ops._build import check, load_library
+
+
+def build_inverse_index(nbr: np.ndarray, n_rows: int | None = None
+                        ) -> np.ndarray:
+    """Host-side transpose of the neighbor lists: ``inv[j]`` lists the
+    flat positions ``i*K + s`` with ``nbr[i, s] == j``, ascending, padded
+    with -1 to the max in-degree (int64 [n_rows, D_max]; ``n_rows``
+    defaults to nbr's rows); ids outside [0, n_rows) — the PAD_ID pad
+    slots — are left out. Bit-identical to the JAX package's. The
+    backwards of the gather (K2b) and of K1 sum each key row's gradient
+    over these positions."""
+    n, k_width = nbr.shape
+    n = n if n_rows is None else n_rows
+    rows, slots = np.nonzero((nbr >= 0) & (nbr < n))
+    cols = nbr[rows, slots]
+    flat = (rows * k_width + slots).astype(np.int64)
+    order = np.argsort(cols, kind="stable")
+    cols, flat = cols[order], flat[order]
+    start = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
+    counts = np.diff(np.r_[start, len(cols)])
+    d_max = max(int(counts.max()) if len(counts) else 1, 1)
+    rank = np.arange(len(cols)) - np.repeat(start, counts)
+    inv = np.full((n, d_max), -1, dtype=np.int64)
+    inv[cols, rank] = flat
+    return inv
 
 
 def table_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Full-graph GraphTransformer training (BASELINE config #3) on one device —
 port of ``dragonfly2_tpu/train/gat_trainer.py``.
 
-Gather mode is the card's path: the neighbor gather's backward is the
-``table_scatter_add`` kernel over the inverse index, built once per graph
-(``build_inverse_index``) and placed on the device once. Blocks and flash
-modes train on the CPU only (their kernel has no backward on the card
-yet); ring mode and meshes belong to the parallel slice (ROADMAP.md
-Queue 1).
+Every mode trains on the card. The inverse index of the neighbor lists
+(``build_inverse_index``) is built once per graph and placed on the
+device once: in gather mode the neighbor gather's backward (the
+``table_scatter_add`` kernel) walks it, in blocks, flash and ring mode
+the backward of ``graph_flash_attention`` (K1) does. Ring mode runs in a
+world of one (the blocks math); sharding rows over several processes
+belongs to the parallel slice (ROADMAP.md Queue 1).
 
 The loop is the JAX trainer's: the attention structure is built from
 TRAIN edges only (an eval edge's RTT, a function of its label, never
@@ -63,7 +64,7 @@ class GATTrainConfig:
     # (best-K by RTT bias; self always survives).
     chunk: int = 1024
     neighbor_cap: int = 128
-    # "gather" (the card's path) | "blocks" | "flash" (CPU only here).
+    # "gather" | "blocks" | "flash" | "ring" (a world of one).
     attention: str = "gather"
     # Steps per budget tick, as the JAX trainer's steps per dispatch.
     steps_per_call: int = 1
@@ -120,16 +121,7 @@ class GATTrainer:
 
     def __init__(self, graph: Graph, config: GATTrainConfig = GATTrainConfig(),
                  device=None, init_state: dict | None = None):
-        if config.attention == "ring":
-            raise NotImplementedError(
-                "ring attention needs a mesh of several devices; it comes "
-                "with the parallel slice (ROADMAP.md Queue 1)")
         self.device = default_device(device)
-        if self.device.type == "cuda" and config.attention != "gather":
-            raise NotImplementedError(
-                f"attention={config.attention!r} trains on the CPU only: the "
-                "graph_flash_attention kernel has no backward on the card "
-                "yet (ROADMAP.md Queue 1); train in gather mode")
         self.config = config
         # Pair-level split: every sighting of an eval (src, dst) pair
         # stays out of training AND out of the attention bias.
@@ -139,10 +131,15 @@ class GATTrainer:
             graph.n_nodes, graph.edge_src[self.train_ids],
             graph.edge_dst[self.train_ids], graph.edge_rtt_ns[self.train_ids],
             cap=config.neighbor_cap)
-        # Blocks modes pad rows to whole key blocks; gather mode on one
-        # device needs no padding.
-        multiple = (pad_multiple(1, config.chunk, graph.n_nodes)
-                    if config.attention == "blocks" else 1)
+        # Rows pad as the JAX trainer's on one device: blocks mode to
+        # whole key blocks, ring mode to whole chunks once the rows exceed
+        # one, gather and flash mode not at all.
+        if config.attention == "blocks":
+            multiple = pad_multiple(1, config.chunk, graph.n_nodes)
+        elif config.attention == "ring" and graph.n_nodes > config.chunk:
+            multiple = config.chunk
+        else:
+            multiple = 1
         self.node_features, self.nbr, self.val, self.n_real = pad_graph_sparse(
             graph.node_features, nbr, val, multiple)
 
@@ -165,14 +162,13 @@ class GATTrainer:
         self.warmup_steps = min(100, self.total_steps // 10 + 1)
         self.step_count = 0
 
-        # Graph tensors, the inverse index (gather mode) and the edge
-        # arrays go to the device once; a step sends only its edge ids.
+        # Graph tensors, the inverse index and the edge arrays go to the
+        # device once; a step sends only its edge ids.
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
             self.device)
         self.g_feat, self.g_nbr, self.g_val = (
             put(a) for a in (self.node_features, self.nbr, self.val))
-        self.g_inv = (put(build_inverse_index(self.nbr))
-                      if config.attention == "gather" else None)
+        self.g_inv = put(build_inverse_index(self.nbr))
         self.g_src = put(graph.edge_src.astype(np.int32))
         self.g_dst = put(graph.edge_dst.astype(np.int32))
         self.g_y = put(graph.edge_labels(config.rtt_threshold_ns).astype(

@@ -40,6 +40,7 @@ from dragonfly2_tpu_torch.train.checkpoint import (
     gat_state_dict_from_flax,
     mlp_state_dict_from_flax,
 )
+from tests.torch_dist_worker import spawn_worlds
 
 F32_TOL = 1e-4
 BF16_TOL = 6e-2
@@ -73,8 +74,10 @@ def graph():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("attention", ["gather", "blocks", "flash"])
+@pytest.mark.parametrize("attention", ["gather", "blocks", "flash", "ring"])
 def test_graph_transformer_matches_flax(graph, attention, dtype):
+    """Ring mode: the JAX model without a mesh takes its local fallback,
+    the port in a world of one the same blocks math."""
     jdt, tdt, tol = DTYPES[dtype]
     feats, nbr, val, src, dst = graph
     jm = JaxGT(hidden=32, embed=16, layers=2, heads=4, chunk=CHUNK,
@@ -159,10 +162,13 @@ def test_state_dict_round_trips(graph):
         assert torch.equal(back[key], value)
 
 
-def test_ring_mode_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphTransformer(hidden=32, embed=16, layers=1, heads=4,
-                         attention="ring")
+def test_ring_mode_names_its_roadmap_item(tmp_path):
+    """Ring mode in a world of two (gloo, one process a rank) raises on
+    every rank, naming its ROADMAP item: row-sharded K/V is not ported."""
+    errors = spawn_worlds({2: {"ring": dict(ring_model=True)}},
+                          str(tmp_path))[2]["ring"]["error"]
+    assert len(errors) == 2
+    assert all("ROADMAP" in str(e) for e in errors), errors
 
 
 def test_seeded_init_is_deterministic():
@@ -210,12 +216,19 @@ def _assert_grads_close(model, ref_grads, tol):
 
 @pytest.mark.parametrize("attention,dtype", [("gather", "f32"),
                                              ("gather", "bf16"),
-                                             ("blocks", "f32")])
+                                             ("blocks", "f32"),
+                                             ("blocks", "bf16"),
+                                             ("flash", "f32"),
+                                             ("ring", "f32")])
 def test_one_step_grads_match_flax(graph, attention, dtype):
+    """Blocks, flash and ring mode differentiate through
+    ``GraphFlashAttention``'s plain twins (its backward walking the
+    inverse index); flax differentiates its scan (flash: through the
+    Pallas kernel in interpret mode and its custom VJP)."""
     jdt, tdt, _ = DTYPES[dtype]
     feats, nbr, val, src, dst = graph
     y = (np.random.default_rng(5).random(len(src)) < 0.4).astype(np.float32)
-    inv = build_inverse_index(nbr) if attention == "gather" else None
+    inv = build_inverse_index(nbr)
     params = JaxGT(hidden=32, embed=16, layers=2, heads=4, chunk=CHUNK,
                    attention=attention).init(
         jax.random.key(3), feats, nbr, val, src[:2], dst[:2])

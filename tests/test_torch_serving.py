@@ -98,7 +98,7 @@ def _ranking(scores):
     return np.argsort(-np.asarray(scores), kind="stable")
 
 
-@pytest.mark.parametrize("attention", ["gather", "blocks"])
+@pytest.mark.parametrize("attention", ["gather", "blocks", "ring"])
 def test_gat_scorer_matches_jax_f32(gat, attention):
     cfg = dict(GAT_CFG, attention=attention)
     ref = jax_scorer.GATParentScorer(
@@ -182,7 +182,7 @@ def _metadata(model_type, config):
             "feature_schema": []}
 
 
-@pytest.mark.parametrize("attention", ["gather", "blocks"])
+@pytest.mark.parametrize("attention", ["gather", "blocks", "ring"])
 def test_gat_artifact_from_jax_tree_serves(gat, attention):
     cfg = dict(GAT_CFG, attention=attention)
     tree = jax_gat_tree(gat["params"], gat["feats"], gat["nbr"], gat["val"],

@@ -1,4 +1,5 @@
-"""Multi-process runs of the port's Ulysses attention on the CPU (gloo).
+"""Multi-process runs of the port's Ulysses attention (and of ring-mode
+GraphTransformer's refusal) on the CPU (gloo).
 
 :func:`spawn_worlds` starts one process per rank for each world size, all
 at once, each joining its world's process group through a ``file://``
@@ -21,10 +22,31 @@ import numpy as np
 PG_TIMEOUT_S = 60
 
 
+def _ring_model_error() -> str:
+    """What a ring-mode GraphTransformer raises on a tiny graph, or ""."""
+    import torch
+
+    from dragonfly2_tpu_torch.models.graph_transformer import (
+        GraphTransformer,
+    )
+
+    model = GraphTransformer(in_features=4, hidden=32, embed=16, layers=1,
+                             heads=4, attention="ring")
+    nbr = torch.arange(8, dtype=torch.int32)[:, None]
+    try:
+        model.node_embeddings(torch.zeros(8, 4), nbr, torch.zeros(8, 1))
+    except NotImplementedError as exc:
+        return str(exc)
+    return ""
+
+
 def _run_case(case: dict, rank: int, world: int) -> dict:
     import torch
 
     from dragonfly2_tpu_torch.parallel import ulysses_attention
+
+    if case.get("ring_model"):
+        return {"error": np.array(_ring_model_error())}
 
     t = case["q"].shape[0]
     rows = slice(rank * t // world, (rank + 1) * t // world)
@@ -77,7 +99,9 @@ def run_rank(rank: int, world: int, store: str, cases: dict,
 def spawn_worlds(worlds: dict, tmp_dir: str, timeout_s: float = 90.0):
     """Run ``{world size: {case name: case}}`` with one process per rank,
     every world at once. A case holds global q/k/v [T, H, D] f32 arrays,
-    ``causal``, and optionally ``chunk``, ``grad`` and ``expect_error``.
+    ``causal``, and optionally ``chunk``, ``grad`` and ``expect_error``;
+    or ``ring_model``, which runs a ring-mode GraphTransformer and returns
+    what it raised under ``error``.
     Returns ``{world: {case name: {key: per-rank arrays, rank order}}}``.
     Raises when a rank fails or the whole run outlasts ``timeout_s``
     (the ranks are then terminated)."""
