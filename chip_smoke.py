@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
 scorer (BASELINE config #3) and the MLP scorer, train the GraphTransformer
 in gather mode and in blocks mode and serve the results, run ring mode in
-a world of one, and run Ulysses attention, on one NVIDIA H100 through
+a world of one, run Ulysses attention, and train GraphSAGE (BASELINE
+config #2) with on-device sampling, on one NVIDIA H100 through
 ``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
@@ -81,7 +82,28 @@ Phases (any failure exits nonzero, before the final line):
    dense [T, T] f32 scores (4.29 GB), fwd and fwd+bwd times;
 10. ring_one: ring mode in a world of one at small width — a ring
    trainer's launches of K1 exactly as its path needs, its embeddings
-   equal to blocks mode's on the same weights, its result served.
+   equal to blocks mode's on the same weights, its result served;
+11. GraphSAGE, the slice 7 path: gnn_small_model (a small GraphSAGE in
+   f32, on-device sampling and the K2a gather on the card against the
+   same on the CPU: logits and every parameter's gradient), then
+   train_gnn: config #2 (the 2000-host cluster's 2M probes, hidden 128,
+   embed 64, fanouts (10, 5), batch 8192, sampling on the device;
+   ``GNNTrainer.fit``, the body of ``train_gnn``, GNN_EPOCHS epochs, 60 s
+   cap) with every launch count set to 0 just before and read just after
+   — K2a exactly once a forward, no other kernel — a finite, falling
+   loss and F1 ≥ 0.9, the steady step time, samples/s, quality, peak
+   memory and a profile of 3 steps (device time by kernel, the device's
+   busy share, the host's launches, copies, waits and costliest ops a
+   step, and its pace a small op); train_gnn_to_artifact: the result as
+   a ``gnn`` artifact, loaded back, its logits equal to the trained
+   model's; gnn_sampling: sampling on the card bit-equal to the CPU's
+   for the trainer's tables; K2a at the GraphSAGE shape (the [2000, 8]
+   f32 feature table, one step's 999 424 concatenated indices),
+   bit-equal and timed, carried on the K2a row as ``at_graphsage``;
+   gather_library_profile: ``index_select`` and advanced indexing at
+   that shape, int32 and int64 indices, profiled kernel by kernel; and
+   train_gnn_host: the same run sampling on the host (prefetch
+   threads), with the same launch, loss and F1 checks.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -192,6 +214,18 @@ TRAIN_F1_ATOL, TRAIN_ACCURACY_ATOL = 0.1, 0.05
 RING_CFG = dict(hidden=32, embed=16, layers=2, heads=4, neighbor_cap=16,
                 chunk=64, edge_batch_size=256, epochs=1, eval_fraction=0.1,
                 attention="ring")
+# GraphSAGE, BASELINE config #2 (bench.py:382-386, :409): the 2000-host
+# cluster's 2M probes, hidden 128, embed 64, fanouts (10, 5), batch 8192,
+# lr 5e-3, weight decay 1e-4, eval fraction 0.02; trained with sampling on
+# the device (bench.py:409), then once with sampling on the host.
+# GNN_EPOCHS is the fewest epochs after which seeds 0, 1 and 2 all reached
+# GNN_F1_MIN (tests/gnn_epochs_quality.py on the card, PERF.md).
+GNN_HOSTS, GNN_EDGES = 2000, 2_000_000
+GNN_EPOCHS = 1
+GNN_CFG = dict(hidden=128, embed=64, fanouts=(10, 5), batch_size=8192,
+               learning_rate=5e-3, weight_decay=1e-4, eval_fraction=0.02,
+               epochs=GNN_EPOCHS, max_seconds=60)
+GNN_F1_MIN = 0.9
 
 
 def log(phase: str, **fields) -> None:
@@ -299,10 +333,45 @@ def check_table_gather(torch, table, idx) -> dict:
                source="dragonfly2_tpu_torch/ops/csrc/table_gather.cu",
                replaces="dragonfly2_tpu/ops/table_gather.py:66",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=library_ms)
-    log("kernel", **row, wrapper_ms=wrapper_ms,
+               bound_by=b_by, library_ms=library_ms, wrapper_ms=wrapper_ms)
+    log("kernel", **row,
         shape={"table": list(table.shape), "idx": list(idx.shape)})
     return row
+
+
+def gather_library_profile(torch, table, idx) -> dict:
+    """What PyTorch's gathers spend at this shape: ``index_select`` and
+    advanced indexing (the plain twin) with the int32 index and an int64
+    copy, ``index_select`` on uniform random int32 indices of the same
+    count, and K2a's wrapper beside them → {case: {"ms": CUDA-event ms a call, "wall_ms": host wall
+    ms a call under the profiler, "kernels": [(kernel, launches the
+    profiler recorded a call, device ms a recorded launch)],
+    "launch_shapes": {kernel: [grid, block]}}}. The
+    profiler may record fewer launches than were made, so a kernel's
+    time is given a recorded launch."""
+    from dragonfly2_tpu_torch.ops.table_gather import table_gather
+
+    idx64 = idx.long()
+    uniform = torch.randint(0, table.shape[0], tuple(idx.shape),
+                            generator=torch.Generator().manual_seed(SEED),
+                            dtype=torch.int32).to(idx.device)
+    cases = {"index_select_int32": lambda: table.index_select(0, idx),
+             "index_select_int64": lambda: table.index_select(0, idx64),
+             "indexing_int32": lambda: table[idx],
+             "indexing_int64": lambda: table[idx64],
+             "index_select_uniform_int32":
+                 lambda: table.index_select(0, uniform),
+             "table_gather": lambda: table_gather(table, idx)}
+    out = {}
+    for name, fn in cases.items():
+        ms = cuda_ms(torch, fn)
+        averages, wall_ms, prof = profile_averages(torch, fn, 5)
+        kernels = device_kernels(averages, 5)
+        out[name] = dict(ms=ms, wall_ms=wall_ms,
+                         kernels=[(k[0][:160], k[2], k[1] / k[2])
+                                  for k in kernels[:4]],
+                         launch_shapes=launch_shapes(prof))
+    return out
 
 
 def scatter_err(torch, out, ref) -> tuple[float, float]:
@@ -1122,6 +1191,145 @@ def check_small_model(torch) -> None:
         flash_refuses_grad_without_inv=True)
 
 
+def host_pace_us(torch, calls: int = 2000) -> float:
+    """The host's wall microseconds to enqueue one small eager op
+    (``x.add_(1)`` on a one-element tensor on the card): the pace at
+    which the host issues a step's launches."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        x.add_(1)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def profile_averages(torch, fn, calls: int):
+    """``fn()`` ``calls`` times under ``torch.profiler`` (CPU and CUDA)
+    → (its ``key_averages()``, the host's wall ms a call, the
+    profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    return prof.key_averages(), wall_ms, prof
+
+
+def launch_shapes(prof) -> dict:
+    """{kernel: [grid, block]} of the kernels a profile recorded, from
+    its Chrome trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return {e["name"][:160]: [e["args"].get("grid"), e["args"].get("block")]
+            for e in events if e.get("cat") == "kernel"}
+
+
+def device_kernels(averages, calls: int) -> list:
+    """[(kernel, device ms a call, launches a call)] slowest first. A CPU
+    op's entry, and a user annotation's range on the device (the
+    optimizer's step), repeat the time of the kernels inside: kernels
+    only."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.key, e.self_device_time_total / 1e3 / calls,
+                    e.count / calls)
+                   for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+
+
+def time_and_profile(torch, step, batches) -> dict:
+    """``step(ids)`` over 13 ``batches``: the steady step time (10 steps
+    after 3 warm ones, CUDA events), then a profile of 3 more steps →
+    dict(step_ms; device_ms, the kernels' time a step; kernels, [(kernel,
+    ms, launches)] a step, slowest first; device_ops, the device's
+    kernels and copies a step; runtime, {CUDA runtime call: [calls, host
+    ms]} a step — launches, copies, and the waits a read of a device
+    value makes; cpu_ops, the 12 host ops with the most self time a step,
+    [(op, calls, ms)]; cpu_self_ms, all ops' self time a step;
+    profiled_step_ms, a profiled step's wall time; host_pace_us,
+    :func:`host_pace_us`; host_step_ms, the host's wall time in each timed
+    step; gc_ms, the time Python's garbage collector took in the timed
+    steps, and gc_runs, its collections)."""
+    import gc
+
+    from torch.autograd import DeviceType
+
+    for ids in batches[:3]:
+        step(ids)
+    torch.cuda.synchronize()
+    gc_ms, gc_runs, gc_start = [0.0], [0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_start[0]) * 1e3
+            gc_runs[0] += 1
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_step_ms = []
+    gc.callbacks.append(on_gc)
+    start.record()
+    for ids in batches[3:13]:
+        t0 = time.perf_counter()
+        step(ids)
+        host_step_ms.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    end.synchronize()
+    gc.callbacks.remove(on_gc)
+    step_ms = start.elapsed_time(end) / 10
+    steps = iter(batches[:3])
+    averages, profiled_ms, _ = profile_averages(
+        torch, lambda: step(next(steps)), 3)
+    kernels = device_kernels(averages, 3)
+    host = [e for e in averages if e.device_type == DeviceType.CPU]
+    runtime = {e.key: [e.count / 3, e.self_cpu_time_total / 3e3]
+               for e in host
+               if e.key.startswith("cu") and "::" not in e.key}
+    cpu_ops = sorted(((e.key, e.count / 3, e.self_cpu_time_total / 3e3)
+                      for e in host), key=lambda kv: -kv[2])
+    return dict(step_ms=step_ms, device_ms=sum(k[1] for k in kernels),
+                kernels=kernels, device_ops=sum(k[2] for k in kernels),
+                runtime=runtime, cpu_ops=cpu_ops[:12],
+                cpu_self_ms=sum(op[2] for op in cpu_ops),
+                profiled_step_ms=profiled_ms,
+                host_pace_us=host_pace_us(torch), host_step_ms=host_step_ms,
+                gc_ms=gc_ms[0], gc_runs=gc_runs[0])
+
+
+def log_profile(phase: str, timing: dict) -> None:
+    """The profile half of :func:`time_and_profile`'s result as
+    ``phase``."""
+    log(phase, device_ms_per_step=timing["device_ms"],
+        busy_share=timing["device_ms"] / timing["step_ms"],
+        top_kernels_ms=[k[:2] for k in timing["kernels"][:15]],
+        device_ops_per_step=timing["device_ops"],
+        runtime_per_step=timing["runtime"],
+        top_cpu_ops_ms=timing["cpu_ops"],
+        cpu_self_ms_per_step=timing["cpu_self_ms"],
+        profiled_step_ms=timing["profiled_step_ms"],
+        host_pace_us=timing["host_pace_us"],
+        host_step_ms=timing["host_step_ms"], gc_ms=timing["gc_ms"],
+        gc_runs=timing["gc_runs"])
+
+
 def run_train(torch, graph, cfg, counts, phase: str):
     """Train config #3 (``GATTrainer.fit``, the body of ``train_gat``)
     with every launch count set to 0 just before and read just after. The
@@ -1132,7 +1340,8 @@ def run_train(torch, graph, cfg, counts, phase: str):
     fall. Then the steady step time (10 steps after 3 warm ones, CUDA
     events), samples/s, F1, accuracy, peak memory, and a profile of 3
     steps (device time by kernel, the device's busy share), logged as
-    ``phase`` and ``phase``_profile. Returns (trainer, result, launches)."""
+    ``phase`` and ``phase``_profile (:func:`time_and_profile`). Returns
+    (trainer, result, launches)."""
     import numpy as np
 
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
@@ -1168,40 +1377,12 @@ def run_train(torch, graph, cfg, counts, phase: str):
     if not late < early:
         raise AssertionError(f"{phase}: loss did not fall: steps 2-11 mean "
                              f"{early}, last 10 mean {late}")
-    # Steady step time: 10 steps after 3 warm ones, CUDA events.
     order = np.random.default_rng(SEED + 1).permutation(trainer.train_ids)
-    batches = order[:13 * trainer.batch].reshape(13, trainer.batch)
-    for ids in batches[:3]:
-        trainer.step(ids)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for ids in batches[3:]:
-        trainer.step(ids)
-    end.record()
-    end.synchronize()
-    step_ms = start.elapsed_time(end) / 10
-    # Where a step's device time goes: kernels by name over 3 steps.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for ids in batches[:3]:
-            trainer.step(ids)
-        torch.cuda.synchronize()
-    # Kernels only: a CPU op's entry, and a user annotation's range on the
-    # device (the optimizer's step), repeat the time of the kernels inside.
-    kernel_ms = sorted(((e.key, e.self_device_time_total / 3e3)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)
-                        and e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])
-    device_ms = sum(ms for _, ms in kernel_ms)
-    log(f"{phase}_profile", device_ms_per_step=device_ms,
-        busy_share=device_ms / step_ms, top_kernels_ms=kernel_ms[:15])
+    timing = time_and_profile(
+        torch, trainer.step,
+        order[:13 * trainer.batch].reshape(13, trainer.batch))
+    step_ms = timing["step_ms"]
+    log_profile(f"{phase}_profile", timing)
     log(phase, attention=cfg.attention, seconds=train_s, steps=steps,
         launches=launches, expected_launches=expected,
         loss_first=float(losses[0]), loss_steps_2_11=early,
@@ -1321,6 +1502,201 @@ def run_ring_one(torch, counts) -> dict:
         bit_equal=bool(torch.equal(emb["ring"], emb["blocks"])),
         tol=MODE_TOL, f1=result.f1, accuracy=result.accuracy)
     return launches
+
+
+def gnn_batch(torch, trainer, n: int, seed: int):
+    """(src, dst, labels) of ``n`` train edges on the trainer's device, in
+    a seeded order."""
+    import numpy as np
+
+    pos = np.random.default_rng(seed).permutation(
+        trainer.train_sampler.n_edges)[:n]
+    ids = torch.from_numpy(pos).to(trainer.device)
+    return tuple(t[ids] for t in trainer.train_edges)
+
+
+def check_gnn_sampling(torch, trainer) -> None:
+    """On-device sampling on the card against the same sampling on the
+    CPU, for the trainer's own tables and a train batch, at three salt
+    pairs: every id, rtt and mask bit-equal (integer ops must not drift
+    between devices)."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.train.fused_sampling import (
+        put_graph_tables,
+        sample_indices,
+    )
+
+    cpu_tables = put_graph_tables(trainer.csr, "cpu")
+    src, dst, _ = gnn_batch(torch, trainer, trainer.batch, SEED + 3)
+    salt_pairs = [(0, 2**32 - 1), (2**31, 7),
+                  tuple(np.random.default_rng(SEED).integers(0, 2**32, 2))]
+    for salts in salt_pairs:
+        card = sample_indices(trainer.tables, src, dst, salts,
+                              trainer.config.fanouts)
+        cpu = sample_indices(cpu_tables, src.cpu(), dst.cpu(), salts,
+                             trainer.config.fanouts)
+        for name, a, b in zip(("centers", "nbr1", "rtt1", "mask1", "nbr2",
+                               "rtt2", "mask2"), card, cpu):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"gnn sampling: {name} on the card "
+                                     f"differs from the CPU at salts "
+                                     f"{salts}")
+    log("gnn_sampling", bit_equal=True, batch=int(src.shape[0]),
+        salts=[[int(x) for x in p] for p in salt_pairs],
+        sampled_rows=int(card[4].numel()))
+
+
+def check_gnn_small_model(torch) -> None:
+    """A small GraphSAGE in f32, card (on-device sampling, K2a) against
+    the CPU (the same sampling, the plain gather): logits within
+    SMALL_F32_TOL and every parameter's gradient of the loss within
+    GRAD_F32_TOL of its leaf's max."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+    from dragonfly2_tpu_torch.data.graph_sampler import CSRGraph
+    from dragonfly2_tpu_torch.models.graphsage import GraphSAGE
+    from dragonfly2_tpu_torch.train.fused_sampling import (
+        put_graph_tables,
+        sample_and_apply,
+    )
+
+    csr = CSRGraph.from_graph(
+        SyntheticCluster(n_hosts=100, seed=SEED).probe_graph(10000))
+    rng = np.random.default_rng(SEED)
+    src, dst = (torch.from_numpy(rng.integers(0, csr.n_nodes, 256).astype(
+        np.int32)) for _ in range(2))
+    y = torch.from_numpy((rng.random(256) < 0.5).astype(np.float32))
+    logits, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = GraphSAGE(hidden=32, embed=16, dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(1)).to(dev)
+        out = sample_and_apply(model, put_graph_tables(csr, dev),
+                               src.to(dev), dst.to(dev), (5, 2**32 - 3),
+                               (10, 5))
+        F.binary_cross_entropy_with_logits(out, y.to(dev)).backward()
+        logits[dev] = out.detach().cpu()
+        grads[dev] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    grad_err = max(float((grads["cuda"][k] - ref).abs().max())
+                   / max(float(ref.abs().max()), 1e-12)
+                   for k, ref in grads["cpu"].items())
+    if not (err <= SMALL_F32_TOL and grad_err <= GRAD_F32_TOL):
+        raise AssertionError(f"gnn small model card vs CPU: logits {err} "
+                             f"(tol {SMALL_F32_TOL}), gradients {grad_err} "
+                             f"(tol {GRAD_F32_TOL})")
+    log("gnn_small_model", max_abs_err=err, tol=SMALL_F32_TOL,
+        grad_rel_err=grad_err, grad_tol=GRAD_F32_TOL)
+
+
+def gnn_step_indices(torch, trainer):
+    """One train step's concatenated int32 feature-gather indices
+    (centres, 1-hop, 2-hop), as ``gather_features`` builds them."""
+    from dragonfly2_tpu_torch.train.fused_sampling import sample_indices
+
+    src, dst, _ = gnn_batch(torch, trainer, trainer.batch, SEED + 4)
+    ids = sample_indices(trainer.tables, src, dst, (1, 2),
+                         trainer.config.fanouts)
+    return torch.cat([ids[i].reshape(-1) for i in (0, 1, 4)])
+
+
+def run_train_gnn(torch, graph, counts, device_sample: bool, phase: str):
+    """Train config #2 (``GNNTrainer.fit``, the body of ``train_gnn``),
+    sampling on the card or (``device_sample=False``) on the host, with
+    every launch count set to 0 just before and read just after: K2a once
+    a forward (train steps and eval chunks), no other kernel; the loss
+    finite and falling; F1 at least GNN_F1_MIN; samples/s, quality and
+    peak memory, logged as ``phase``. On the card-sampling path also the
+    steady step time and a profile of 3 steps (:func:`time_and_profile`),
+    logged as ``phase``_profile. Returns (trainer, result, launches)."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.train.gnn_trainer import (
+        GNNTrainConfig,
+        GNNTrainer,
+    )
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = GNNTrainer(graph, GNNTrainConfig(
+        **GNN_CFG, device_sample=device_sample))
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(result.step_losses)
+    eval_chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    expected = dict.fromkeys(launches, 0)
+    expected["table_gather"] = steps + eval_chunks
+    if steps < 21 or launches != expected:
+        raise AssertionError(f"{phase}: {steps} steps, launches "
+                             f"{launches}, expected {expected}")
+    losses = np.asarray(result.step_losses)
+    early, late = float(losses[1:11].mean()), float(losses[-10:].mean())
+    if not (np.isfinite(losses).all() and late < early):
+        raise AssertionError(f"{phase}: loss steps 2-11 mean {early}, "
+                             f"last 10 mean {late}")
+    if not result.f1 >= GNN_F1_MIN:
+        raise AssertionError(f"{phase}: F1 {result.f1} < {GNN_F1_MIN}")
+    timed = {}
+    if device_sample:
+        order = np.random.default_rng(SEED + 1).permutation(
+            trainer.train_sampler.n_edges)
+        timing = time_and_profile(
+            torch, trainer.step,
+            order[:13 * trainer.batch].reshape(13, trainer.batch))
+        log_profile(f"{phase}_profile", timing)
+        timed = dict(step_ms=timing["step_ms"],
+                     samples_per_sec_at_step_ms=(
+                         trainer.batch / timing["step_ms"] * 1e3))
+    log(phase, device_sample=device_sample, seconds=train_s, steps=steps,
+        epochs=trainer.config.epochs,
+        launches=launches, expected_launches=expected,
+        loss_first=float(losses[0]), loss_steps_2_11=early,
+        loss_last_10=late, history=result.history,
+        samples_per_sec=result.samples_per_sec, **timed,
+        f1=result.f1, precision=result.precision, recall=result.recall,
+        accuracy=result.accuracy, peak_memory_gib=peak_gib,
+        train_edges=len(trainer.train_ids), eval_edges=len(trainer.eval_ids),
+        batch=trainer.batch, f1_min=GNN_F1_MIN)
+    return trainer, result, launches
+
+
+def gnn_to_artifact(torch, trainer, result, graph) -> None:
+    """The trained result as a ``gnn`` artifact, loaded back on the card:
+    its logits on one batch (the same salts) equal the trained model's."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.train.checkpoint import (
+        gnn_artifact_from_result,
+        gnn_model_from_artifact,
+    )
+    from dragonfly2_tpu_torch.train.fused_sampling import sample_and_apply
+
+    t0 = time.perf_counter()
+    artifact = gnn_artifact_from_result(result, "smoke-gnn",
+                                        n_samples=graph.n_edges)
+    loaded, node_features, metadata = gnn_model_from_artifact(artifact)
+    load_s = time.perf_counter() - t0
+    src, dst, _ = gnn_batch(torch, trainer, 1024, SEED + 5)
+    with torch.no_grad():
+        got, want = (sample_and_apply(m, trainer.tables, src, dst, (3, 4),
+                                      trainer.config.fanouts)
+                     for m in (loaded, result.model.cuda()))
+    if not (np.array_equal(node_features, result.node_features)
+            and metadata.model_type == "gnn"
+            and bool(torch.isfinite(got).all()) and torch.equal(got, want)):
+        raise AssertionError(f"gnn artifact: loaded logits differ by "
+                             f"{float((got - want).abs().max())}")
+    log("train_gnn_to_artifact", bytes=len(artifact), load_seconds=load_s,
+        logits_equal=True, rows=int(got.shape[0]),
+        evaluation=metadata.evaluation)
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -1648,12 +2024,44 @@ def main() -> int:
             "graph_flash_attention_backward": "train_blocks"}
     ring_launches = run_ring_one(torch, counts)
 
+    # -- phase 11: GraphSAGE, config #2, slice 7's path -----------------------
+    check_gnn_small_model(torch)
+    t0 = time.perf_counter()
+    gnn_graph = SyntheticCluster(n_hosts=GNN_HOSTS, seed=SEED).probe_graph(
+        GNN_EDGES)
+    log("gnn_graph", seconds=time.perf_counter() - t0,
+        n_nodes=gnn_graph.n_nodes, n_edges=gnn_graph.n_edges)
+    gnn_trainer, gnn_result, gnn_launches = run_train_gnn(
+        torch, gnn_graph, counts, True, "train_gnn")
+    gnn_to_artifact(torch, gnn_trainer, gnn_result, gnn_graph)
+    check_gnn_sampling(torch, gnn_trainer)
+    # K2a at the GraphSAGE shape: the [N, 8] f32 feature table and one
+    # step's concatenated indices; it rides on the K2a row.
+    gnn_idx = gnn_step_indices(torch, gnn_trainer)
+    gnn_row = check_table_gather(torch, gnn_trainer.node_features, gnn_idx)
+    log("gather_library_profile", **gather_library_profile(
+        torch, gnn_trainer.node_features, gnn_idx))
+    rows[0]["at_graphsage"] = {
+        name: gnn_row[name] for name in
+        ("source", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "max_abs_err", "wrapper_ms")} | {
+        "shape": {"table": list(gnn_trainer.node_features.shape),
+                  "idx": list(gnn_idx.shape)},
+        "launches": gnn_launches["table_gather"]}
+    del gnn_trainer, gnn_result, gnn_idx
+    # The host-sampling path: batches sampled in prefetch threads, placed
+    # on the card, gathered through K2a.
+    host_launches = run_train_gnn(torch, gnn_graph, counts, False,
+                                  "train_gnn_host")[2]
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_blocks": blocks_launches[row["name"]],
                    "ulysses": ulysses_launches[row["name"]],
-                   "ring_one": ring_launches[row["name"]]}
+                   "ring_one": ring_launches[row["name"]],
+                   "train_gnn": gnn_launches[row["name"]],
+                   "train_gnn_host": host_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -7,16 +7,20 @@ read. The port's artifact is framework-neutral instead: a tar holding
   flax layout and key names (``params/blocks_0/Dense_3/kernel`` with
   ``[in, out]`` kernels, ``params/blocks_0/LayerNorm_0/scale`` …, plus
   top-level ``node_features``, ``neighbors``, ``neighbor_vals``,
-  ``node_ids_utf8`` for the GraphTransformer, or ``norm_mean`` …
-  ``target_std`` for the MLP), so numpy alone writes one from a JAX param
-  tree;
+  ``node_ids_utf8`` for the GraphTransformer, ``node_features`` for
+  GraphSAGE (``gnn``), or ``norm_mean`` … ``target_std`` for the MLP), so
+  numpy alone writes one from a JAX param tree;
 - ``metadata.json`` — the registry-facing :class:`ModelMetadata`.
 
 ``*_state_dict_from_flax`` map a flax param tree onto the port modules'
 state dicts (kernel ``[in, out]`` → ``weight [out, in]``, LayerNorm
 ``scale`` → ``weight``, ``blocks_i`` → ``blocks.i``); ``flax_from_*``
 invert them. :func:`gat_artifact_from_result` packs a trained
-GraphTransformer (``train/gat_trainer.py``) for the sidecar.
+GraphTransformer (``train/gat_trainer.py``) for the sidecar;
+:func:`gnn_artifact_from_result` packs a trained GraphSAGE
+(``train/gnn_trainer.py``), which the registry keeps for offline analysis
+(no serving path loads ``gnn``), and :func:`gnn_model_from_artifact`
+loads one back.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from dragonfly2_tpu_torch.device import default_device
+from dragonfly2_tpu_torch.models.graphsage import GraphSAGE
 from dragonfly2_tpu_torch.models.mlp import Normalizer
 
 METADATA_FILE = "metadata.json"
@@ -128,6 +134,52 @@ def load_artifact(artifact: bytes) -> tuple[dict, ModelMetadata]:
     with tempfile.TemporaryDirectory(prefix="df2-sidecar-") as tmp:
         untar_to_directory(artifact, tmp)
         return load_model(tmp)
+
+
+def gnn_tree(params: dict, node_features: np.ndarray) -> dict:
+    """GraphSAGE checkpoint: flax-layout params + the node-feature matrix
+    the model was trained against."""
+    return {"params": params, "node_features": np.asarray(node_features)}
+
+
+def gnn_from_tree(tree: dict) -> tuple[dict, np.ndarray]:
+    """→ (params, node_features)."""
+    return tree["params"], np.asarray(tree["node_features"])
+
+
+def gnn_artifact_from_result(result, model_id: str,
+                             n_samples: int | None = None) -> bytes:
+    """A trained GraphSAGE (``train.gnn_trainer.GNNTrainResult``) as a
+    ``gnn`` model.tar payload: its flax-layout weights and node features,
+    with the registry metadata the JAX package's training service writes
+    (``n_samples``: the records it trained from)."""
+    cfg = result.config
+    evaluation = {"precision": result.precision, "recall": result.recall,
+                  "f1": result.f1}
+    if n_samples is not None:
+        evaluation["n_samples"] = int(n_samples)
+    metadata = ModelMetadata(
+        model_id=model_id, model_type="gnn", evaluation=evaluation,
+        config={"hidden": cfg.hidden, "embed": cfg.embed,
+                "fanouts": list(cfg.fanouts)})
+    return write_artifact(gnn_tree(flax_from_gnn_state_dict(
+        result.state_dict), result.node_features), metadata)
+
+
+def gnn_model_from_artifact(artifact: bytes, device=None):
+    """A ``gnn`` model.tar payload → (bf16 ``GraphSAGE`` on ``device``,
+    node features, metadata). ``device=None`` means the card."""
+    device = default_device(device)
+    tree, metadata = load_artifact(artifact)
+    if metadata.model_type != "gnn":
+        raise ArtifactError(f"expected a gnn artifact, got "
+                            f"{metadata.model_type!r}")
+    params, node_features = gnn_from_tree(tree)
+    model = GraphSAGE(hidden=metadata.config["hidden"],
+                      embed=metadata.config["embed"],
+                      in_features=node_features.shape[1])
+    model.load_state_dict(gnn_state_dict_from_flax(params))
+    return model.to(device), node_features, metadata
 
 
 def gat_tree(params: dict, node_features: np.ndarray,
@@ -258,4 +310,16 @@ def mlp_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
 
 def flax_from_mlp_state_dict(state: dict[str, torch.Tensor]) -> dict:
     """``MLPBandwidthPredictor`` state dict → bare flax param tree."""
+    return _flax_from_state_dict(state)
+
+
+def gnn_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax GraphSAGE params (bare, or wrapped as ``{"params": …}``) → a
+    ``GraphSAGE`` state dict (``SageLayer_0/Dense_0/kernel`` →
+    ``SageLayer_0.Dense_0.weight``, transposed)."""
+    return _state_dict_from_flax(params)
+
+
+def flax_from_gnn_state_dict(state: dict[str, torch.Tensor]) -> dict:
+    """``GraphSAGE`` state dict → bare flax param tree (numpy)."""
     return _flax_from_state_dict(state)

@@ -20,7 +20,6 @@ not depend on it.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,9 +36,11 @@ from dragonfly2_tpu_torch.models.graph_transformer import (
     pad_multiple,
 )
 from dragonfly2_tpu_torch.train.metrics import (
+    confusion,
     metrics_from_confusion,
     padded_chunks,
 )
+from dragonfly2_tpu_torch.train.schedule import warmup_cosine_lr
 from dragonfly2_tpu_torch.train.split import edge_split
 from dragonfly2_tpu_torch.train.step_budget import (
     StepBudget,
@@ -100,19 +101,6 @@ class GATTrainResult:
             chunk=cfg.chunk, attention=cfg.attention)
         model.load_state_dict(self.state_dict)
         return model
-
-
-def warmup_cosine_lr(step: int, peak: float, warmup_steps: int,
-                     decay_steps: int) -> float:
-    """optax ``warmup_cosine_decay_schedule(0, peak, warmup_steps,
-    decay_steps)`` at ``step``: linear from 0 over the warmup, then a
-    cosine down to 0 over the remaining steps."""
-    if step < warmup_steps:
-        frac = 1.0 - min(max(step, 0), warmup_steps) / warmup_steps
-        return -peak * frac + peak
-    span = decay_steps - warmup_steps
-    count = min(step - warmup_steps, span)
-    return peak * 0.5 * (1.0 + math.cos(math.pi * count / span))
 
 
 class GATTrainer:
@@ -205,11 +193,7 @@ class GATTrainer:
             src, dst, y = self._edges(ids)
             w = torch.from_numpy(weights).to(self.device)
             logits = self.model(self.g_feat, self.g_nbr, self.g_val, src, dst)
-            pred = (logits > 0).float()
-            cm += torch.stack([(w * pred * y).sum(),
-                               (w * pred * (1 - y)).sum(),
-                               (w * (1 - pred) * y).sum(),
-                               (w * (1 - pred) * (1 - y)).sum()])
+            cm += confusion(logits, y, w)
         return metrics_from_confusion(cm.cpu().numpy().astype(np.float64))
 
     def fit(self) -> GATTrainResult:

@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 
 
 def padded_chunks(ids: np.ndarray, batch: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -20,6 +21,18 @@ def padded_chunks(ids: np.ndarray, batch: int) -> Iterator[Tuple[np.ndarray, np.
             chunk = np.concatenate(
                 [chunk, np.zeros(batch - len(chunk), np.int64)])
         yield chunk, weights
+
+
+def confusion(logits: torch.Tensor, labels: torch.Tensor,
+              weights: torch.Tensor) -> torch.Tensor:
+    """[tp, fp, fn, tn] of ``logits > 0`` against ``labels``, each row
+    weighted (a zero-weighted tail counts nothing); on the tensors'
+    device."""
+    pred = (logits > 0).float()
+    return torch.stack([(weights * pred * labels).sum(),
+                        (weights * pred * (1 - labels)).sum(),
+                        (weights * (1 - pred) * labels).sum(),
+                        (weights * (1 - pred) * (1 - labels)).sum()])
 
 
 def metrics_from_confusion(cm: np.ndarray) -> dict:

@@ -43,6 +43,12 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.ops.flash_attention",
         "dragonfly2_tpu_torch.data.synthetic",
         "dragonfly2_tpu_torch.data.features",
+        "dragonfly2_tpu_torch.data.graph_sampler",
+        "dragonfly2_tpu_torch.data.prefetch",
+        "dragonfly2_tpu_torch.models.graphsage",
+        "dragonfly2_tpu_torch.train.fused_sampling",
+        "dragonfly2_tpu_torch.train.gnn_trainer",
+        "dragonfly2_tpu_torch.train.schedule",
         "dragonfly2_tpu_torch.models.graph_transformer",
         "dragonfly2_tpu_torch.models.mlp",
         "dragonfly2_tpu_torch.train.checkpoint",

@@ -58,11 +58,8 @@ from dragonfly2_tpu_torch.train.checkpoint import (
     load_artifact,
     write_artifact,
 )
-from dragonfly2_tpu_torch.train.gat_trainer import (
-    GATTrainConfig,
-    train_gat,
-    warmup_cosine_lr,
-)
+from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig, train_gat
+from dragonfly2_tpu_torch.train.schedule import warmup_cosine_lr
 from dragonfly2_tpu_torch.train.split import edge_split
 from dragonfly2_tpu_torch.train.step_budget import StepBudget
 
