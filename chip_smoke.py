@@ -16,7 +16,8 @@ Phases (any failure exits nonzero, before the final line):
 2. build every kernel from ``dragonfly2_tpu_torch/ops/csrc`` (nvcc, in
    parallel);
 3. each kernel against its plain PyTorch version at the config #3 shapes
-   (``table_gather`` bit-equal, ``graph_flash_attention`` (K1) within the
+   (``table_gather`` bit-equal, also at every row width from 16 to 512
+   bytes, ``graph_flash_attention`` (K1) within the
    stated tolerances with its lse, ``table_scatter_add`` on the trainer's
    inverse index and on its own derived transpose, bit-identical across
    launches — run after phase 5, when the trainer's index exists),
@@ -52,8 +53,10 @@ Phases (any failure exits nonzero, before the final line):
    accuracy within the parity tests' band of gather mode's), served the
    same way; then k1_backward: the K1 backward against its plain twin on
    the blocks trainer's graph and inverse index, bf16 and f32, row by
-   row, bit-identical across two launches, timed beside its plain twin,
-   SDPA's backward over the dense mask and the bound
+   row, bit-identical across two launches, and on the same graph with
+   rows cut to one valid slot, whose dval must be exactly 0; timed pass
+   by pass (with gathered-byte rates and the scratch's bytes) beside its
+   plain twin, SDPA's backward over the dense mask and the bound
    (``tests/k1_planted_faults.py`` shows that the row check fails
    kernels with planted faults);
 7. embedding-pass times and peak device memory;
@@ -185,8 +188,9 @@ K3_TOL = {"f32": {"out": 5e-5, "grad": 1e-4},
 # row by row as K3's (k1_errors): dq, dk, dv and dval, K3's gradient
 # limits. bf16: the kernel reads bf16 and sums in f32, then rounds dq, dk
 # and dv once; f32: another summation order. tests/k1_planted_faults.py
-# shows that a dropped slot, a dropped position, delta taken as 0 or a
-# one-head dval fails them.
+# shows that a dropped slot, a dropped position, delta taken as 0, a
+# one-head dval, a dK/dV pass that forms ds without r or that reads
+# another row's (lse, r, delta) fails them.
 K1_GRADS = ("dq", "dk", "dv", "dval")
 K1_TOL = {name: tol["grad"] for name, tol in K3_TOL.items()}
 # The long-context tier (tests/test_ulysses.py:106-131): T = 32k causal,
@@ -337,6 +341,34 @@ def check_table_gather(torch, table, idx) -> dict:
     log("kernel", **row,
         shape={"table": list(table.shape), "idx": list(idx.shape)})
     return row
+
+
+def check_table_gather_widths(torch) -> None:
+    """K2a bit-equal to ``table_gather_plain`` at every row width from 16
+    to 512 bytes (1 to 32 16-byte words, powers of two and not, f32 and
+    bf16), for m = 1 and an m that no block's row count divides."""
+    from dragonfly2_tpu_torch.ops.table_gather import (
+        table_gather,
+        table_gather_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = []
+    for row_bytes in (16, 32, 48, 64, 128, 256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(1000, row_bytes // (4 if dtype ==
+                                                    torch.float32 else 2),
+                                generator=gen, device="cuda").to(dtype)
+            for m in (1, 12_345):
+                idx = torch.randint(0, 1000, (m,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                out = table_gather(table, idx)
+                if not torch.equal(out, table_gather_plain(table, idx)):
+                    raise AssertionError(f"table_gather differs from "
+                                         f"table[idx] at {row_bytes}-byte "
+                                         f"{dtype} rows, m = {m}")
+                cases.append(f"{row_bytes}B/{str(dtype)[6:]}/m{m}")
+    log("table_gather_widths", bit_equal=cases)
 
 
 def gather_library_profile(torch, table, idx) -> dict:
@@ -589,8 +621,9 @@ def check_flash_shapes(torch) -> None:
     gen = torch.Generator().manual_seed(SEED)
     errs, grad_errs = {}, {}
     for heads, d, kw in ((4, 8, 40), (2, 16, 40), (4, 16, 40), (4, 32, 40),
-                         (8, 32, 40), (1, 64, 40), (8, 64, 40),
-                         (16, 32, 40), (4, 32, 300), (2, 16, 512)):
+                         (8, 16, 40), (32, 4, 40), (8, 32, 40), (1, 64, 40),
+                         (8, 64, 40), (16, 32, 40), (4, 32, 300),
+                         (2, 16, 512)):
         n = max(300, kw + 88)
         q, k, v, dout = (torch.randn(n, heads, d, generator=gen)
                          for _ in range(4))
@@ -649,9 +682,10 @@ def k1_within(errs, tol: float) -> bool:
 
 
 def k1_backward_case(torch, q, k, v, dout, nbr, val, inv):
-    """(row errors, bit-identical, finite) of the K1 backward at q's
-    dtype for the kernel forward's lse, against its plain twin run in f32
-    on the same values (``k1_errors``), over two launches."""
+    """(row errors, bit-identical, finite, (dq, dk, dv, dval)) of the K1
+    backward at q's dtype for the kernel forward's lse, against its plain
+    twin run in f32 on the same values (``k1_errors``), over two
+    launches."""
     from dragonfly2_tpu_torch.ops.flash_attention import (
         graph_flash_attention_backward_plain,
         graph_flash_backward,
@@ -666,7 +700,22 @@ def k1_backward_case(torch, q, k, v, dout, nbr, val, inv):
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     ref = graph_flash_attention_backward_plain(
         *(t.float() for t in (q, k, v)), nbr, val, lse, dout.float(), inv)
-    return k1_errors(torch, got, ref), same, finite
+    return k1_errors(torch, got, ref), same, finite, got
+
+
+def one_slot_case(torch, nbr, n_k: int):
+    """nbr with every fifth row cut to its first slot (build_neighbor_lists
+    puts a row's valid slots first), its inverse index on the card, and
+    the rows left with exactly one valid slot."""
+    from dragonfly2_tpu_torch.models.graph_transformer import PAD_ID
+    from dragonfly2_tpu_torch.ops.table_gather import build_inverse_index
+
+    cut = nbr.clone()
+    cut[::5, 1:] = int(PAD_ID)
+    valid = ((cut >= 0) & (cut < n_k)).sum(1)
+    rows = torch.nonzero(valid == 1)[:, 0]
+    inv = torch.from_numpy(build_inverse_index(cut.cpu().numpy(), n_k))
+    return cut, inv.to(nbr.device), rows
 
 
 def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
@@ -674,9 +723,12 @@ def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
     val and inverse index; seeded random q, k, v, dO), bf16 and f32,
     against its plain twin run in f32 on the same values and on the
     kernel forward's lse, row by row (``k1_errors``), bit-identical
-    across two launches; timed as a whole and pass by pass beside the
-    plain twin and SDPA's backward over the dense [N, N] additive mask.
-    Returns the kernels line's row."""
+    across two launches; then the same graph with every fifth row cut to
+    one valid slot, whose dval must be exactly 0 (its true gradient:
+    dp − r is 0 at a row's only slot); timed as a whole and pass by pass
+    (with each pass's gathered-byte rate) beside the plain twin and
+    SDPA's backward over the dense [N, N] additive mask. Returns the
+    kernels line's row."""
     from dragonfly2_tpu_torch.ops.flash_attention import (
         GBWD_DQ,
         GBWD_KV,
@@ -689,21 +741,31 @@ def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     dout = torch.randn(q.shape, generator=gen, device="cuda")
-    errs = {}
+    cut, cut_inv, one_slot = one_slot_case(torch, nbr, k.shape[0])
+    errs, one_slot_errs = {}, {}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        errs[name], same, finite = k1_backward_case(
-            torch, *(t.to(dtype) for t in (q, k, v, dout)), nbr, val, inv)
-        if not (same and finite):
-            raise AssertionError(f"K1 backward {name}: two launches differ "
-                                 f"({not same}) or non-finite ({not finite})")
-        if not k1_within(errs[name], K1_TOL[name]):
-            raise AssertionError(f"K1 backward {name}: errors {errs[name]} "
-                                 f"over {K1_TOL[name]}")
+        inputs = [t.to(dtype) for t in (q, k, v, dout)]
+        for graph, out in (((nbr, val, inv), errs),
+                           ((cut, val, cut_inv), one_slot_errs)):
+            out[name], same, finite, got = k1_backward_case(
+                torch, *inputs, *graph)
+            if not (same and finite):
+                raise AssertionError(
+                    f"K1 backward {name}: two launches differ ({not same}) "
+                    f"or non-finite ({not finite})")
+            if not k1_within(out[name], K1_TOL[name]):
+                raise AssertionError(f"K1 backward {name}: errors "
+                                     f"{out[name]} over {K1_TOL[name]}")
+        if len(one_slot) == 0 or bool(got[3][one_slot].any()):
+            raise AssertionError(f"K1 backward {name}: dval of the "
+                                 f"{len(one_slot)} one-slot rows is not 0")
+    del cut, cut_inv
     # Times in bf16, the training dtype.
     _, lse = graph_flash_forward(q, k, v, nbr, val, True)
     dout = dout.to(q.dtype)
     grads = graph_flash_backward(q, k, v, nbr, val, lse, dout, inv)
-    scratch = graph_backward_scratch(q, nbr)
+    scratch = graph_backward_scratch(q)
+    scratch_bytes = nbytes(*scratch.values())
     ms = cuda_ms(torch, lambda: launch_graph_backward(
         q, k, v, nbr, val, lse, dout, inv, *grads, scratch))
     parts_ms = {part: cuda_ms(torch, lambda p=bits: launch_graph_backward(
@@ -735,6 +797,9 @@ def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
     del s_out, leaves, doh, mask
 
     n_valid = int(valid.sum())
+    # The gathers: a k and a v row a valid slot (dQ pass), a q and a dO
+    # row a position of the inverse index, one a valid slot (dK/dV pass).
+    gathered = 2 * n_valid * heads * d * q.element_size()
     # Bytes: each input and output once. Operations: f32 FMAs — s, dp and
     # dq (dQ pass), dk and dv (dK/dV pass), 2·d flops each a (valid slot,
     # head) — and one exp each.
@@ -751,6 +816,11 @@ def check_k1_backward(torch, q, k, v, nbr, val, inv) -> dict:
         name: {n: e[n] for n in K1_GRADS} for name, e in errs.items()},
         abs_errors={name: e["abs"] for name, e in errs.items()}, tol=K1_TOL,
         bit_identical=True, parts_ms=parts_ms, wrapper_ms=wrapper_ms,
+        gathered_bytes_per_s={part: gathered / (t * 1e-3)
+                              for part, t in parts_ms.items()},
+        scratch_bytes=scratch_bytes, one_slot_rows=len(one_slot),
+        one_slot_row_errors={name: {n: e[n] for n in K1_GRADS}
+                             for name, e in one_slot_errs.items()},
         library_is="SDPA backward, dense [N, N] additive mask",
         valid_slots=n_valid, shape={"q": list(q.shape),
                                     "nbr": list(nbr.shape),
@@ -1814,6 +1884,7 @@ def main() -> int:
                            device=dev).to(torch.bfloat16)
     gather_idx = torch.where(g_nbr >= n_gather, 0, g_nbr).reshape(-1)
     rows = [check_table_gather(torch, kv_table, gather_idx)]
+    check_table_gather_widths(torch)
 
     n_blocks = blocks_graph[0].shape[0]
     q, k, v = (torch.randn(n_blocks, heads, head_dim, generator=gen,

@@ -60,16 +60,35 @@
 // p (dp - r), which leaves no rounding where the true gradient is 0 (a
 // row with one slot) and keeps the large common part out of the
 // difference (f32 row errors 6e-4 there without it).
-// Two passes, each one warp per row in the forward's lane layout:
-// - dQ pass, one warp per query row: each exponential is computed once,
-//   p and dp - r go to f32 scratch at the flat position i * K + s (zeros at
-//   masked and PAD slots), and once delta is known the warp's lanes walk
-//   the row's slots again, turn dp into ds in place and sum dval over
-//   the heads.
-// - dK/dV pass, one warp per key row c, walking inv[c] (the inverse index
-//   of build_inverse_index: ascending flat positions, -1 padding): for
-//   each position it reads q_i, dO_i and the position's p and ds, and adds
-//   in f32 registers, in position order.
+// Two passes, each one warp per row in the forward's lane layout, and no
+// per-slot scratch:
+// - dQ pass, one warp per query row: one walk over the row's valid slots
+//   computes p and dp, sums delta, a = sum p (dp - r) k and b = sum p k,
+//   writes dq and zeroes dval at masked and PAD slots, and leaves
+//   (lse, r, delta) of each (row, head) in a 16-byte word ([nq, heads, 4]
+//   f32, 1.3 MB at config #3).
+// - dK/dV pass, one warp per key row c, holding k_c and v_c in registers
+//   and walking inv[c] (the inverse index of build_inverse_index:
+//   ascending flat positions, -1 padding): for each position (i, s) it
+//   gathers q_i, dO_i, row i's (lse, r, delta) and val[i, s], recomputes
+//   s and dp through pair_terms — the same function, lane layout and
+//   order of additions as the dQ pass, so the same bits: a row with one
+//   valid slot gets dp - r = 0 and ds = 0 exactly — forms p and
+//   ds = p ((dp - r) - delta), adds dv += p dO_i and dk += ds q_i in f32
+//   registers in position order, and writes dval[i, s] = sum_h ds (each
+//   valid position is listed once, so each dval entry has one writer).
+// The scratch this replaces was 2 x [nq * kw, heads] f32 (42 MB at config
+// #3), written by the dQ pass, rewritten in place, then read by the dK/dV
+// pass at scattered positions. Recomputing costs each position two dots
+// and an exponential; what keeps that cheap is the reduction of the dots
+// over a head's lanes. pair_terms takes R pairs at once (R = the chunk in
+// flight, at most the head's lanes) and splits them while it sums: each
+// xor round halves the values a lane holds, so R sums take R - 1
+// shuffles instead of R log2(group), the lane ends with one pair's s and
+// dp, and computes one exponential; p and ds then go to the head's lanes
+// by one shuffle each. The halves are picked with bit masks rather than
+// selects, which the compiler may turn into lane branches around the
+// shuffles.
 // No atomics: a key row's sum is owned by one warp and taken in the same
 // order on every launch, so the gradients are bit-identical from launch
 // to launch (atomics over key rows would add in a different order each
@@ -135,16 +154,14 @@ __device__ __forceinline__ void store_row(Vec<T, E>* dst,
 }
 
 // Compacts row `row`'s slots whose id lies in [0, nk) to the front of
-// col/bias (and slot, their index in the row, when given), in slot order;
-// returns how many there are. Calls `masked(s)` on one lane for each other
-// slot s < kw.
+// col/bias, in slot order; returns how many there are. Calls `masked(s)`
+// on one lane for each other slot s < kw.
 template <typename Masked>
 __device__ __forceinline__ int compact_slots(const int32_t* __restrict__ nbr,
                                              const float* __restrict__ val,
                                              long long row, int nk, int kw,
                                              int lane, int32_t* col,
-                                             float* bias, int32_t* slot,
-                                             Masked masked) {
+                                             float* bias, Masked masked) {
   int nv = 0;
   for (int base = 0; base < kw; base += 32) {
     const int s = base + lane;
@@ -155,7 +172,6 @@ __device__ __forceinline__ int compact_slots(const int32_t* __restrict__ nbr,
       const int pos = nv + __popc(ballot & ((1u << lane) - 1u));
       col[pos] = c;
       bias[pos] = val[row * kw + s];
-      if (slot != nullptr) slot[pos] = s;
     } else if (s < kw) {
       masked(s);
     }
@@ -165,8 +181,8 @@ __device__ __forceinline__ int compact_slots(const int32_t* __restrict__ nbr,
   return nv;
 }
 
-// Dynamic shared memory: per warp, kw ids, kw biases and (backward) kw
-// slot numbers, 4 bytes each.
+// Dynamic shared memory (forward and dQ pass): per warp, kw ids and kw
+// biases, 4 bytes each.
 template <typename T, int E>
 __global__ void __launch_bounds__(kWarps * 32)
 graph_flash_kernel(const Vec<T, E>* __restrict__ q,
@@ -187,8 +203,8 @@ graph_flash_kernel(const Vec<T, E>* __restrict__ q,
 
   float qv[E];
   load_row<T, E>(qv, q[row * 32 + lane]);
-  const int nv = compact_slots(nbr, val, row, nk, kw, lane, col, bias,
-                               nullptr, [](int) {});
+  const int nv =
+      compact_slots(nbr, val, row, nk, kw, lane, col, bias, [](int) {});
 
   float m = -CUDART_INF_F;
   float l = 0.f;
@@ -248,9 +264,93 @@ graph_flash_kernel(const Vec<T, E>* __restrict__ q,
   }
 }
 
-// dQ pass: one warp per query row. Writes dq, dval[row, :] and the
-// row's p and ds scratch ([nq * kw, heads] f32) at every slot.
-template <typename T, int E>
+// Which of R pairs a lane ends up holding after pair_terms' split sums,
+// and (pair_lane) the first lane of a head's group that holds pair j. A
+// sum over a head's `group` lanes takes log2(group) xor rounds at
+// offsets group/2, group/4, ..., 1; the first log2(R) rounds also split
+// the pairs, each lane keeping half of its partial sums and sending the
+// other half, so the R sums take R - 1 shuffles, not R log2(group), and
+// lane holds pair split_index. Every pair's total is the same tree of
+// additions (the partners of each round) on whichever lane ends up with
+// it, so the bits do not depend on the pair's place in the chunk.
+template <int R>
+__device__ __forceinline__ int split_index(int group, int lane) {
+  int u = 0, off = group >> 1;
+#pragma unroll
+  for (int b = 1; b < R; b <<= 1, off >>= 1) {
+    if (lane & off) u |= b;
+  }
+  return u;
+}
+
+template <int R>
+__device__ __forceinline__ int pair_lane(int j, int group, int lane) {
+  int g = 0, off = group >> 1;
+#pragma unroll
+  for (int b = 1; b < R; b <<= 1, off >>= 1) {
+    if (j & b) g |= off;
+  }
+  return (lane & -group) | g;
+}
+
+// Sums each of R per-lane values over the head's group of lanes (R <=
+// group) and returns, on each lane, the total of value
+// split_index<R>(group, lane).
+template <int R>
+__device__ __forceinline__ float split_sum(float (&x)[R], int group) {
+  int off = group >> 1;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = R; m > 1; m >>= 1, off >>= 1) {
+    // The upper lane of each pair keeps the odd values (bit masks: see
+    // the note at the top).
+    const unsigned upper = 0u - static_cast<unsigned>((lane & off) != 0);
+#pragma unroll
+    for (int j = 0; j < m / 2; ++j) {
+      const unsigned lo = __float_as_uint(x[2 * j]);
+      const unsigned hi = __float_as_uint(x[2 * j + 1]);
+      const float keep = __uint_as_float((hi & upper) | (lo & ~upper));
+      const float give = __uint_as_float((lo & upper) | (hi & ~upper));
+      x[j] = keep + __shfl_xor_sync(kFull, give, off);
+    }
+  }
+  float sum = x[0];
+  for (; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+  return sum;
+}
+
+// The score s = q . k and dp = dO . v of the R (query row, key row) pairs
+// xs[b + j], ys[b + j] (j < R) for the lane's head: the lane's E-element
+// partial dots as FMA chains over x and y (the rows the pass holds), then
+// split sums, after which the lane holds pair split_index<R>(group,
+// lane), for which it returns p = exp(s * scale + bias - lse) and dp.
+// Both backward passes call it with the same lane layout and R, and
+// fma(a, b, c) = fma(b, a, c), so the dK/dV pass recomputes the bits the
+// dQ pass used.
+template <typename T, int E, int R, int U>
+__device__ __forceinline__ void pair_terms(
+    const float (&x)[E], const float (&y)[E], const Vec<T, E> (&xs)[U],
+    const Vec<T, E> (&ys)[U], int b, float bias, float lse, int group,
+    float scale, float& p, float& dp) {
+  float sc[R], dd[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    sc[j] = 0.f;
+    dd[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      sc[j] = __fmaf_rn(x[i], to_f(xs[b + j].x[i]), sc[j]);
+      dd[j] = __fmaf_rn(y[i], to_f(ys[b + j].x[i]), dd[j]);
+    }
+  }
+  const float s = split_sum<R>(sc, group);
+  dp = split_sum<R>(dd, group);
+  p = expf(__fmaf_rn(s, scale, bias) - lse);
+}
+
+// dQ pass: one warp per query row. Writes dq, zeroes dval at the row's
+// masked and PAD slots, and writes stats[row, h] = (lse, r, delta, 0).
+template <typename T, int E, int R>
 __global__ void __launch_bounds__(kWarps * 32)
 graph_flash_dq_kernel(const Vec<T, E>* __restrict__ q,
                       const Vec<T, E>* __restrict__ k,
@@ -260,41 +360,34 @@ graph_flash_dq_kernel(const Vec<T, E>* __restrict__ q,
                       const int32_t* __restrict__ nbr,
                       const float* __restrict__ val,
                       Vec<T, E>* __restrict__ dq, float* __restrict__ dval,
-                      float* __restrict__ p_scr, float* __restrict__ ds_scr,
-                      int nq, int nk, int heads, int group, int kw,
-                      float scale) {
+                      float4* __restrict__ stats, int nq, int nk, int heads,
+                      int group, int kw, float scale) {
   constexpr int kUnroll = unroll<T, E>();
   extern __shared__ int32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int32_t* col = smem + warp * kw;
   float* bias = reinterpret_cast<float*>(smem + kWarps * kw) + warp * kw;
-  int32_t* slot = smem + 2 * kWarps * kw + warp * kw;
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (row >= nq) return;
   const int head = lane / group;
+  const int mine_pair = split_index<R>(group, lane);
 
   float qv[E], dov[E];
   load_row<T, E>(qv, q[row * 32 + lane]);
   load_row<T, E>(dov, dout[row * 32 + lane]);
   const float row_lse = lse[row * heads + head];
-  const int nv = compact_slots(
-      nbr, val, row, nk, kw, lane, col, bias, slot, [&](int s) {
-        const long long pos = row * kw + s;
-        dval[pos] = 0.f;
-        for (int h = 0; h < heads; ++h) {
-          p_scr[pos * heads + h] = 0.f;
-          ds_scr[pos * heads + h] = 0.f;
-        }
-      });
+  const int nv = compact_slots(nbr, val, row, nk, kw, lane, col, bias,
+                               [&](int s) { dval[row * kw + s] = 0.f; });
 
   // Relative to r, the first slot's dp: delta = sum p (dp - r) / sum p,
-  // a = sum p (dp - r) k, b = sum p k, dq = a - delta * b, and
-  // ds = p ((dp - r) - delta).
+  // a = sum p (dp - r) k, b = sum p k, dq = a - delta * b; summed in slot
+  // order.
   float r = 0.f, delta = 0.f, psum = 0.f, a[E], b[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) a[i] = b[i] = 0.f;
   for (int s0 = 0; s0 < nv; s0 += kUnroll) {
+    // Slots past nv re-read the chunk's first (dropped below).
     Vec<T, E> kr[kUnroll], vr[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -302,44 +395,29 @@ graph_flash_dq_kernel(const Vec<T, E>* __restrict__ q,
       kr[u] = k[c * 32 + lane];
       vr[u] = v[c * 32 + lane];
     }
-    float sc[kUnroll], dp[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      sc[u] = 0.f;
-      dp[u] = 0.f;
+    for (int sb = 0; sb < kUnroll; sb += R) {
+      const int own = s0 + sb + mine_pair;
+      float p, dp;
+      pair_terms<T, E, R>(qv, dov, kr, vr, sb, bias[own < nv ? own : s0],
+                          row_lse, group, scale, p, dp);
+      if (s0 + sb == 0) r = __shfl_sync(kFull, dp, pair_lane<R>(0, group,
+                                                                lane));
+      const float pd = p * (dp - r);
 #pragma unroll
-      for (int i = 0; i < E; ++i) {
-        sc[u] += qv[i] * to_f(kr[u].x[i]);
-        dp[u] += dov[i] * to_f(vr[u].x[i]);
-      }
-    }
-    for (int off = group >> 1; off > 0; off >>= 1) {
+      for (int j = 0; j < R; ++j) {
+        const int from = pair_lane<R>(j, group, lane);
+        const float pj = __shfl_sync(kFull, p, from);
+        const float pdj = __shfl_sync(kFull, pd, from);
+        if (s0 + sb + j >= nv) break;  // the same on every lane
+        delta += pdj;
+        psum += pj;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        sc[u] += __shfl_xor_sync(kFull, sc[u], off);
-        dp[u] += __shfl_xor_sync(kFull, dp[u], off);
-      }
-    }
-    if (s0 == 0) r = dp[0];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u;
-      if (s >= nv) break;  // the same on every lane
-      const float p = expf(sc[u] * scale + bias[s] - row_lse);
-      const float dpr = dp[u] - r;
-      const float pd = p * dpr;
-      delta += pd;
-      psum += p;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const float kf = to_f(kr[u].x[i]);
-        a[i] += pd * kf;
-        b[i] += p * kf;
-      }
-      if (lane % group == 0) {
-        const long long pos = (row * kw + slot[s]) * heads + head;
-        p_scr[pos] = p;
-        ds_scr[pos] = dpr;
+        for (int i = 0; i < E; ++i) {
+          const float kf = to_f(kr[sb + j].x[i]);
+          a[i] += pdj * kf;
+          b[i] += pj * kf;
+        }
       }
     }
   }
@@ -347,55 +425,52 @@ graph_flash_dq_kernel(const Vec<T, E>* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < E; ++i) a[i] -= delta * b[i];
   store_row<T, E>(&dq[row * 32 + lane], a, scale);
-
-  // ds = p ((dp - r) - delta) in place and dval = its sum over the heads,
-  // one slot a lane; the warp's own scratch writes are visible after the
-  // sync.
-  __syncwarp();
-  for (int base = 0; base < nv; base += 32) {
-    const int s = base + lane;
-    const long long pos = row * kw + slot[s < nv ? s : base];
-    float dsum = 0.f;
-    for (int h = 0; h < heads; ++h) {
-      const float dh = __shfl_sync(kFull, delta, h * group);
-      if (s < nv) {
-        const long long at = pos * heads + h;
-        const float ds = p_scr[at] * (ds_scr[at] - dh);
-        ds_scr[at] = ds;
-        dsum += ds;
-      }
-    }
-    if (s < nv) dval[pos] = dsum;
+  if (lane % group == 0) {
+    stats[row * heads + head] = make_float4(row_lse, r, delta, 0.f);
   }
 }
 
 // dK/dV pass: one warp per key row c, over inv[c] in position order.
-template <typename T, int E>
+// Writes dk, dv and dval at every valid position.
+template <typename T, int E, int R>
 __global__ void __launch_bounds__(kWarps * 32)
 graph_flash_dkdv_kernel(const Vec<T, E>* __restrict__ q,
+                        const Vec<T, E>* __restrict__ k,
+                        const Vec<T, E>* __restrict__ v,
                         const Vec<T, E>* __restrict__ dout,
-                        const float* __restrict__ p_scr,
-                        const float* __restrict__ ds_scr,
+                        const float* __restrict__ val,
+                        const float4* __restrict__ stats,
                         const int64_t* __restrict__ inv,
                         Vec<T, E>* __restrict__ dk, Vec<T, E>* __restrict__ dv,
-                        int nq, int nk, int heads, int group, int kw,
-                        int dmax, float scale) {
+                        float* __restrict__ dval, int nq, int nk, int heads,
+                        int group, int kw, int dmax, float scale) {
   constexpr int kUnroll = unroll<T, E>();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long c = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (c >= nk) return;
   const int head = lane / group;
+  const int mine_pair = split_index<R>(group, lane);
+  // One lane of head 0 writes each pair's dval.
+  const bool writer = lane < group && lane == pair_lane<R>(mine_pair, group,
+                                                           lane);
   const long long n_pos = static_cast<long long>(nq) * kw;
 
-  float dka[E], dva[E];
+  float kv[E], vv[E], dka[E], dva[E];
+  load_row<T, E>(kv, k[c * 32 + lane]);
+  load_row<T, E>(vv, v[c * 32 + lane]);
 #pragma unroll
   for (int i = 0; i < E; ++i) dka[i] = dva[i] = 0.f;
   for (int base = 0; base < dmax; base += 32) {
+    // Each lane owns one position of the 32: it splits it into its query
+    // row (one division a lane for 32 positions) and reads its val.
     const long long mine = base + lane < dmax ? inv[c * dmax + base + lane]
                                               : -1;
+    const bool live = mine >= 0 && mine < n_pos;
+    const int my_row = live ? static_cast<int>(mine / kw) : 0;
+    const float my_val = live ? val[mine] : 0.f;
     // Lanes holding a position, taken in lane (= position) order.
-    unsigned todo = __ballot_sync(kFull, mine >= 0 && mine < n_pos);
+    unsigned todo = __ballot_sync(kFull, live);
     while (todo != 0u) {
       int src[kUnroll];
 #pragma unroll
@@ -404,25 +479,53 @@ graph_flash_dkdv_kernel(const Vec<T, E>* __restrict__ q,
         todo &= todo - 1u;
       }
       Vec<T, E> qr[kUnroll], dr[kUnroll];
-      float pp[kUnroll], dd[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         // Past the last position: re-read the first (dropped below).
-        const long long pos =
-            __shfl_sync(kFull, mine, src[u] >= 0 ? src[u] : src[0]);
-        const long long i = pos / kw;
+        const long long i =
+            __shfl_sync(kFull, my_row, src[u] >= 0 ? src[u] : src[0]);
         qr[u] = q[i * 32 + lane];
         dr[u] = dout[i * 32 + lane];
-        pp[u] = p_scr[pos * heads + head];
-        dd[u] = ds_scr[pos * heads + head];
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (src[u] < 0) break;
+      for (int sb = 0; sb < kUnroll; sb += R) {
+        // The position this lane's split sums end on, and its row's
+        // (lse, r, delta) for the lane's head.
+        int from = src[0];
+        bool own_live = false;
 #pragma unroll
-        for (int i = 0; i < E; ++i) {
-          dva[i] += pp[u] * to_f(dr[u].x[i]);
-          dka[i] += dd[u] * to_f(qr[u].x[i]);
+        for (int j = 0; j < R; ++j) {
+          if (mine_pair == j && src[sb + j] >= 0) {
+            from = src[sb + j];
+            own_live = true;
+          }
+        }
+        const long long i = __shfl_sync(kFull, my_row, from);
+        const long long pos = __shfl_sync(kFull, mine, from);
+        const float4 st = stats[i * heads + head];
+        float p, dp;
+        pair_terms<T, E, R>(kv, vv, qr, dr, sb,
+                            __shfl_sync(kFull, my_val, from), st.x, group,
+                            scale, p, dp);
+        const float ds = p * ((dp - st.y) - st.z);
+        // dval = ds summed over the heads, in the same butterfly order
+        // on every launch.
+        float dsum = ds;
+        for (int off = group; off < 32; off <<= 1) {
+          dsum += __shfl_xor_sync(kFull, dsum, off);
+        }
+        if (writer && own_live) dval[pos] = dsum;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int at = pair_lane<R>(j, group, lane);
+          const float pj = __shfl_sync(kFull, p, at);
+          const float dsj = __shfl_sync(kFull, ds, at);
+          if (src[sb + j] < 0) break;  // the same on every lane
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            dva[e] += pj * to_f(dr[sb + j].x[e]);
+            dka[e] += dsj * to_f(qr[sb + j].x[e]);
+          }
         }
       }
     }
@@ -438,7 +541,7 @@ struct Fwd {
 
 struct Bwd {
   const void *q, *k, *v, *dout, *lse, *nbr, *val, *inv;
-  void *dq, *dk, *dv, *dval, *p_scr, *ds_scr;
+  void *dq, *dk, *dv, *dval, *stats;
 };
 
 struct Dims {
@@ -463,28 +566,31 @@ void launch_fwd(const Fwd& a, const Dims& d, cudaStream_t s) {
       d.scale);
 }
 
-template <typename T, int E>
+template <typename T, int E, int R>
 void launch_bwd(const Bwd& a, const Dims& d, int parts, cudaStream_t s) {
   using V = Vec<T, E>;
   if (parts & kDq) {
-    const size_t smem = 3 * sizeof(int32_t) * kWarps * d.kw;  // <= 48 KB
-    graph_flash_dq_kernel<T, E><<<blocks_for(d.nq), kWarps * 32, smem, s>>>(
+    const size_t smem = 2 * sizeof(int32_t) * kWarps * d.kw;
+    graph_flash_dq_kernel<T, E, R>
+        <<<blocks_for(d.nq), kWarps * 32, smem, s>>>(
         static_cast<const V*>(a.q), static_cast<const V*>(a.k),
         static_cast<const V*>(a.v), static_cast<const V*>(a.dout),
         static_cast<const float*>(a.lse),
         static_cast<const int32_t*>(a.nbr), static_cast<const float*>(a.val),
         static_cast<V*>(a.dq), static_cast<float*>(a.dval),
-        static_cast<float*>(a.p_scr), static_cast<float*>(a.ds_scr), d.nq,
-        d.nk, d.heads, d.group, d.kw, d.scale);
+        static_cast<float4*>(a.stats), d.nq, d.nk, d.heads, d.group, d.kw,
+        d.scale);
   }
   if ((parts & kDkDv) && d.nk > 0) {
-    graph_flash_dkdv_kernel<T, E><<<blocks_for(d.nk), kWarps * 32, 0, s>>>(
-        static_cast<const V*>(a.q), static_cast<const V*>(a.dout),
-        static_cast<const float*>(a.p_scr),
-        static_cast<const float*>(a.ds_scr),
+    graph_flash_dkdv_kernel<T, E, R>
+        <<<blocks_for(d.nk), kWarps * 32, 0, s>>>(
+        static_cast<const V*>(a.q), static_cast<const V*>(a.k),
+        static_cast<const V*>(a.v), static_cast<const V*>(a.dout),
+        static_cast<const float*>(a.val),
+        static_cast<const float4*>(a.stats),
         static_cast<const int64_t*>(a.inv), static_cast<V*>(a.dk),
-        static_cast<V*>(a.dv), d.nq, d.nk, d.heads, d.group, d.kw, d.dmax,
-        d.scale);
+        static_cast<V*>(a.dv), static_cast<float*>(a.dval), d.nq, d.nk,
+        d.heads, d.group, d.kw, d.dmax, d.scale);
   }
 }
 
@@ -501,8 +607,22 @@ struct BwdLaunch {
   const Dims& d;
   int parts;
   cudaStream_t s;
+  // R, the pairs one split sum spreads over a head's lanes: the chunk's
+  // positions in flight, at most the head's lanes.
   template <typename T, int E>
-  void run() const { launch_bwd<T, E>(a, d, parts, s); }
+  void run() const {
+    constexpr int kUnroll = unroll<T, E>();
+    switch (d.group < kUnroll ? d.group : kUnroll) {
+      case 1: launch_bwd<T, E, 1>(a, d, parts, s); break;
+      case 2: launch_bwd<T, E, 2>(a, d, parts, s); break;
+      case 4:
+        if constexpr (kUnroll >= 4) launch_bwd<T, E, 4>(a, d, parts, s);
+        break;
+      default:
+        if constexpr (kUnroll >= 8) launch_bwd<T, E, 8>(a, d, parts, s);
+        break;
+    }
+  }
 };
 
 // Calls f.run<T, E>() for the element type and the elements a lane;
@@ -562,20 +682,21 @@ extern "C" int df2_graph_flash_attention(int is_bf16, const void* q,
 // like its out; inv: [nk, dmax] int64, the ascending flat
 // positions i * kw + s with nbr[i, s] = row, -1 padding (entries outside
 // [0, nq * kw) are skipped). Writes dq like q, dk/dv like k, dval [nq, kw]
-// f32, and uses p_scr and ds_scr ([nq * kw, heads] f32 each) as scratch.
-// parts: 1 = the dQ pass (dq, dval, scratch), 2 = the dK/dV pass (reads
-// the scratch), 3 = both. Same domain as the forward.
+// f32, and uses stats ([nq, heads, 4] f32, 16-byte aligned) to pass each
+// (row, head)'s lse, r and delta from the first pass to the second.
+// parts: 1 = the dQ pass (dq, stats, dval at masked slots), 2 = the dK/dV
+// pass (dk, dv, dval at valid slots; reads stats), 3 = both. Same domain
+// as the forward.
 extern "C" int df2_graph_flash_attention_bwd(
     int is_bf16, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* nbr, const void* val,
-    const void* inv, void* dq, void* dk, void* dv, void* dval, void* p_scr,
-    void* ds_scr, int nq, int nk, int heads, int d, int kw, int dmax,
-    float scale, int parts, void* stream) {
+    const void* inv, void* dq, void* dk, void* dv, void* dval, void* stats,
+    int nq, int nk, int heads, int d, int kw, int dmax, float scale,
+    int parts, void* stream) {
   if (!valid_dims(heads, d, kw) || dmax < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Bwd args{q, k, v, dout, lse, nbr, val, inv,
-                 dq, dk, dv, dval, p_scr, ds_scr};
+  const Bwd args{q, k, v, dout, lse, nbr, val, inv, dq, dk, dv, dval, stats};
   const Dims dims{nq, nk, heads, 32 / heads, kw, dmax, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int run = nq > 0 ? parts : parts & kDkDv;

@@ -39,8 +39,8 @@ from dragonfly2_tpu_torch.ops.table_gather import build_inverse_index
 
 NEG_INF = -1e9  # the mask value of both TPU kernels: finite, not -inf
 
-# The K1 kernels keep a row's valid neighbor ids in shared memory (the
-# backward 12 bytes a slot for each of 8 warps: K <= 512 stays within
+# The K1 kernels keep a row's valid neighbor ids and biases in shared
+# memory (8 bytes a slot for each of 8 warps: K <= 512 stays within
 # 48 KB) and spread the row's heads * d elements over one warp, the same
 # number per lane (1 to 16), each head on its own power-of-two group of
 # lanes (csrc/graph_flash_attention.cu).
@@ -218,7 +218,7 @@ def bind_graph_library(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p])
     lib.df2_graph_flash_attention_bwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.df2_graph_flash_attention.restype = ctypes.c_int
     lib.df2_graph_flash_attention_bwd.restype = ctypes.c_int
@@ -244,25 +244,24 @@ def graph_flash_forward(q, k, v, nbr, val, with_lse: bool):
     return out, lse
 
 
-def graph_backward_scratch(q, nbr) -> dict:
-    """The K1 backward's device scratch: p and dp (then ds), f32
-    [Nq·K, h] each."""
-    shape = (nbr.numel(), q.shape[1])
-    return {name: torch.empty(shape, dtype=torch.float32, device=q.device)
-            for name in ("p", "ds")}
+def graph_backward_scratch(q) -> dict:
+    """The K1 backward's device scratch: "stats", f32 [Nq, h, 4], each
+    (row, head)'s (lse, r, delta, unused) that the dQ pass leaves for the
+    dK/dV pass. Nothing of size Nq·K: the dK/dV pass recomputes p and ds."""
+    return {"stats": torch.empty((q.shape[0], q.shape[1], 4),
+                                 dtype=torch.float32, device=q.device)}
 
 
 def launch_graph_backward(q, k, v, nbr, val, lse, dout, inv, dq, dk, dv, dval,
                           scratch: dict, parts: int = GBWD_ALL) -> None:
-    """Launch the K1 backward's ``parts`` (``GBWD_DQ``: dq, dval and the
-    scratch; ``GBWD_KV``: dk and dv from the scratch) into dq, dk, dv and
-    dval; counts nothing."""
+    """Launch the K1 backward's ``parts`` (``GBWD_DQ``: dq, the scratch's
+    stats and dval at masked slots; ``GBWD_KV``: dk, dv and dval at valid
+    slots, from the stats) into dq, dk, dv and dval; counts nothing."""
     n_q, heads, d = q.shape
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, nbr, val, inv, dq,
-                                   dk, dv, dval, scratch["p"],
-                                   scratch["ds"])]
+                                   dk, dv, dval, scratch["stats"])]
     check(lib, lib.df2_graph_flash_attention_bwd(
         int(q.dtype == torch.bfloat16), *ptrs, n_q, k.shape[0], heads, d,
         nbr.shape[1], inv.shape[1], 1.0 / math.sqrt(d), parts, stream),
@@ -279,7 +278,7 @@ def graph_flash_backward(q, k, v, nbr, val, lse, dout, inv):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dval = torch.empty_like(val)
     launch_graph_backward(q, k, v, nbr, val, lse, dout, inv, dq, dk, dv, dval,
-                          graph_backward_scratch(q, nbr))
+                          graph_backward_scratch(q))
     graph_flash_attention.backward_launches += 1
     return dq, dk, dv, dval
 

@@ -1,5 +1,6 @@
 """Planted faults in the K1 backward: shows that ``chip_smoke.py``'s
-"k1_backward" check fails a backward kernel that drops or bends one term.
+"k1_backward" check fails a backward kernel that drops or bends one term
+(in either pass, or in the statistics the dK/dV pass reads).
 
     python3 tests/k1_planted_faults.py
 
@@ -33,25 +34,35 @@ FAULTS = {
     # dQ misses each row's last valid slot (its ds·k term).
     "dq_drops_last_slot": [(
         "graph_flash_dq_kernel(",
-        "        a[i] += pd * kf;\n        b[i] += p * kf;\n",
-        "        a[i] += s == nv - 1 ? 0.f : pd * kf;\n"
-        "        b[i] += s == nv - 1 ? 0.f : p * kf;\n")],
+        "          a[i] += pdj * kf;\n          b[i] += pj * kf;\n",
+        "          a[i] += s0 + sb + j == nv - 1 ? 0.f : pdj * kf;\n"
+        "          b[i] += s0 + sb + j == nv - 1 ? 0.f : pj * kf;\n")],
     # dK/dV misses each key row's last inverse-index entry.
     "dkdv_drops_last_position": [(
         "graph_flash_dkdv_kernel(",
-        "__ballot_sync(kFull, mine >= 0 && mine < n_pos);",
-        "__ballot_sync(kFull, mine >= 0 && mine < n_pos &&\n"
-        "        base + lane + 1 < dmax &&\n"
+        "__ballot_sync(kFull, live);",
+        "__ballot_sync(kFull, live && base + lane + 1 < dmax &&\n"
         "        inv[c * dmax + base + lane + 1] >= 0);")],
     # ds = p·dp: delta taken as 0 (no shift r, no sum).
     "delta_zero": [
-        ("graph_flash_dq_kernel(", "    if (s0 == 0) r = dp[0];\n", ""),
-        ("graph_flash_dq_kernel(", "      delta += pd;\n",
-         "      delta += 0.f * pd;\n")],
+        ("graph_flash_dq_kernel(", "if (s0 + sb == 0) r =", "if (false) r ="),
+        ("graph_flash_dq_kernel(", "        delta += pdj;\n",
+         "        delta += 0.f * pdj;\n")],
     # dval sums head 0 only.
     "dval_one_head": [(
-        "graph_flash_dq_kernel(", "        dsum += ds;\n",
-        "        dsum += h == 0 ? ds : 0.f;\n")],
+        "graph_flash_dkdv_kernel(",
+        "for (int off = group; off < 32; off <<= 1) {",
+        "for (int off = 32; off < 32; off <<= 1) {")],
+    # The dK/dV pass forms ds without r: p (dp - delta).
+    "dkdv_ds_without_r": [(
+        "graph_flash_dkdv_kernel(",
+        "const float ds = p * ((dp - st.y) - st.z);",
+        "const float ds = p * (dp - st.z);")],
+    # The dK/dV pass takes the next row's lse, r and delta.
+    "dkdv_other_rows_stats": [(
+        "graph_flash_dkdv_kernel(",
+        "const float4 st = stats[i * heads + head];",
+        "const float4 st = stats[((i + 1) % nq) * heads + head];")],
 }
 
 
@@ -64,9 +75,10 @@ def plant(source: str, plants) -> str:
     return source
 
 
-def build(tmp: str, texts: dict) -> dict:
+def build(tmp: str, texts: dict, reports: dict | None = None) -> dict:
     """Build every variant's source at once; returns {variant: library
-    path}."""
+    path}, and puts each variant's ptxas report into ``reports`` when
+    given."""
     from dragonfly2_tpu_torch.ops import _build
 
     nvcc, procs = _build.nvcc_path(), {}
@@ -85,16 +97,15 @@ def build(tmp: str, texts: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         libs[name] = lib
+        if reports is not None:
+            reports[name] = out
     return libs
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("k1_planted_faults: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+def blocks_inputs(torch):
+    """Config #3's blocks-mode backward inputs on the card: seeded random
+    f32 q, k, v and dO [20480, 4, 32], and the padded graph's nbr, val and
+    inverse index."""
     import chip_smoke
     from dragonfly2_tpu_torch.data import SyntheticCluster
     from dragonfly2_tpu_torch.models.graph_transformer import (
@@ -103,10 +114,6 @@ def main() -> int:
         pad_graph_sparse,
         pad_multiple,
     )
-    from dragonfly2_tpu_torch.ops import _build
-
-    # The module: the package exports the K3 function under its name.
-    fa = importlib.import_module("dragonfly2_tpu_torch.ops.flash_attention")
 
     graph = SyntheticCluster(n_hosts=chip_smoke.N_HOSTS,
                              seed=chip_smoke.SEED).probe_graph(
@@ -124,6 +131,22 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     inputs = [torch.randn(nbr.shape[0], heads, head_dim, generator=gen,
                           device="cuda") for _ in range(4)]
+    return inputs, nbr, val, inv
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k1_planted_faults: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from dragonfly2_tpu_torch.ops import _build
+
+    # The module: the package exports the K3 function under its name.
+    fa = importlib.import_module("dragonfly2_tpu_torch.ops.flash_attention")
+    inputs, nbr, val, inv = blocks_inputs(torch)
 
     source = (_build.CSRC / SOURCE).read_text()
     texts = {"unmodified": source}
@@ -137,7 +160,7 @@ def main() -> int:
             planted = name != "unmodified"
             for dname, dtype in (("bf16", torch.bfloat16),
                                  ("f32", torch.float32)):
-                errs, same, finite = chip_smoke.k1_backward_case(
+                errs, same, finite, _ = chip_smoke.k1_backward_case(
                     torch, *(t.to(dtype) for t in inputs), nbr, val, inv)
                 tol = chip_smoke.K1_TOL[dname]
                 passes = same and finite and chip_smoke.k1_within(errs, tol)

@@ -35,6 +35,7 @@ from dragonfly2_tpu_torch.ops.flash_attention import (
     check_flash_inputs,
     check_graph_flash_inputs,
     chunked_attention,
+    graph_backward_scratch,
     graph_flash_attention,
     graph_flash_attention_backward_plain,
     graph_flash_attention_plain,
@@ -339,3 +340,14 @@ def test_k1_grad_dtype_and_shapes():
     got = _port_grads(q, k, v, dout, nbr, val, 16, torch.bfloat16)
     assert [x.shape for x in got] == [q.shape, q.shape, k.shape, v.shape,
                                       val.shape]
+
+
+@pytest.mark.parametrize("n,heads", [(40, 2), (300, 8)])
+def test_k1_backward_scratch_is_per_row_head(n, heads):
+    """The backward's scratch is (lse, r, delta) a (row, head): f32
+    [Nq, h, 4] and nothing else — nothing of size Nq·K (it is sized by q
+    alone)."""
+    q = torch.zeros(n, heads, 32 // heads * 4)
+    scratch = graph_backward_scratch(q)
+    assert [(tuple(t.shape), t.dtype) for t in scratch.values()] == [
+        ((n, heads, 4), torch.float32)]
