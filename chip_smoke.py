@@ -2,9 +2,11 @@
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
 scorer (BASELINE config #3) and the MLP scorer, train the GraphTransformer
 in gather mode and in blocks mode and serve the results, run ring mode in
-a world of one, run Ulysses attention, and train GraphSAGE (BASELINE
-config #2) with on-device sampling, on one NVIDIA H100 through
-``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
+a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
+#2) with on-device sampling, and train the MLP bandwidth predictor
+(BASELINE config #1) and the piece-cost model and rank parents with them
+through the scheduler's ``ml`` and ``cost`` evaluators, on one NVIDIA
+H100 through ``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -106,7 +108,31 @@ Phases (any failure exits nonzero, before the final line):
    gather_library_profile: ``index_select`` and advanced indexing at
    that shape, int32 and int64 indices, profiled kernel by kernel; and
    train_gnn_host: the same run sampling on the host (prefetch
-   threads), with the same launch, loss and F1 checks.
+   threads), with the same launch, loss and F1 checks;
+12. the MLP and the evaluators, the slice 9 paths: mlp_small_model (a
+   small MLP in f32: the loss and every parameter's gradient, card
+   against CPU), then train_mlp: config #1 (the 2000-host cluster's
+   300 000 pair examples, hidden (128, 128, 64), batch 16384;
+   ``MLPTrainer.fit``, the body of ``train_mlp``, MLP_EPOCHS epochs) with
+   every launch count set to 0 just before and read just after — no
+   kernel may launch — a finite, falling loss, an eval MAE below
+   predicting the train mean, the steady step time and a profile of 3
+   steps; train_mlp_to_serve: the result as an ``mlp`` artifact through
+   ``_scorer_from_artifact`` and ModelInfer, whose 15-candidate replies
+   must equal the trained model's own predictions bit for bit, and their
+   p50; score_corpus: the 300 000 rows, and again shuffled, and sampled
+   rows in requests of 1 to 64 rows, bit-identical (rows/s);
+   ml_evaluator: ``new_evaluator("ml")`` on 200 seeded decisions of 15
+   candidates, its orders against an f32 CPU copy of the artifact (equal,
+   or differing only between candidates under ML_ORDER_GAP apart), and a
+   NaN- and a zero-weighted artifact, each giving the rule evaluator's
+   order on every decision, a guard trip each and one quarantine;
+   train_cost: the cost model on a stand-in columnar corpus (with the
+   launch counts set to 0 and read as for train_mlp), its predictions'
+   correlation with realized cost above COST_CORR_MIN; cost_evaluator:
+   orders by ascending predicted cost, ``is_bad_node`` verdicts equal to
+   a CPU copy's, a verdict's cache miss and hit in µs, and a NaN-weighted
+   cost artifact giving the rule evaluator's orders and verdicts.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -119,6 +145,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -230,6 +258,39 @@ GNN_CFG = dict(hidden=128, embed=64, fanouts=(10, 5), batch_size=8192,
                learning_rate=5e-3, weight_decay=1e-4, eval_fraction=0.02,
                epochs=GNN_EPOCHS, max_seconds=60)
 GNN_F1_MIN = 0.9
+# The MLP bandwidth predictor, BASELINE config #1 (bench.py:441-446): the
+# 2000-host cluster's 300 000 pair examples, hidden (128, 128, 64), batch
+# 16384, lr 3e-3, weight decay 1e-4, warmup 100, eval fraction 0.1, bf16
+# compute with f32 params; MLP_EPOCHS epochs (bench.py runs up to 100
+# under a 25 s cap): the fewest after which the eval MAE was below
+# predicting the train mean, and the loss below 0.8 (tests/test_train_mlp.py
+# :38), at seeds 0, 1 and 2 (tests/mlp_epochs_quality.py, PERF.md).
+MLP_HOSTS, MLP_ROWS = 2000, 300_000
+MLP_EPOCHS = 1
+MLP_CFG = dict(hidden=(128, 128, 64), batch_size=16384, learning_rate=3e-3,
+               weight_decay=1e-4, warmup_steps=100, eval_fraction=0.1,
+               epochs=MLP_EPOCHS, max_seconds=60)
+# The cost model's stand-in corpus (the replay plane is not ported):
+# COST_ROWS of those pair rows as decisions of COST_SLOTS candidate slots,
+# realized cost the seconds of a PIECE_MB piece at the pair's bandwidth,
+# trained at CostTrainConfig's defaults. tests/test_replay.py:319-326
+# bounds the correlation of predicted with realized cost at 0.9 on a
+# recorded corpus whose best predictor reaches 1 (the port's model 0.999
+# there, tests/test_torch_mlp_train.py). Here the label's congestion
+# factor (lognormal, σ 0.35, unseen by the features) caps the best
+# possible predictor at COST_CORR_CEILING (tests/cost_standin_ceiling.py),
+# so the bound is 0.9 of that.
+COST_ROWS, COST_SLOTS, PIECE_MB = 20_000, 16, 4.0
+COST_CORR_CEILING = 0.8712
+COST_CORR_MIN = 0.9 * COST_CORR_CEILING
+# The evaluators: seeded decisions of 15 candidates (the scheduler's
+# filterParentLimit). bf16 scores on the card may order candidates
+# closer than the bf16 parity tolerance differently from an f32 copy.
+ML_DECISIONS, ML_CANDIDATES = 200, 15
+ML_ORDER_GAP = 6e-2
+# Request sizes held bit-identical to score_corpus: one row, the bucket
+# edges of the JAX package's scorer (8 … 64) and a row past each.
+SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
 
 
 def log(phase: str, **fields) -> None:
@@ -485,8 +546,6 @@ def check_scatter_cases(torch) -> None:
     targets, padding and rows that receive nothing, on both transposes,
     in bf16 and f32 and at row widths of one, a half and three vectors a
     lane, against the plain version on the CPU."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.models.graph_transformer import (
         PAD_ID,
         build_inverse_index,
@@ -1179,7 +1238,6 @@ def run_ulysses(torch, counts) -> dict:
 def check_small_model(torch) -> None:
     """The whole model on a small graph: card kernels against the CPU
     plain path, f32 compute, both kernel-carrying modes; then gradients."""
-    import numpy as np
     import torch.nn.functional as F
 
     from dragonfly2_tpu_torch.data import SyntheticCluster
@@ -1412,8 +1470,6 @@ def run_train(torch, graph, cfg, counts, phase: str):
     steps (device time by kernel, the device's busy share), logged as
     ``phase`` and ``phase``_profile (:func:`time_and_profile`). Returns
     (trainer, result, launches)."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
     from dragonfly2_tpu_torch.train.metrics import padded_chunks
 
@@ -1472,8 +1528,6 @@ def serve_trained(torch, result, graph, service, ctx, pairs,
     """The trained result as a port artifact, loaded through
     ``_gat_scorer_from_artifact`` and answering ModelInfer requests, which
     must equal the trained model's own scores."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.inference.sidecar import (
         ModelInferRequest,
         _gat_scorer_from_artifact,
@@ -1515,8 +1569,6 @@ def run_ring_one(torch, counts) -> dict:
     finite loss; its trained embeddings on the card must equal blocks
     mode's on the same weights (the same K1 forward); and the ring result
     must serve through a port artifact. Returns the launches."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.data import SyntheticCluster
     from dragonfly2_tpu_torch.inference.sidecar import (
         CallContext,
@@ -1577,8 +1629,6 @@ def run_ring_one(torch, counts) -> dict:
 def gnn_batch(torch, trainer, n: int, seed: int):
     """(src, dst, labels) of ``n`` train edges on the trainer's device, in
     a seeded order."""
-    import numpy as np
-
     pos = np.random.default_rng(seed).permutation(
         trainer.train_sampler.n_edges)[:n]
     ids = torch.from_numpy(pos).to(trainer.device)
@@ -1590,8 +1640,6 @@ def check_gnn_sampling(torch, trainer) -> None:
     CPU, for the trainer's own tables and a train batch, at three salt
     pairs: every id, rtt and mask bit-equal (integer ops must not drift
     between devices)."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.train.fused_sampling import (
         put_graph_tables,
         sample_indices,
@@ -1622,8 +1670,6 @@ def check_gnn_small_model(torch) -> None:
     the CPU (the same sampling, the plain gather): logits within
     SMALL_F32_TOL and every parameter's gradient of the loss within
     GRAD_F32_TOL of its leaf's max."""
-    import numpy as np
-
     import torch.nn.functional as F
 
     from dragonfly2_tpu_torch.data import SyntheticCluster
@@ -1682,8 +1728,6 @@ def run_train_gnn(torch, graph, counts, device_sample: bool, phase: str):
     peak memory, logged as ``phase``. On the card-sampling path also the
     steady step time and a profile of 3 steps (:func:`time_and_profile`),
     logged as ``phase``_profile. Returns (trainer, result, launches)."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.train.gnn_trainer import (
         GNNTrainConfig,
         GNNTrainer,
@@ -1741,8 +1785,6 @@ def run_train_gnn(torch, graph, counts, device_sample: bool, phase: str):
 def gnn_to_artifact(torch, trainer, result, graph) -> None:
     """The trained result as a ``gnn`` artifact, loaded back on the card:
     its logits on one batch (the same salts) equal the trained model's."""
-    import numpy as np
-
     from dragonfly2_tpu_torch.train.checkpoint import (
         gnn_artifact_from_result,
         gnn_model_from_artifact,
@@ -1767,6 +1809,510 @@ def gnn_to_artifact(torch, trainer, result, graph) -> None:
     log("train_gnn_to_artifact", bytes=len(artifact), load_seconds=load_s,
         logits_equal=True, rows=int(got.shape[0]),
         evaluation=metadata.evaluation)
+
+
+# -- slice 9: the MLP bandwidth predictor, the cost model, the evaluators ---
+
+
+class SmokeHost:
+    """A duck-typed scheduler host (``evaluator.base.HostLike``); ``type``
+    is truthy for a seed host."""
+
+    def __init__(self, type: int, upload_count: int,
+                 upload_failed_count: int, concurrent_upload_limit: int,
+                 concurrent_upload_count: int, idc: str, location: str):
+        self.type = type
+        self.upload_count = upload_count
+        self.upload_failed_count = upload_failed_count
+        self.concurrent_upload_limit = concurrent_upload_limit
+        self.concurrent_upload_count = concurrent_upload_count
+        self.idc = idc
+        self.location = location
+
+    def free_upload_count(self) -> int:
+        return self.concurrent_upload_limit - self.concurrent_upload_count
+
+
+class SmokePeer:
+    """A duck-typed scheduler peer (``evaluator.base.PeerLike``) whose
+    piece costs judge ``is_bad_node`` through the numpy path."""
+
+    def __init__(self, id: str, host: SmokeHost, state: str, finished: int,
+                 costs: list):
+        self.id = id
+        self.host = host
+        self._state = state
+        self._finished = finished
+        self.costs = costs
+
+    def state(self) -> str:
+        return self._state
+
+    def finished_piece_count(self) -> int:
+        return self._finished
+
+    def piece_costs(self):
+        return self.costs
+
+
+def smoke_peer(rng, name: str) -> SmokePeer:
+    """A seeded peer: a host in a 4-region/4-zone/8-rack tree (a tenth of
+    them seeds), its uploads and failures, one of three states (one of
+    them, ReceivedNormal, bad by state), and 8–40 piece costs around its
+    own typical cost, the latest ×1, ×5 or ×30 that cost."""
+    seed = bool(rng.random() < 0.1)
+    limit = 300 if seed else 50
+    uploads = int(rng.poisson(50))
+    region, zone, rack = (int(v) for v in rng.integers(0, (4, 4, 8)))
+    host = SmokeHost(
+        type=int(seed), upload_count=uploads,
+        upload_failed_count=int(rng.binomial(uploads, 0.1)),
+        concurrent_upload_limit=limit,
+        concurrent_upload_count=int(rng.integers(0, limit)),
+        idc=f"idc-{region * 4 + zone}",
+        location=f"r{region}|z{zone}|k{rack}")
+    typical = float(rng.lognormal(np.log(0.05), 0.6))
+    costs = list(rng.lognormal(np.log(typical), 0.2,
+                               int(rng.integers(8, 41))))
+    costs[-1] = typical * float(rng.choice([1.0, 5.0, 30.0]))
+    return SmokePeer(name, host, str(rng.choice(
+        ["Running", "ReceivedNormal", "Succeeded"])),
+        int(rng.integers(0, 256)), costs)
+
+
+def seeded_decisions(seed: int, n: int, k: int) -> list:
+    """``n`` seeded (parents, child, total_piece_count) decisions of ``k``
+    candidates each."""
+    rng = np.random.default_rng(seed)
+    return [([smoke_peer(rng, f"p{d}-{i}") for i in range(k)],
+             smoke_peer(rng, f"c{d}"),
+             int(rng.choice([0, 64, 256, 1024]))) for d in range(n)]
+
+
+def mlp_artifact(tree: dict, model_type: str, hidden, evaluation=None):
+    from dragonfly2_tpu_torch.train.checkpoint import (
+        ModelMetadata,
+        write_artifact,
+    )
+
+    return write_artifact(tree, ModelMetadata(
+        model_id=f"smoke-{model_type}", model_type=model_type,
+        evaluation=evaluation or {}, config={"hidden": list(hidden)}))
+
+
+def poisoned(tree: dict, how: str) -> dict:
+    """``tree`` with every weight NaN (``"nan"``) or 0 (``"zero"``): a
+    loadable model whose scores the guard must reject (NaN, or one
+    constant)."""
+    fill = np.nan if how == "nan" else 0.0
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict)
+                else np.full_like(v, fill) for k, v in node.items()}
+
+    return dict(tree, params=walk(tree["params"]))
+
+
+def f32_cpu_scorer(torch, artifact: bytes):
+    """A CPU copy of an MLP-layout artifact's model, computing in f32."""
+    from dragonfly2_tpu_torch.inference.scorer import ParentScorer
+    from dragonfly2_tpu_torch.models.mlp import MLPBandwidthPredictor
+    from dragonfly2_tpu_torch.train.checkpoint import (
+        load_artifact,
+        mlp_from_tree,
+        mlp_state_dict_from_flax,
+    )
+
+    tree, metadata = load_artifact(artifact)
+    params, norm, target = mlp_from_tree(tree)
+    model = MLPBandwidthPredictor(hidden=metadata.config["hidden"],
+                                  dtype=torch.float32)
+    model.load_state_dict(mlp_state_dict_from_flax(params))
+    return ParentScorer(model, norm, target, device="cpu")
+
+
+def check_mlp_small_model(torch) -> None:
+    """A small MLP in f32, card against CPU on the same weights and rows:
+    the loss and every parameter's gradient of it within GRAD_F32_TOL of
+    its leaf's max."""
+    from dragonfly2_tpu_torch.models.mlp import MLPBandwidthPredictor
+    from dragonfly2_tpu_torch.train.mlp_trainer import mlp_loss
+
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((1024, 11)).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal(1024).astype(np.float32))
+    losses, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = MLPBandwidthPredictor(
+            hidden=(32, 32), dtype=torch.float32,
+            generator=torch.Generator().manual_seed(1)).to(dev)
+        loss = mlp_loss(model, x.to(dev), t.to(dev))
+        loss.backward()
+        losses[dev] = float(loss.detach())
+        grads[dev] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    grad_err = max(float((grads["cuda"][k] - ref).abs().max())
+                   / max(float(ref.abs().max()), 1e-12)
+                   for k, ref in grads["cpu"].items())
+    if not (loss_err <= SMALL_F32_TOL and grad_err <= GRAD_F32_TOL):
+        raise AssertionError(f"mlp small model card vs CPU: loss {loss_err} "
+                             f"(tol {SMALL_F32_TOL}), gradients {grad_err} "
+                             f"(tol {GRAD_F32_TOL})")
+    log("mlp_small_model", loss_abs_err=loss_err, tol=SMALL_F32_TOL,
+        grad_rel_err=grad_err, grad_tol=GRAD_F32_TOL)
+
+
+def falling(losses) -> tuple[float, float]:
+    """(mean of the first w steps after the first, mean of the last w),
+    w = min(10, a third of the run): a run's loss must be finite and the
+    second below the first."""
+    losses = np.asarray(losses)
+    w = min(10, len(losses) // 3)
+    early, late = float(losses[1:1 + w].mean()), float(losses[-w:].mean())
+    if w < 4 or not (np.isfinite(losses).all() and late < early):
+        raise AssertionError(f"{len(losses)} steps, loss steps 2-{w + 1} "
+                             f"mean {early}, last {w} mean {late}")
+    return early, late
+
+
+def run_train_mlp(torch, X, y, counts):
+    """Train config #1 (``MLPTrainer.fit``, the body of ``train_mlp``)
+    with every launch count set to 0 just before and read just after — no
+    kernel may launch — a finite, falling loss and an eval MAE below
+    predicting the train split's mean; then the steady step time and a
+    profile of 3 steps (:func:`time_and_profile`). Returns (trainer,
+    result, launches)."""
+    from dragonfly2_tpu_torch.train.mlp_trainer import (
+        MLPTrainConfig,
+        MLPTrainer,
+    )
+
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = MLPTrainer(X, y, MLPTrainConfig(**MLP_CFG))
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if any(launches.values()):
+        raise AssertionError(f"train_mlp launched kernels: {launches}")
+    early, late = falling(result.step_losses)
+    train_y = trainer.train_ds.arrays[1]
+    eval_y = trainer.eval_y.cpu().numpy()
+    mean_mae = float(np.abs(eval_y - train_y.mean()).mean())
+    if not (np.isfinite(result.mse) and result.mae < mean_mae):
+        raise AssertionError(f"train_mlp: eval MAE {result.mae} not below "
+                             f"the predict-mean MAE {mean_mae}")
+    order = trainer.epoch_order(0)
+    timing = time_and_profile(torch, trainer.step, [
+        order[i * trainer.batch:(i + 1) * trainer.batch] for i in range(13)])
+    log_profile("train_mlp_profile", timing)
+    log("train_mlp", seconds=train_s, steps=len(result.step_losses),
+        epochs=trainer.config.epochs, launches=launches,
+        loss_first=result.step_losses[0], loss_early=early,
+        loss_late=late, history=result.history,
+        samples_per_sec=result.samples_per_sec, step_ms=timing["step_ms"],
+        samples_per_sec_at_step_ms=trainer.batch / timing["step_ms"] * 1e3,
+        eval_mse=result.mse, eval_mae=result.mae, predict_mean_mae=mean_mae,
+        peak_memory_gib=peak_gib, train_rows=len(train_y),
+        eval_rows=len(eval_y), batch=trainer.batch)
+    return trainer, result, launches
+
+
+def serve_trained_mlp(torch, result, eval_x, service, ctx):
+    """The trained result as an ``mlp`` artifact, loaded through
+    ``_scorer_from_artifact`` and answering 15-candidate ModelInfer
+    requests, which must equal the trained model's own predictions
+    exactly; ModelInfer p50. Returns (artifact, the loaded scorer)."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        ModelInferRequest,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import mlp_tree
+
+    artifact = mlp_artifact(
+        mlp_tree(result.params, result.normalizer, result.target_norm),
+        "mlp", result.config.hidden, {"mse": result.mse, "mae": result.mae})
+    t0 = time.perf_counter()
+    scorer = _scorer_from_artifact(artifact)
+    load_s = time.perf_counter() - t0
+    service.install_scorer("mlp", scorer, version="trained")
+    requests = [eval_x[i * 15:(i + 1) * 15] for i in range(20)]
+    served = [service.ModelInfer(ModelInferRequest("mlp", r), ctx).outputs
+              for r in requests]
+    # The model's own forward at the scorer's one shape (zero rows to
+    # max_batch): at another row count cuBLAS sums in another order.
+    own = result.model.cuda().eval()
+    mean, std = (torch.from_numpy(a).cuda()
+                 for a in (result.normalizer.mean, result.normalizer.std))
+    t_mean, t_std = (float(a[0]) for a in (result.target_norm.mean,
+                                           result.target_norm.std))
+    own_scores = []
+    with torch.no_grad():
+        for r in requests:
+            x = torch.zeros(scorer.max_batch, r.shape[1], device=mean.device)
+            x[:len(r)] = torch.from_numpy(r)
+            own_scores.append((own((x - mean) / std) * t_std + t_mean
+                               )[:len(r)].cpu().numpy())
+    differ = sum(int((a != b).sum()) for a, b in zip(served, own_scores))
+    if differ or not all(np.isfinite(o).all() and o.shape == (15,)
+                         for o in served):
+        raise AssertionError(f"train_mlp_to_serve: {differ} of "
+                             f"{15 * len(requests)} replies differ from the "
+                             "trained model's predictions")
+    p50 = p50_ms(lambda: service.ModelInfer(
+        ModelInferRequest("mlp", requests[0]), ctx), n=200)
+    log("train_mlp_to_serve", bytes=len(artifact), load_seconds=load_s,
+        replies=15 * len(requests), replies_differing=differ,
+        model_infer_p50_ms=p50, candidates=15)
+    return artifact, scorer
+
+
+def check_score_corpus(torch, scorer, X) -> None:
+    """All rows through ``score_corpus`` (rows/s), and again shuffled;
+    sampled rows through ``score`` in requests of 1 to 64 rows: every
+    row must be bit-identical to its ``score_corpus`` output."""
+    t0 = time.perf_counter()
+    corpus = scorer.score_corpus(X)
+    corpus_s = time.perf_counter() - t0
+    perm = np.random.default_rng(SEED + 7).permutation(len(X))
+    differ = {"corpus_shuffled": int(
+        (scorer.score_corpus(X[perm]) != corpus[perm]).sum())}
+    sample = perm[:1024]
+    for n in SCORE_REQUEST_ROWS:
+        got = np.concatenate([scorer.score(X[sample[s:s + n]])
+                              for s in range(0, len(sample), n)])
+        differ[f"requests_of_{n}"] = int((got != corpus[sample]).sum())
+    total = sum(differ.values())
+    if total or not np.isfinite(corpus).all():
+        raise AssertionError(f"score_corpus: rows differing {differ}")
+    log("score_corpus", rows=len(X), seconds=corpus_s,
+        rows_per_sec=len(X) / corpus_s, block=scorer.max_batch,
+        rows_checked=len(X) + len(sample) * len(SCORE_REQUEST_ROWS),
+        rows_differing=total, by_case=differ)
+
+
+def check_ml_evaluator(torch, artifact, scorer) -> None:
+    """``new_evaluator("ml")`` over the trained scorer on seeded
+    decisions: each order identical to a CPU copy of the artifact in f32,
+    or differing only between candidates whose card (bf16) scores are
+    under ML_ORDER_GAP apart; decision p50. A NaN-weighted and a
+    zero-weighted artifact must each give exactly the rule evaluator's
+    order on every decision, count a guard trip per decision, and call
+    the quarantine hook once."""
+    from dragonfly2_tpu_torch.inference.sidecar import _scorer_from_artifact
+    from dragonfly2_tpu_torch.scheduler.evaluator import (
+        BaseEvaluator,
+        new_evaluator,
+    )
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import (
+        build_feature_matrix,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import load_artifact
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    decisions = seeded_decisions(SEED + 8, ML_DECISIONS, ML_CANDIDATES)
+    card = new_evaluator("ml", scorer=scorer, stats=ServingStats())
+    cpu = new_evaluator("ml", scorer=f32_cpu_scorer(torch, artifact),
+                        stats=ServingStats())
+    identical, worst_gap = 0, 0.0
+    for parents, child, total in decisions:
+        got = card.evaluate_parents(parents, child, total)
+        want = cpu.evaluate_parents(parents, child, total)
+        if got == want:
+            identical += 1
+            continue
+        scores = dict(zip((p.id for p in parents), scorer.score(
+            build_feature_matrix(parents, child, total))))
+        pos = {p.id: i for i, p in enumerate(got)}
+        for i, a in enumerate(want):
+            for b in want[i + 1:]:
+                if pos[a.id] > pos[b.id]:
+                    worst_gap = max(worst_gap, float(abs(
+                        scores[a.id] - scores[b.id])))
+    if worst_gap >= ML_ORDER_GAP or card.scored_count != ML_DECISIONS:
+        raise AssertionError(
+            f"ml evaluator: {identical}/{ML_DECISIONS} orders identical to "
+            f"the f32 CPU copy; candidates {worst_gap} apart swapped "
+            f"(limit {ML_ORDER_GAP}); {card.scored_count} scored")
+    parents, child, total = decisions[0]
+    p50_us = p50_ms(lambda: card.evaluate_parents(parents, child, total),
+                    n=200) * 1e3
+    tree, metadata = load_artifact(artifact)
+    rule = BaseEvaluator()
+    poison = {}
+    for how in ("nan", "zero"):
+        fired = []
+        stats = ServingStats()
+        ev = new_evaluator("ml", scorer=_scorer_from_artifact(mlp_artifact(
+            poisoned(tree, how), "mlp", metadata.config["hidden"])),
+            stats=stats,
+            on_quarantine=lambda reason: fired.append(reason))
+        same = sum(ev.evaluate_parents(p, c, t) == rule.evaluate_parents(
+            p, c, t) for p, c, t in decisions)
+        poison[how] = dict(rule_orders=same, guard_trips=ev.guard_trips,
+                           quarantines=len(fired), reasons=sorted(set(fired)),
+                           stats=stats.snapshot())
+        if not (same == ML_DECISIONS and ev.guard_trips == ML_DECISIONS
+                and len(fired) == 1
+                and stats.get("ml_guard_trips") == ML_DECISIONS
+                and stats.get("ml_quarantines_reported") == 1):
+            raise AssertionError(f"ml evaluator on a {how} artifact: "
+                                 f"{poison[how]}")
+    log("ml_evaluator", decisions=ML_DECISIONS, candidates=ML_CANDIDATES,
+        identical_to_f32_cpu=identical, worst_swapped_gap=worst_gap,
+        gap_limit=ML_ORDER_GAP, decision_p50_us=p50_us, poisoned=poison)
+
+
+class ColumnarCorpus:
+    """A duck-typed columnar replay corpus: [N, K] candidate slots with
+    their decision-time features [N, K, 11], ``valid``, ``realized_n`` and
+    ``realized_cost`` (what ``cost_examples_from_corpus`` reads)."""
+
+    def __init__(self, features, valid, realized_n, realized_cost):
+        self.features = features
+        self.valid = valid
+        self.realized_n = realized_n
+        self.realized_cost = realized_cost
+
+
+def cost_corpus(X, y) -> ColumnarCorpus:
+    """The cost model's stand-in corpus: COST_ROWS synthetic pair rows as
+    decisions of COST_SLOTS candidate slots, each realizing the cost of a
+    PIECE_MB piece at its bandwidth (the inverse of
+    ``bandwidth_examples_from_corpus``); a seeded tenth of the slots
+    realized no cost (and every slot of the last decision is invalid)."""
+    n = COST_ROWS // COST_SLOTS
+    rng = np.random.default_rng(SEED + 9)
+    realized_n = rng.integers(1, 20, (n, COST_SLOTS))
+    realized_n[rng.random((n, COST_SLOTS)) < 0.1] = 0
+    valid = np.ones((n, COST_SLOTS), bool)
+    valid[-1] = False
+    cost = np.where(realized_n > 0, PIECE_MB / y[:COST_ROWS].reshape(
+        n, COST_SLOTS), -1.0).astype(np.float32)
+    return ColumnarCorpus(X[:COST_ROWS].reshape(n, COST_SLOTS, -1), valid,
+                          realized_n, cost)
+
+
+def run_train_cost(torch, X, y, counts):
+    """The cost model on the stand-in corpus (``cost_examples_from_corpus``'s
+    mask path, then ``train_cost`` at ``CostTrainConfig``'s defaults) with
+    every launch count set to 0 just before and read just after — no
+    kernel may launch — a finite, falling loss and a correlation of
+    predicted with realized cost above COST_CORR_MIN through the loaded
+    ``cost`` artifact. Returns (artifact, cost scorer, launches)."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        _cost_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.train.cost_trainer import (
+        MODEL_TYPE_COST,
+        cost_examples_from_corpus,
+        cost_tree,
+        train_cost,
+    )
+
+    corpus = cost_corpus(X, y)
+    cx, cy = cost_examples_from_corpus(corpus)
+    counts.reset()
+    t0 = time.perf_counter()
+    result = train_cost(cx, cy)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts.read()
+    if any(launches.values()):
+        raise AssertionError(f"train_cost launched kernels: {launches}")
+    early, late = falling(result.step_losses)
+    artifact = mlp_artifact(cost_tree(result), MODEL_TYPE_COST,
+                            result.config.hidden,
+                            {"mse": result.mse, "mae": result.mae})
+    scorer = _cost_scorer_from_artifact(artifact, version="smoke")
+    pred = np.concatenate([scorer.predict_cost_s(cx[i:i + 64])
+                           for i in range(0, len(cx), 64)])
+    corr = float(np.corrcoef(pred, cy)[0, 1])
+    if not corr > COST_CORR_MIN:
+        raise AssertionError(f"train_cost: corr {corr} <= {COST_CORR_MIN}")
+    log("train_cost", seconds=train_s, examples=len(cx),
+        slots=int(corpus.valid.size), steps=len(result.step_losses),
+        launches=launches, loss_first=result.step_losses[0],
+        loss_early=early, loss_late=late, history=result.history,
+        samples_per_sec=result.samples_per_sec, eval_mse_s2=result.mse,
+        eval_mae_s=result.mae, corr=corr, corr_min=COST_CORR_MIN,
+        corr_ceiling=COST_CORR_CEILING,
+        typical_cost_s=scorer.typical_cost_s)
+    return artifact, scorer, launches
+
+
+def check_cost_evaluator(torch, artifact, scorer) -> None:
+    """``new_evaluator("cost")`` over the trained cost scorer: orders by
+    ascending predicted cost; ``is_bad_node`` verdicts on seeded peers
+    equal a CPU copy's of the artifact; a verdict's miss (a one-row
+    device round trip) and cache hit in µs; a NaN-weighted artifact
+    gives the rule evaluator's orders and verdicts, a guard trip each."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        _cost_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.scheduler.controlstats import ControlPlaneStats
+    from dragonfly2_tpu_torch.scheduler.evaluator import (
+        BaseEvaluator,
+        new_evaluator,
+    )
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import (
+        _BAD_STATES,
+        MIN_AVAILABLE_COST_LEN,
+        build_feature_matrix,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import load_artifact
+
+    decisions = seeded_decisions(SEED + 10, ML_DECISIONS, ML_CANDIDATES)
+    card = new_evaluator("cost", scorer=scorer, stats=ControlPlaneStats())
+    for parents, child, total in decisions:
+        got = card.evaluate_parents(parents, child, total)
+        cost = dict(zip((p.id for p in parents), scorer.predict_cost_s(
+            build_feature_matrix(parents, child, total))))
+        ranked = [cost[p.id] for p in got]
+        if any(a > b for a, b in zip(ranked, ranked[1:])):
+            raise AssertionError(f"cost evaluator order not ascending in "
+                                 f"predicted cost: {ranked}")
+    cpu_scorer = _cost_scorer_from_artifact(artifact, device="cpu")
+    cpu = new_evaluator("cost", scorer=cpu_scorer, stats=ControlPlaneStats())
+    # The peers the model judges (the others are bad by state, or too new).
+    peers = [p for parents, _, _ in decisions for p in parents
+             if p.state() not in _BAD_STATES
+             and len(p.costs) >= MIN_AVAILABLE_COST_LEN]
+    t0 = time.perf_counter()
+    got = [card.is_bad_node(p) for p in peers]
+    miss_us = (time.perf_counter() - t0) / len(peers) * 1e6
+    t0 = time.perf_counter()
+    hits = [card.is_bad_node(p) for p in peers]
+    hit_us = (time.perf_counter() - t0) / len(peers) * 1e6
+    want = [cpu.is_bad_node(p) for p in peers]
+    differ = [p.id for p, a, b in zip(peers, got, want) if a != b]
+    if differ or hits != got:
+        raise AssertionError(f"cost is_bad_node: card vs CPU differ on "
+                             f"{differ}; cache hits equal: {hits == got}")
+    tree, metadata = load_artifact(artifact)
+    stats = ControlPlaneStats()
+    nan_ev = new_evaluator("cost", scorer=_cost_scorer_from_artifact(
+        mlp_artifact(poisoned(tree, "nan"), "cost",
+                     metadata.config["hidden"])), stats=stats)
+    rule = BaseEvaluator()
+    orders = sum(nan_ev.evaluate_parents(p, c, t) == rule.evaluate_parents(
+        p, c, t) for p, c, t in decisions)
+    verdicts = sum(nan_ev.is_bad_node(p) == rule.is_bad_node(p)
+                   for p in peers)
+    if not (orders == ML_DECISIONS and verdicts == len(peers)
+            and stats.cost_guard_trips == ML_DECISIONS + len(peers)
+            and stats.cost_fallbacks == ML_DECISIONS):
+        raise AssertionError(f"cost evaluator on a NaN artifact: {orders} "
+                             f"rule orders, {verdicts} rule verdicts, "
+                             f"{stats.snapshot()}")
+    log("cost_evaluator", decisions=ML_DECISIONS, peers=len(peers),
+        bad=int(sum(got)), verdicts_equal_cpu=len(peers), miss_us=miss_us,
+        hit_us=hit_us,
+        nan_artifact={"rule_orders": orders, "rule_verdicts": verdicts,
+                      "stats": stats.snapshot()})
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -1803,9 +2349,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {exc}",
               file=sys.stderr)
         return 2
-    import numpy as np
-
-    from dragonfly2_tpu_torch.data import SyntheticCluster
+    from dragonfly2_tpu_torch.data import ArrayDataset, SyntheticCluster
     from dragonfly2_tpu_torch.inference.scorer import ParentScorer
     from dragonfly2_tpu_torch.inference.sidecar import (
         CallContext,
@@ -2124,6 +2668,25 @@ def main() -> int:
     # on the card, gathered through K2a.
     host_launches = run_train_gnn(torch, gnn_graph, counts, False,
                                   "train_gnn_host")[2]
+    del gnn_graph
+
+    # -- phase 12: config #1, the cost model and the evaluators, slice 9 ------
+    check_mlp_small_model(torch)
+    t0 = time.perf_counter()
+    mlp_x, mlp_y = SyntheticCluster(
+        n_hosts=MLP_HOSTS, seed=SEED).pair_example_columns(MLP_ROWS)
+    log("mlp_data", seconds=time.perf_counter() - t0, rows=len(mlp_x))
+    mlp_result, mlp_launches = run_train_mlp(torch, mlp_x, mlp_y, counts)[1:]
+    eval_x = ArrayDataset(mlp_x, mlp_y).split(
+        MLP_CFG["eval_fraction"], SEED)[1].arrays[0]
+    mlp_service = InferenceService()
+    mlp_artifact_bytes, trained_mlp = serve_trained_mlp(
+        torch, mlp_result, eval_x, mlp_service, ctx)
+    check_score_corpus(torch, trained_mlp, mlp_x)
+    check_ml_evaluator(torch, mlp_artifact_bytes, trained_mlp)
+    cost_artifact, cost_scorer, cost_launches = run_train_cost(
+        torch, mlp_x, mlp_y, counts)
+    check_cost_evaluator(torch, cost_artifact, cost_scorer)
 
     for row in rows:
         by_path = {"serve": launches[row["name"]],
@@ -2132,7 +2695,9 @@ def main() -> int:
                    "ulysses": ulysses_launches[row["name"]],
                    "ring_one": ring_launches[row["name"]],
                    "train_gnn": gnn_launches[row["name"]],
-                   "train_gnn_host": host_launches[row["name"]]}
+                   "train_gnn_host": host_launches[row["name"]],
+                   "train_mlp": mlp_launches[row["name"]],
+                   "train_cost": cost_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -1,12 +1,15 @@
-"""Synthetic P2P cluster — the columnar probe-graph path of
+"""Synthetic P2P cluster — the columnar paths of
 ``dragonfly2_tpu/data/synthetic.py``, in numpy.
 
 Hosts live in a ``region|zone|rack`` hierarchy with an IDC and a latent
 upload bandwidth; probe RTT = base RTT by location distance × lognormal
-noise, so topology is recoverable from probes. The draws from
+noise, so topology is recoverable from probes (the GNNs' input), and a
+piece's bandwidth from a parent = min(parent upload bandwidth, the link
+bandwidth of the RTT class) × congestion noise, so parent quality is
+predictable from pair features (the MLP's input). The draws from
 ``self.rng`` happen in the same order as in the JAX package, so one seed
-gives bit-identical graphs in both packages. The record path (schema
-objects, idgen) is not part of this port.
+gives bit-identical graphs and pair examples in both packages. The
+record path (schema objects, idgen) is not part of this port.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from dragonfly2_tpu_torch.data.features import Graph
 # Base RTT (ns) by location proximity class: same rack / same zone /
 # same region / cross-region.
 _BASE_RTT_NS = np.array([200_000, 1_000_000, 10_000_000, 60_000_000])
+# Link bandwidth (bytes/s) implied by each proximity class.
+_LINK_BW = np.array([10e9, 5e9, 1e9, 200e6]) / 8
 
 
 @dataclass
@@ -77,6 +82,63 @@ class SyntheticCluster:
         prox = self.hosts.proximity(src, dst)
         noise = self.rng.lognormal(0.0, 0.25, size=len(prox))
         return (_BASE_RTT_NS[prox] * noise).astype(np.int64)
+
+    def pair_bandwidth(self, parent: np.ndarray,
+                       child: np.ndarray) -> np.ndarray:
+        """Achieved piece bandwidth (bytes/s) child←parent."""
+        prox = self.hosts.proximity(child, parent)
+        congestion = self.rng.lognormal(0.0, 0.35, size=len(prox))
+        return (np.minimum(self.hosts.upload_bw[parent], _LINK_BW[prox])
+                * congestion)
+
+    def pair_example_columns(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """(features [n, FEATURE_DIM] float32, bandwidth MB/s [n] float32):
+        (parent, child) scoring examples in the canonical feature layout
+        (``scoring.FEATURE_NAMES``) — the MLP's training input."""
+        h = self.hosts
+        child = self.rng.integers(0, len(h), n)
+        parent = self.rng.integers(0, len(h), n)
+        total = self.rng.choice([0, 64, 256, 1024], size=n,
+                                p=[0.1, 0.4, 0.35, 0.15])
+        parent_done = np.where(
+            total > 0, (total * self.rng.random(n)).astype(int),
+            self.rng.integers(0, 64, n))
+        child_done = (parent_done * self.rng.random(n) * 0.8).astype(int)
+        uploads = self.rng.poisson(50, n).astype(float)
+        # Failure rate anti-correlates with latent bandwidth (overloaded
+        # hosts fail more) — gives upload stats predictive power.
+        fail_rate = np.clip(
+            0.3 - 0.25 * (np.log(h.upload_bw[parent]) - 17) / 5, 0.01, 0.6)
+        failed = self.rng.binomial(uploads.astype(int), fail_rate
+                                   ).astype(float)
+        limit = h.upload_limit[parent].astype(float)
+        busy = (limit * self.rng.random(n) ** 2).astype(int)
+        prox = h.proximity(child, parent)
+        features = np.stack(
+            [
+                parent_done.astype(float),
+                child_done.astype(float),
+                total.astype(float),
+                uploads,
+                failed,
+                (limit - busy),
+                limit,
+                h.is_seed[parent].astype(float),
+                (h.is_seed[parent] & (self.rng.random(n) < 0.9)
+                 ).astype(float),
+                (h.idc[parent] == h.idc[child]).astype(float),
+                # scoring.location_matches on the "r|z|k" strings: the
+                # same rack matches exactly (5), the same zone 2 leading
+                # elements, the same region 1.
+                np.select([prox == 0, prox == 1, prox == 2],
+                          [5.0, 2.0, 1.0], 0.0),
+            ],
+            axis=1,
+        ).astype(np.float32)
+        bw = self.pair_bandwidth(parent, child)
+        # Congestion discount when few free slots.
+        bw = bw * np.clip((limit - busy) / limit, 0.2, 1.0)
+        return features, (bw / 1e6).astype(np.float32)
 
     def probe_edge_columns(self, n: int) -> dict:
         """n probe edges as columns: src, dst (host indices), rtt_ns."""

@@ -4,7 +4,9 @@
 :class:`InferenceService` serves installed scorers over the KServe-style
 four-method surface (ModelInfer / ModelReady / ServerLive / ServerReady),
 and the ``*_from_artifact`` loaders turn a port model.tar
-(``train/checkpoint.py``) into a scorer. The port has no gRPC: a method's
+(``train/checkpoint.py``) into a scorer: ``mlp`` and ``cost`` artifacts
+share one checkpoint layout and one loader
+(:func:`_mlp_checkpoint_from_artifact`). The port has no gRPC: a method's
 ``context`` only needs ``abort(code, details)`` taking a
 :class:`StatusCode` and raising, as gRPC's does; :class:`CallContext` is
 the in-process one. The gRPC transport, the micro-batcher, the manager
@@ -21,7 +23,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dragonfly2_tpu_torch.inference.scorer import GATParentScorer, ParentScorer
+from dragonfly2_tpu_torch.inference.scorer import (
+    CostScorer,
+    GATParentScorer,
+    ParentScorer,
+)
 from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
 from dragonfly2_tpu_torch.models.mlp import FEATURE_DIM, MLPBandwidthPredictor
 from dragonfly2_tpu_torch.train.checkpoint import (
@@ -34,6 +40,7 @@ from dragonfly2_tpu_torch.train.checkpoint import (
 
 MODEL_NAME_MLP = "mlp"
 MODEL_NAME_GAT = "gat"
+MODEL_NAME_COST = "cost"
 
 
 class StatusCode(enum.Enum):
@@ -202,15 +209,36 @@ class InferenceService:
         return ServerReadyResponse(ready=ready)
 
 
-def _scorer_from_artifact(artifact: bytes, device=None) -> ParentScorer:
-    """model.tar (MLP layout) → ParentScorer (load + bucket warm-up)."""
+def _mlp_checkpoint_from_artifact(artifact: bytes, device=None):
+    """The one load path of every MLP-layout checkpoint (the bandwidth
+    scorer and the cost predictor share it) → ``(ParentScorer,
+    target_norm)``, loaded and warmed up on ``device``."""
     tree, metadata = load_artifact(artifact)
     params, normalizer, target_norm = mlp_from_tree(tree)
     hidden = tuple(metadata.config.get("hidden", (128, 128, 64)))
     model = MLPBandwidthPredictor(hidden=hidden,
                                   in_features=len(normalizer.mean))
     model.load_state_dict(mlp_state_dict_from_flax(params))
-    return ParentScorer(model, normalizer, target_norm, device=device)
+    return ParentScorer(model, normalizer, target_norm,
+                        device=device), target_norm
+
+
+def _scorer_from_artifact(artifact: bytes, device=None) -> ParentScorer:
+    """model.tar (MLP layout) → ParentScorer (load + bucket warm-up)."""
+    return _mlp_checkpoint_from_artifact(artifact, device)[0]
+
+
+def _cost_scorer_from_artifact(artifact: bytes, version: str = "",
+                               device=None) -> CostScorer:
+    """model.tar (type ``cost``) → CostScorer: the bandwidth MLP's
+    checkpoint layout, wrapped so ``score`` ranks by NEGATED predicted
+    cost and ``predict_cost_s`` feeds the learned bad-node threshold.
+    The target normalizer's mean is the training corpus's typical
+    log1p(cost): ``expm1`` of it is the absolute bad-node baseline."""
+    scorer, target_norm = _mlp_checkpoint_from_artifact(artifact, device)
+    typical = float(np.expm1(float(target_norm.mean[0])))
+    return CostScorer(scorer, version=version,
+                      typical_cost_s=max(typical, 0.0))
 
 
 def _gat_scorer_from_artifact(artifact: bytes,

@@ -14,10 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dragonfly2_tpu_torch.models.graph_transformer import Dense
-
-# Width of the evaluator's feature vector (scheduler/evaluator/scoring.py
-# FEATURE_NAMES in the JAX package).
-FEATURE_DIM = 11
+from dragonfly2_tpu_torch.scheduler.evaluator.scoring import FEATURE_DIM
 
 
 @dataclass(frozen=True)

@@ -61,6 +61,19 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.parallel",
         "dragonfly2_tpu_torch.parallel.mesh",
         "dragonfly2_tpu_torch.parallel.ulysses",
+        "dragonfly2_tpu_torch.data.pipeline",
+        "dragonfly2_tpu_torch.inference.modelguard",
+        "dragonfly2_tpu_torch.scheduler",
+        "dragonfly2_tpu_torch.scheduler.controlstats",
+        "dragonfly2_tpu_torch.scheduler.evaluator",
+        "dragonfly2_tpu_torch.scheduler.evaluator.base",
+        "dragonfly2_tpu_torch.scheduler.evaluator.scoring",
+        "dragonfly2_tpu_torch.scheduler.replay",
+        "dragonfly2_tpu_torch.scheduler.replaylog",
+        "dragonfly2_tpu_torch.train.cost_trainer",
+        "dragonfly2_tpu_torch.train.mlp_trainer",
+        "dragonfly2_tpu_torch.utils",
+        "dragonfly2_tpu_torch.utils.servingstats",
     }
     assert expected <= set(probe["imported"])
 
