@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
-scorer (BASELINE config #3) and the MLP scorer, train the GraphTransformer
-in gather mode and in blocks mode and serve the results, run ring mode in
+scorer (BASELINE config #3) and the MLP scorer, also behind the
+micro-batcher and through the model registry's gate and the
+shadow/canary rollout, train the GraphTransformer in gather mode and in
+blocks mode and serve the results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
@@ -132,7 +134,40 @@ Phases (any failure exits nonzero, before the final line):
    correlation with realized cost above COST_CORR_MIN; cost_evaluator:
    orders by ascending predicted cost, ``is_bad_node`` verdicts equal to
    a CPU copy's, a verdict's cache miss and hit in µs, and a NaN-weighted
-   cost artifact giving the rule evaluator's orders and verdicts.
+   cost artifact giving the rule evaluator's orders and verdicts;
+13. the serving plane, the slice 10 paths: after the main path's
+   requests, microbatch_gat (config #3's pair scorer behind the
+   micro-batcher: the 8- and 32-thread rungs, and the replies of 32
+   threads' coalesced requests, which must equal the solo scores bit for
+   bit) and lifecycle_gat (behind a serving gather-mode incumbent under
+   ModelInfer load, a blocks-mode and a gather-mode version through the
+   validation gate and a shadow load on the card, canaried and promoted:
+   K1 and K2a must launch exactly 2 passes × 2 layers a version, with the
+   launch counts set to 0 just before and read just after; each pass's
+   build time and the incumbent's p99 while the shadow's pass runs);
+   after the evaluators, microbatch (the trained MLP behind
+   ``InferenceService(micro_batch=True)`` at its defaults: the ladder at
+   1, 8, 32 and 128 threads of 16-row requests; controls: the service
+   unbatched, with one lane and with two at 8 and 32 threads, 128 threads
+   with a 5 ms shed, and a ModelInfer burst at queue depth 2 whose
+   RESOURCE_EXHAUSTED aborts must equal the batcher's sheds; and 32
+   threads' coalesced replies bit-identical to solo scores), debug_vars (``DebugMonitor``'s
+   ``/debug/vars`` with the ``serving``, ``scheduler`` and
+   ``inference_batcher_stats`` blocks), shed (``new_evaluator("ml",
+   micro_batch=True)`` at queue depth 2 under 128 threads: sheds counted
+   alike by the evaluator and ``ml_sheds``, each the rule order, every
+   other decision the solo ML order, no timeout, every lane drained) and
+   lifecycle (an MLP at config #1's widths distilled from the rule
+   scores, a ``ManagerService`` with the gate on and an
+   ``InferenceService`` watcher under continuous ModelInfer load: good
+   v1 gated and installed, a NaN version quarantined by the gate, v2
+   shadowed, canaried on mirrored live batches and promoted, v3 under a
+   ``model.weights`` fault tripping the shadow guard and quarantined, v4
+   under a ``model.artifact`` fault failing to load once and never
+   retried, an explicit rollback; ``model_reload_failures`` equal to the
+   artifact faults, the load thread's only failures the injected
+   UNAVAILABLE ones, health NOT_SERVING in grace windows, and device
+   memory after ``stop()`` within one model's footprint of the start).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -142,6 +177,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -291,6 +327,27 @@ ML_ORDER_GAP = 6e-2
 # Request sizes held bit-identical to score_corpus: one row, the bucket
 # edges of the JAX package's scorer (8 … 64) and a row past each.
 SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
+# The serving plane (slice 10): the micro-batcher ladder at the inference
+# service's defaults (2 lanes, queue depth 32, adaptive window 0.5 ms,
+# max_batch 64), REQUEST_ROWS-row requests, LADDER_S seconds a rung; bit
+# identity of coalesced replies against solo scores from IDENTITY_THREADS
+# threads; sheds under SHED_THREADS threads at queue depth 2; the model
+# lifecycle with the watcher polling every LIFECYCLE_TICK_S, grace windows
+# of LIFECYCLE_GRACE_S, and every LIFECYCLE_UNAVAILABLE_NTH-th ModelInfer
+# aborted by the fault plan.
+REQUEST_ROWS = 16
+LADDER_S = 2.0
+MLP_LADDER_THREADS = (1, 8, 32, 128)
+GAT_LADDER_THREADS = (8, 32)
+IDENTITY_REQUESTS, IDENTITY_THREADS = 800, 32
+SHED_THREADS, SHED_DECISIONS = 128, 1024
+# The ladder's controls: unbatched and one-lane service rungs at these
+# thread counts, the 128-thread rung with a SLOW_SHED_S fallback, and a
+# SHED_BURST_S burst of ModelInfer at queue depth 2.
+SERVICE_CONTROL_THREADS = (8, 32)
+SLOW_SHED_S, SHED_BURST_S = 0.005, 1.0
+LIFECYCLE_TICK_S, LIFECYCLE_GRACE_S = 0.25, 0.5
+LIFECYCLE_UNAVAILABLE_NTH = 97
 
 
 def log(phase: str, **fields) -> None:
@@ -1616,8 +1673,8 @@ def run_ring_one(torch, counts) -> dict:
                              f"{emb_err} > {MODE_TOL}")
     pairs = [np.random.default_rng(SEED + 2).integers(
         0, graph.n_nodes, (16, 2)) for _ in range(3)]
-    serve_trained(torch, result, graph, InferenceService(), CallContext(),
-                  pairs, "ring_to_serve")
+    serve_trained(torch, result, graph, InferenceService(micro_batch=False),
+                  CallContext(), pairs, "ring_to_serve")
     log("ring_one", steps=steps, rows=rows, launches=launches,
         expected_launches=expected, history=result.history,
         ring_vs_blocks_embeddings=emb_err,
@@ -2315,6 +2372,773 @@ def check_cost_evaluator(torch, artifact, scorer) -> None:
                       "stats": stats.snapshot()})
 
 
+class HealthLog:
+    """Forwards ``set_status`` to a ``HealthService`` and keeps each
+    transition (seconds since creation, status)."""
+
+    def __init__(self, health):
+        self.health = health
+        self.t0 = time.perf_counter()
+        self.transitions = []
+
+    def set_status(self, service: str, status: str) -> None:
+        self.transitions.append(
+            (round(time.perf_counter() - self.t0, 3), status))
+        self.health.set_status(service, status)
+
+
+class LoadThread:
+    """A thread sending ModelInfer requests back to back (one of
+    ``requests`` after another) until ``stop``; keeps each reply's
+    latency (ms, with its end time), version, and failures by status."""
+
+    def __init__(self, service, name: str, requests):
+        import threading
+
+        from dragonfly2_tpu_torch.inference.sidecar import (
+            CallContext,
+            ModelInferRequest,
+            RpcAbort,
+        )
+
+        self._stop = threading.Event()
+        self.samples = []          # (end time, ms, version)
+        self.failures = {}
+
+        def run():
+            ctx = CallContext()
+            i = 0
+            while not self._stop.is_set():
+                request = ModelInferRequest(name, requests[i % len(requests)])
+                i += 1
+                t0 = time.perf_counter()
+                try:
+                    resp = service.ModelInfer(request, ctx)
+                except RpcAbort as exc:
+                    self.failures[exc.code.name] = self.failures.get(
+                        exc.code.name, 0) + 1
+                    continue
+                t1 = time.perf_counter()
+                self.samples.append((t1, (t1 - t0) * 1e3,
+                                     resp.model_version))
+
+        self._thread = threading.Thread(target=run, name=f"load-{name}",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            raise AssertionError("load thread did not stop")
+
+    def window(self, t_from: float, t_to: float | None = None) -> dict:
+        """p50/p99 ms and count of the replies that ended in the window."""
+        ms = sorted(m for t, m, _ in list(self.samples)
+                    if t >= t_from and (t_to is None or t <= t_to))
+        if not ms:
+            return {"replies": 0}
+        return {"replies": len(ms), "p50_ms": ms[len(ms) // 2],
+                "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)]}
+
+
+def wait_until(what: str, predicate, timeout_s: float = 60.0) -> float:
+    """Poll ``predicate`` until true; seconds waited. Fails on timeout."""
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def concurrent_identity(service, name: str, scorer, requests,
+                        threads: int) -> dict:
+    """``threads`` threads send their share of ``requests`` through
+    ``service.ModelInfer`` at once; every reply, whatever it was coalesced
+    with and whichever lane served it, is held against ``scorer.score``
+    of the same rows alone. Returns the rows that differ."""
+    import threading
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        ModelInferRequest,
+    )
+
+    replies = [None] * len(requests)
+    errors = []
+    barrier = threading.Barrier(threads)
+
+    def run(tid: int) -> None:
+        ctx = CallContext()
+        barrier.wait()
+        try:
+            for i in range(tid, len(requests), threads):
+                replies[i] = service.ModelInfer(
+                    ModelInferRequest(name, requests[i]), ctx).outputs
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    workers = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    if errors or any(w.is_alive() for w in workers):
+        raise AssertionError(f"{name} concurrent requests failed: {errors}")
+    differ = sum(int((got != scorer.score(req)).sum())
+                 for got, req in zip(replies, requests))
+    return {"requests": len(requests), "rows": int(sum(
+        len(r) for r in requests)), "rows_differing": differ}
+
+
+def ladder(scorer, requests_for, threads_list, seconds: float,
+           shed_fallback_s: float = 0.0005) -> list:
+    """``measure_colocated`` rungs at the inference service's default
+    knobs (2 lanes, queue depth 32, adaptive window 0.5 ms)."""
+    from dragonfly2_tpu_torch.inference.loadgen import measure_colocated
+
+    rungs = []
+    for threads in threads_list:
+        rung = measure_colocated(
+            scorer, threads=threads, rows_per_request=REQUEST_ROWS,
+            duration_s=seconds, adaptive_wait_s=0.0005, lanes=2,
+            queue_depth=32, shed_fallback_s=shed_fallback_s,
+            requests=requests_for(threads))
+        rungs.append({k: rung[k] for k in (
+            "threads", "p50_ms", "p99_ms", "requests_per_sec", "requests",
+            "coalesce_factor", "dispatches", "inflight_depth_avg",
+            "overlap_ratio", "sheds", "active_lanes", "max_queue_depth",
+            "bucket_hits")})
+    return rungs
+
+
+def service_rung(service, name: str, requests, seconds: float,
+                 shed_fallback_s: float = 0.0005) -> dict:
+    """``len(requests)`` threads, each sending its request through
+    ``service.ModelInfer`` back to back for ``seconds``: p50/p99 ms of
+    the replies, replies a second, aborts by status code and the
+    service's batcher counters (none when it serves unbatched). A thread
+    whose request is shed (RESOURCE_EXHAUSTED) waits ``shed_fallback_s``
+    before its next one, the rule scoring ``measure_colocated`` models."""
+    import threading
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        ModelInferRequest,
+        RpcAbort,
+    )
+
+    threads = len(requests)
+    latencies = [[] for _ in range(threads)]
+    aborts = [dict() for _ in range(threads)]
+    stop = threading.Event()
+    barrier = threading.Barrier(threads + 1)
+
+    def run(tid: int) -> None:
+        ctx = CallContext()
+        request = ModelInferRequest(name, requests[tid])
+        barrier.wait()
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                service.ModelInfer(request, ctx)
+            except RpcAbort as exc:
+                code = exc.code.name
+                aborts[tid][code] = aborts[tid].get(code, 0) + 1
+                if code == "RESOURCE_EXHAUSTED":
+                    time.sleep(shed_fallback_s)
+                continue
+            latencies[tid].append((time.perf_counter() - t0) * 1e3)
+
+    service.ModelInfer(ModelInferRequest(name, requests[0]), CallContext())
+    workers = [threading.Thread(target=run, args=(t,), daemon=True)
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    stop.set()
+    for w in workers:
+        w.join(timeout=30)
+    wall = time.perf_counter() - t0
+    if any(w.is_alive() for w in workers):
+        raise AssertionError(f"{name}: a ModelInfer thread hung")
+    ms = sorted(x for sub in latencies for x in sub)
+    codes = {}
+    for a in aborts:
+        for code, n in a.items():
+            codes[code] = codes.get(code, 0) + n
+    batcher = service.batcher_stats().get(name)
+    return {"threads": threads, "replies": len(ms),
+            "p50_ms": ms[len(ms) // 2] if ms else None,
+            "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)]
+            if ms else None,
+            "replies_per_sec": len(ms) / wall, "aborts": codes,
+            "batcher": None if batcher is None else {k: batcher[k] for k in (
+                "dispatches", "coalesce_factor", "sheds", "active_lanes")}}
+
+
+def run_microbatch_controls(scorer, requests_for) -> dict:
+    """Controls beside the ladder, in one harness (``ModelInfer`` from N
+    threads, :func:`service_rung`): the same scorer served unbatched
+    (``micro_batch=False``), through one lane and through the default two
+    at 8 and 32 threads, in turns; the 128-thread rung again with a shed
+    costing 5 ms instead of 0.5; and a burst of 128 threads at queue
+    depth 2, whose RESOURCE_EXHAUSTED aborts must equal the batcher's
+    sheds and be more than 0."""
+    from dragonfly2_tpu_torch.inference.sidecar import InferenceService
+
+    variants = {"unbatched": dict(micro_batch=False),
+                "lanes_1": dict(batch_lanes=1), "lanes_2": dict()}
+    rungs = []
+    for threads in SERVICE_CONTROL_THREADS:
+        for variant, knobs in variants.items():
+            service = InferenceService(**knobs)
+            service.install_scorer("mlp", scorer, version=variant)
+            try:
+                rungs.append({"variant": variant, **service_rung(
+                    service, "mlp", requests_for(threads), LADDER_S)})
+            finally:
+                service.stop()
+    slow_shed = ladder(scorer, requests_for, (128,), LADDER_S,
+                       shed_fallback_s=SLOW_SHED_S)[0]
+    service = InferenceService(batch_queue_depth=2)
+    service.install_scorer("mlp", scorer, version="depth-2")
+    try:
+        burst = service_rung(service, "mlp", requests_for(SHED_THREADS),
+                             SHED_BURST_S)
+    finally:
+        service.stop()
+    exhausted = burst["aborts"].get("RESOURCE_EXHAUSTED", 0)
+    if not (exhausted == burst["batcher"]["sheds"] > 0
+            and set(burst["aborts"]) == {"RESOURCE_EXHAUSTED"}):
+        raise AssertionError(f"microbatch: ModelInfer burst at depth 2 "
+                             f"{burst}")
+    return {"service_rungs": rungs, "ladder_128_slow_shed": {
+        "shed_fallback_s": SLOW_SHED_S, **slow_shed},
+        "model_infer_burst": {"queue_depth": 2, **burst}}
+
+
+def run_microbatch(torch, scorer, eval_x) -> None:
+    """Config #1's trained MLP behind ``InferenceService(micro_batch=True)``
+    at its defaults: the ladder and its controls
+    (:func:`run_microbatch_controls`), bit identity of coalesced replies
+    against solo scores under 32 threads (must be 0 rows), and
+    ``/debug/vars``
+    from a ``DebugMonitor`` carrying ``serving``, ``scheduler`` and the
+    service's batcher stats with their ``per_lane`` block."""
+    import urllib.request
+
+    from dragonfly2_tpu_torch.inference.sidecar import InferenceService
+    from dragonfly2_tpu_torch.utils.debugmon import (
+        DebugMonitor,
+        register_debug_var,
+    )
+
+    service = InferenceService(micro_batch=True)
+    service.install_scorer("mlp", scorer, version="trained")
+    rng = np.random.default_rng(SEED + 11)
+
+    def requests_for(threads: int):
+        return eval_x[rng.integers(0, len(eval_x), (threads, REQUEST_ROWS))]
+
+    rungs = ladder(scorer, requests_for, MLP_LADDER_THREADS, LADDER_S)
+    controls = run_microbatch_controls(scorer, requests_for)
+    requests = [eval_x[rng.integers(0, len(eval_x), int(n))]
+                for n in rng.integers(1, 17, IDENTITY_REQUESTS)]
+    identity = concurrent_identity(service, "mlp", scorer, requests,
+                                   IDENTITY_THREADS)
+    stats = service.batcher_stats()["mlp"]
+    if identity["rows_differing"]:
+        raise AssertionError(f"microbatch: coalesced replies differ from "
+                             f"solo scores: {identity}")
+    register_debug_var("inference_batcher_stats", service.batcher_stats)
+    monitor = DebugMonitor("127.0.0.1", 0)
+    monitor.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://{monitor.address}/debug/vars", timeout=30) as resp:
+            page = json.loads(resp.read())
+    finally:
+        monitor.stop()
+        service.stop()
+    blocks = {k: page.get(k) for k in ("serving", "scheduler",
+                                       "inference_batcher_stats")}
+    if not (all(isinstance(v, dict) for v in blocks.values())
+            and "per_lane" in blocks["inference_batcher_stats"].get(
+                "mlp", {})):
+        raise AssertionError(f"debug_vars: blocks {sorted(page)}")
+    log("microbatch", model="mlp", knobs={"lanes": 2, "queue_depth": 32,
+                                          "adaptive_wait_s": 0.0005,
+                                          "max_batch": scorer.max_batch},
+        request_rows=REQUEST_ROWS, seconds_a_rung=LADDER_S, ladder=rungs,
+        solo_p50_ms=p50_ms(lambda: scorer.score(requests[0]), n=200),
+        identity=identity, identity_threads=IDENTITY_THREADS,
+        controls=controls, service_batcher={k: stats[k] for k in (
+            "dispatches", "coalesced_requests", "coalesce_factor",
+            "active_lanes", "sheds")})
+    log("debug_vars", address="127.0.0.1", keys=sorted(page),
+        per_lane=blocks["inference_batcher_stats"]["mlp"]["per_lane"],
+        serving=blocks["serving"], torch=page.get("torch"))
+
+
+def run_microbatch_gat(torch, scorer) -> None:
+    """Config #3's pair scorer behind the batcher: the 8- and 32-thread
+    rungs and the bit identity of coalesced replies against solo scores
+    (buckets 8 … 64 hold a pair's logit bit for bit on the card:
+    tests/gat_bucket_stability.py, so it must be 0 rows)."""
+    from dragonfly2_tpu_torch.inference.sidecar import InferenceService
+
+    service = InferenceService(micro_batch=True)
+    service.install_scorer("gat", scorer, version="gather")
+    rng = np.random.default_rng(SEED + 12)
+    rungs = ladder(scorer, lambda t: rng.integers(
+        0, N_HOSTS, (t, REQUEST_ROWS, 2)).astype(np.int32),
+        GAT_LADDER_THREADS, LADDER_S)
+    requests = [rng.integers(0, N_HOSTS, (int(n), 2)).astype(np.int32)
+                for n in rng.integers(1, 17, IDENTITY_REQUESTS)]
+    identity = concurrent_identity(service, "gat", scorer, requests,
+                                   IDENTITY_THREADS)
+    service.stop()
+    if identity["rows_differing"]:
+        raise AssertionError(f"microbatch_gat: coalesced replies differ "
+                             f"from solo scores: {identity}")
+    log("microbatch_gat", model="gat", request_rows=REQUEST_ROWS,
+        seconds_a_rung=LADDER_S, ladder=rungs, identity=identity,
+        buckets=scorer.buckets, fix="none needed: buckets 8-64 are "
+        "bit-identical (tests/gat_bucket_stability.py)")
+
+
+def run_shed(torch, scorer) -> None:
+    """``new_evaluator("ml", micro_batch=True, batch_lanes=2,
+    batch_queue_depth=2)`` under SHED_THREADS threads of seeded
+    15-candidate decisions: sheds happen and are counted alike by the
+    evaluator and ``ml_sheds``, every shed decision is the rule
+    evaluator's order and every other one the solo ML order, no request
+    fails otherwise (no timeout), and ``close()`` drains every lane."""
+    import threading
+
+    from dragonfly2_tpu_torch.inference.batcher import BatcherSaturatedError
+    from dragonfly2_tpu_torch.scheduler.evaluator import (
+        BaseEvaluator,
+        new_evaluator,
+    )
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    decisions = seeded_decisions(SEED + 13, SHED_DECISIONS, ML_CANDIDATES)
+    rule = BaseEvaluator()
+    solo = new_evaluator("ml", scorer=scorer, stats=ServingStats())
+    want = [([p.id for p in solo.evaluate_parents(*d)],
+             [p.id for p in rule.evaluate_parents(*d)]) for d in decisions]
+    stats = ServingStats()
+    evaluator = new_evaluator("ml", scorer=scorer, micro_batch=True,
+                              batch_lanes=2, batch_queue_depth=2,
+                              stats=stats)
+    batcher = evaluator._scorer
+    shed_local = threading.local()
+
+    class Recording:
+        """The batcher, recording whether this thread's last call shed."""
+
+        def score(self, features):
+            shed_local.shed = False
+            try:
+                return batcher.score(features)
+            except BatcherSaturatedError:
+                shed_local.shed = True
+                raise
+
+    evaluator._scorer = Recording()
+    outcome = {"shed_rule": 0, "shed_not_rule": 0, "served_ml": 0,
+               "served_not_ml": 0}
+    lock = threading.Lock()
+    barrier = threading.Barrier(SHED_THREADS)
+
+    def run(tid: int) -> None:
+        barrier.wait()
+        for i in range(tid, len(decisions), SHED_THREADS):
+            got = [p.id for p in evaluator.evaluate_parents(*decisions[i])]
+            ml, by_rule = want[i]
+            key = (("shed_rule" if got == by_rule else "shed_not_rule")
+                   if shed_local.shed else
+                   ("served_ml" if got == ml else "served_not_ml"))
+            with lock:
+                outcome[key] += 1
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=run, args=(t,))
+               for t in range(SHED_THREADS)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    seconds = time.perf_counter() - t0
+    hung = sum(w.is_alive() for w in workers)
+    batcher_stats = batcher.stats()
+    evaluator._scorer = batcher
+    evaluator.close()
+    drained = not any(lane.worker.is_alive() or lane.queue.qsize()
+                      for lane in batcher._lanes)
+    counters = {"shed_count": evaluator.shed_count,
+                "ml_sheds": stats.get("ml_sheds"),
+                "fallback_count": evaluator.fallback_count,
+                "ml_fallbacks": stats.get("ml_fallbacks"),
+                "scored_count": evaluator.scored_count}
+    log("shed", threads=SHED_THREADS, decisions=SHED_DECISIONS,
+        candidates=ML_CANDIDATES, seconds=seconds, counters=counters,
+        outcome=outcome, hung_threads=hung, lanes_drained=drained,
+        batcher={k: batcher_stats[k] for k in (
+            "dispatches", "coalesce_factor", "sheds", "shed_rate",
+            "active_lanes", "max_queue_depth")})
+    if not (counters["shed_count"] == counters["ml_sheds"] > 0
+            and counters["fallback_count"] == counters["shed_count"]
+            and outcome["shed_rule"] == counters["shed_count"]
+            and outcome["shed_not_rule"] == outcome["served_not_ml"] == 0
+            and outcome["served_ml"] == counters["scored_count"]
+            and hung == 0 and drained):
+        raise AssertionError(f"shed: {counters} {outcome} hung {hung} "
+                             f"drained {drained}")
+
+
+def device_bytes(torch) -> int:
+    """Bytes the caching allocator holds for live tensors, after a
+    collection and with cuBLAS's per-handle workspaces freed (each new
+    thread's handle allocates one; they are not the models')."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def artifact_dir(root: str, tag: str, tree: dict, hidden) -> str:
+    from dragonfly2_tpu_torch.train.checkpoint import ModelMetadata, save_model
+
+    path = os.path.join(root, tag)
+    save_model(path, tree, ModelMetadata(
+        model_id=f"smoke-{tag}", model_type="mlp",
+        config={"hidden": list(hidden)}))
+    return path
+
+
+def distilled_mlp_artifact(torch) -> bytes:
+    """An MLP at config #1's widths distilled on the card from the rule
+    evaluator's scores over seeded synthetic traces (the JAX package's
+    lifecycle rung's recipe, ``guardbench.train_rule_distilled_mlp``, at
+    hidden (128, 128, 64) instead of its (32,)): trained, and over the
+    gate's rank-correlation floor by construction."""
+    from dragonfly2_tpu_torch.manager.validation import synthetic_traces
+    from dragonfly2_tpu_torch.scheduler.evaluator import scoring
+    from dragonfly2_tpu_torch.train.checkpoint import mlp_tree
+    from dragonfly2_tpu_torch.train.mlp_trainer import (
+        MLPTrainConfig,
+        train_mlp,
+    )
+
+    x = np.concatenate(synthetic_traces(seed=3, batches=64, rows=12))
+    y = np.asarray(scoring.rule_scores(x), np.float32)
+    result = train_mlp(x, y, MLPTrainConfig(
+        hidden=MLP_CFG["hidden"], epochs=30, batch_size=128,
+        eval_fraction=0.2))
+    return mlp_artifact(mlp_tree(result.params, result.normalizer,
+                                 result.target_norm), "mlp",
+                        MLP_CFG["hidden"], {"mae": result.mae})
+
+
+def run_lifecycle(torch, config1_artifact: bytes) -> None:
+    """The registry and the inference service's watcher on the card,
+    with ModelInfer sent continuously, on the rule-distilled MLP
+    (:func:`distilled_mlp_artifact`; the gate's verdict on config #1's
+    trained MLP is logged beside it): good v1 through the gate (built on
+    the card) and installed directly; a NaN-weighted version quarantined
+    by the gate; good v2 (the weights, 1 % seeded noise) with the gate
+    skipped, canaried on mirrored live batches and promoted; v3 under a
+    ``model.weights`` CORRUPT rule, shadow guard trip, quarantined, v2
+    serving on; v4 under ``model.artifact`` TRUNCATE, a memoized load
+    failure not retried; an explicit rollback. Every
+    ``infer.model_infer`` visit LIFECYCLE_UNAVAILABLE_NTH-th aborts
+    UNAVAILABLE: the only failures the load thread may see.
+    ``model_reload_failures`` must equal the artifact faults injected,
+    and device memory after ``stop()`` be within one model's footprint of
+    the start."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        InferenceService,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import (
+        ValidationConfig,
+        validate_artifact,
+    )
+    from dragonfly2_tpu_torch.rpc.health import HealthService
+    from dragonfly2_tpu_torch.train.checkpoint import load_artifact
+    from dragonfly2_tpu_torch.utils import faultplan
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    config1_gate = validate_artifact("mlp", config1_artifact, None,
+                                     ValidationConfig()).to_dict()
+    t0 = time.perf_counter()
+    artifact = distilled_mlp_artifact(torch)
+    distill_s = time.perf_counter() - t0
+    tree, metadata = load_artifact(artifact)
+    hidden = metadata.config["hidden"]
+    rng = np.random.default_rng(SEED + 14)
+    noisy = dict(tree, params=jitter(tree["params"], rng))
+    start = device_bytes(torch)
+    probe = _scorer_from_artifact(artifact)
+    footprint = device_bytes(torch) - start
+    del probe
+    start = device_bytes(torch)
+    raw_start = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="smoke-lifecycle-")
+    dirs = {tag: artifact_dir(tmp, tag, t, hidden) for tag, t in (
+        ("good", tree), ("nan", poisoned(tree, "nan")), ("v2", noisy))}
+    stats = ServingStats()
+    manager = ManagerService(
+        Database(os.path.join(tmp, "manager.db")),
+        FilesystemObjectStore(os.path.join(tmp, "objects")),
+        validation=ValidationConfig(), serving_stats=stats)
+    service = InferenceService(
+        manager=manager, reload_interval=LIFECYCLE_TICK_S,
+        canary_batches=8, reload_grace_s=LIFECYCLE_GRACE_S,
+        serving_stats=stats)
+    health = HealthLog(HealthService())
+    service.set_health(health)
+    plan = faultplan.install(faultplan.FaultPlan(seed=SEED))
+    plan.add("infer.model_infer", faultplan.FaultKind.UNAVAILABLE,
+             every_nth=LIFECYCLE_UNAVAILABLE_NTH)
+    requests = [f.astype(np.float32) for f in rng.uniform(
+        0, 100, (16, ML_CANDIDATES, 11))]
+    versions = []
+    steps = []
+    load = None
+
+    def create(tag: str, **kw):
+        row = manager.create_model("smoke", "mlp", "host", "127.0.0.1",
+                                   "smoke", {}, dirs[tag], **kw)
+        versions.append(row.version)
+        return row
+
+    def index(version):
+        return versions.index(version) if version in versions else None
+
+    def step(name: str, t_from: float, **fields) -> None:
+        snap = stats.snapshot()
+        steps.append(dict(
+            step=name, serving=index(service.serving_version("mlp")),
+            registry={index(r.version): r.state
+                      for r in manager.list_models()},
+            serving_stats={k: v for k, v in snap.items() if v},
+            load=load.window(t_from) if load else None, **fields))
+
+    try:
+        t = time.perf_counter()
+        v1 = create("good")
+        gate_s = time.perf_counter() - t
+        if v1.state != "active":
+            raise AssertionError(f"lifecycle: v1 {v1.state}: "
+                                 f"{v1.evaluation['validation']}")
+        service.serve_watcher()
+        wait_until("v1 installed",
+                   lambda: service.serving_version("mlp") == v1.version)
+        load = LoadThread(service, "mlp", requests)
+        step("v1 gate passed, installed", t,
+             gate_seconds=gate_s, gate=v1.evaluation["validation"])
+
+        t = time.perf_counter()
+        nan = create("nan")
+        time.sleep(3 * LIFECYCLE_TICK_S)
+        if nan.state != "quarantined" or manager.get_active_model_version(
+                "mlp") != v1.version:
+            raise AssertionError(f"lifecycle: NaN version {nan.state}")
+        step("NaN version quarantined by the gate", t,
+             gate_reasons=nan.evaluation["validation"]["reasons"])
+
+        t = time.perf_counter()
+        v2 = create("v2", skip_validation=True)
+        waited = wait_until("v2 promoted",
+                            lambda: service.serving_version("mlp")
+                            == v2.version)
+        step("v2 shadowed, canaried, promoted", t, seconds=waited)
+
+        t = time.perf_counter()
+        plan.add("model.weights", faultplan.FaultKind.CORRUPT, every_nth=1,
+                 max_fires=1)
+        v3 = create("good", skip_validation=True)
+        waited = wait_until("v3 quarantined",
+                            lambda: manager.get_model_version_state(
+                                "mlp", v3.version) == "quarantined")
+        time.sleep(3 * LIFECYCLE_TICK_S)
+        step("v3 NaN weights: shadow guard trip, quarantined", t,
+             seconds=waited)
+
+        t = time.perf_counter()
+        plan.add("model.artifact", faultplan.FaultKind.TRUNCATE,
+                 every_nth=1, max_fires=1)
+        v4 = create("good")
+        wait_until("v4 load failure",
+                   lambda: stats.get("model_reload_failures") == 1)
+        visits = plan.snapshot()["model.artifact"]["visits"]
+        time.sleep(4 * LIFECYCLE_TICK_S)
+        retried = plan.snapshot()["model.artifact"]["visits"] - visits
+        step("v4 truncated artifact: memoized load failure", t,
+             gate_passed=v4.state == "active", retries=retried)
+
+        t = time.perf_counter()
+        restored = manager.rollback("mlp", reason="smoke rollback")
+        time.sleep(3 * LIFECYCLE_TICK_S)
+        step("explicit rollback", t,
+             restored=index(restored.version) if restored else None)
+        load.stop()
+        whole = load.window(0.0)
+    finally:
+        if load is not None:
+            load.stop()
+        faultplan.uninstall()
+        service.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stopped = device_bytes(torch)
+    raw_stopped = torch.cuda.memory_allocated()
+    served = {index(v) for _, _, v in load.samples}
+    artifact_faults = plan.snapshot()["model.artifact"]["total_fires"]
+    unavailable = plan.snapshot()["infer.model_infer"]["total_fires"]
+    final = {index(r.version): r.state for r in manager.list_models()}
+    for s in steps:
+        log("lifecycle_step", **s)
+    log("lifecycle", config1_gate=config1_gate, distill_seconds=distill_s,
+        steps=len(steps), load=whole,
+        versions_served=sorted(served), failures=load.failures,
+        injected_unavailable=unavailable, artifact_faults=artifact_faults,
+        model_reload_failures=stats.get("model_reload_failures"),
+        weights_faults=plan.snapshot()["model.weights"]["total_fires"],
+        health_transitions=health.transitions, registry=final,
+        memory={"start": start, "after_stop": stopped,
+                "one_model": footprint, "raw_start": raw_start,
+                "raw_after_stop": raw_stopped})
+    if not (stats.get("model_reload_failures") == artifact_faults == 1
+            and load.failures == ({"UNAVAILABLE": unavailable}
+                                  if unavailable else {})
+            and served == {0, 2}
+            and final == {0: "inactive", 1: "quarantined", 2: "active",
+                          3: "quarantined", 4: "quarantined"}
+            and stats.get("canary_promotions") == 1
+            and stats.get("canary_rollbacks") == 1
+            and stats.get("shadow_batches") > 0
+            and steps[-2]["retries"] == 0
+            and {"NOT_SERVING", "SERVING"} <= set(
+                s for _, s in health.transitions)
+            and stopped - start <= footprint):
+        raise AssertionError("lifecycle: see the lines above")
+
+
+def jitter(params: dict, rng) -> dict:
+    """``params`` with every float leaf times (1 + 1 % seeded noise)."""
+    return {k: jitter(v, rng) if isinstance(v, dict) else
+            (v * (1 + 0.01 * rng.standard_normal(v.shape))).astype(v.dtype)
+            for k, v in params.items()}
+
+
+def run_lifecycle_gat(torch, artifacts: dict, counts) -> dict:
+    """Config #3 versions through the gate and a shadow load behind a
+    serving incumbent (gather mode), at full width, while a load thread
+    sends ModelInfer to the incumbent: a blocks-mode version, then a
+    gather-mode one, each canaried on probe batches and promoted. Each
+    version's gate build and shadow build is one embedding pass (2
+    layers): K1 (blocks) or K2a (gather) must launch exactly 2 × 2 times
+    a version, with the launch counts set to 0 just before and read just
+    after. Prints each pass's build time and the incumbent's p99 while
+    the shadow's pass runs (serving and the watcher share the default
+    stream). Returns the launches."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.inference.sidecar import InferenceService
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.service import untar_to_directory
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    tmp = tempfile.mkdtemp(prefix="smoke-lifecycle-gat-")
+    dirs = {}
+    for mode, payload in artifacts.items():
+        dirs[mode] = os.path.join(tmp, mode)
+        untar_to_directory(payload, dirs[mode])
+    stats = ServingStats()
+    manager = ManagerService(
+        Database(), FilesystemObjectStore(os.path.join(tmp, "objects")),
+        validation=ValidationConfig(), serving_stats=stats)
+    service = InferenceService(manager=manager, canary_batches=8,
+                               canary_probe_grace_s=0.0,
+                               reload_grace_s=LIFECYCLE_GRACE_S,
+                               serving_stats=stats)
+
+    def create(mode: str):
+        t0 = time.perf_counter()
+        row = manager.create_model("smoke-gat", "gat", "host", "127.0.0.1",
+                                   "smoke", {}, dirs[mode])
+        torch.cuda.synchronize()
+        if row.state != "active":
+            raise AssertionError(f"lifecycle_gat: {mode} version "
+                                 f"{row.state}: {row.evaluation}")
+        return row, time.perf_counter() - t0
+
+    incumbent, incumbent_gate_s = create("gather")
+    service.reload_from_manager()
+    rng = np.random.default_rng(SEED + 15)
+    load = LoadThread(service, "gat", [
+        rng.integers(0, N_HOSTS, (REQUEST_ROWS, 2)) for _ in range(16)])
+    time.sleep(1.0)
+    baseline = load.window(0.0)
+    counts.reset()
+    passes = []
+    try:
+        for mode in ("blocks", "gather"):
+            row, gate_s = create(mode)
+            t0 = time.perf_counter()
+            service.reload_from_manager()  # the shadow's build
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            shadow = service.shadow_stats().get("gat", {})
+            service.process_shadows()
+            promoted = service.serving_version("gat") == row.version
+            time.sleep(0.5)
+            passes.append({
+                "attention": mode, "gate_seconds": gate_s,
+                "shadow_build_seconds": t1 - t0,
+                "incumbent_during_shadow_build": load.window(t0, t1),
+                "shadow_version_seen": shadow.get("version") == row.version,
+                "promoted": promoted,
+                "gate_checks": row.evaluation["validation"]["checks"]})
+    finally:
+        launches = counts.read()
+        load.stop()
+        service.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {name: 0 for name in launches} | {
+        "graph_flash_attention": 2 * GAT_CFG["layers"],
+        "table_gather": 2 * GAT_CFG["layers"]}
+    log("lifecycle_gat", incumbent_gate_seconds=incumbent_gate_s,
+        incumbent_baseline=baseline, passes=passes, launches=launches,
+        expected_launches=want, load_failures=load.failures,
+        serving_stats={k: v for k, v in stats.snapshot().items() if v})
+    if launches != want or load.failures or not all(
+            p["shadow_version_seen"] and p["promoted"] for p in passes):
+        raise AssertionError("lifecycle_gat: see the line above")
+    return launches
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -2476,7 +3300,9 @@ def main() -> int:
         load_s[mode] = time.perf_counter() - t0
     mlp_scorer = _scorer_from_artifact(mlp_artifact)
 
-    service = InferenceService()
+    # One dispatch a request, as these phases have always timed it; the
+    # micro-batcher's phases follow.
+    service = InferenceService(micro_batch=False)
     ctx = CallContext()
     pairs = [rng.integers(0, N_HOSTS, (16, 2)) for _ in range(5)]
     answers = {}
@@ -2546,6 +3372,10 @@ def main() -> int:
             ModelInferRequest("mlp", features[:15]), ctx)),
     }
     log("requests", p50_ms=request_p50, rows={"gat": 16, "mlp": 15})
+
+    # -- the serving plane on config #3: batcher, gate and shadow loads ------
+    run_microbatch_gat(torch, scorers["gather"])
+    lifecycle_launches = run_lifecycle_gat(torch, artifacts, counts)
 
     # -- phase 5: train in gather mode, slice 2's path --------------------
     trainer, result, train_launches = run_train(
@@ -2679,11 +3509,16 @@ def main() -> int:
     mlp_result, mlp_launches = run_train_mlp(torch, mlp_x, mlp_y, counts)[1:]
     eval_x = ArrayDataset(mlp_x, mlp_y).split(
         MLP_CFG["eval_fraction"], SEED)[1].arrays[0]
-    mlp_service = InferenceService()
+    mlp_service = InferenceService(micro_batch=False)
     mlp_artifact_bytes, trained_mlp = serve_trained_mlp(
         torch, mlp_result, eval_x, mlp_service, ctx)
     check_score_corpus(torch, trained_mlp, mlp_x)
     check_ml_evaluator(torch, mlp_artifact_bytes, trained_mlp)
+
+    # -- phase 13: the serving plane, slice 10's path ------------------------
+    run_microbatch(torch, trained_mlp, eval_x)
+    run_shed(torch, trained_mlp)
+    run_lifecycle(torch, mlp_artifact_bytes)
     cost_artifact, cost_scorer, cost_launches = run_train_cost(
         torch, mlp_x, mlp_y, counts)
     check_cost_evaluator(torch, cost_artifact, cost_scorer)
@@ -2697,7 +3532,8 @@ def main() -> int:
                    "train_gnn": gnn_launches[row["name"]],
                    "train_gnn_host": host_launches[row["name"]],
                    "train_mlp": mlp_launches[row["name"]],
-                   "train_cost": cost_launches[row["name"]]}
+                   "train_cost": cost_launches[row["name"]],
+                   "lifecycle": lifecycle_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

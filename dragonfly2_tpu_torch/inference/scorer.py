@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from dragonfly2_tpu_torch.device import default_device
+from dragonfly2_tpu_torch.inference.batcher import BatcherSaturatedError
 from dragonfly2_tpu_torch.inference.modelguard import guard_reason
 from dragonfly2_tpu_torch.models.mlp import Normalizer
 from dragonfly2_tpu_torch.scheduler import controlstats
@@ -74,21 +75,30 @@ def _bucket(buckets: Sequence[int], n: int) -> int:
 
 
 class ScoreHandle:
-    """An in-flight dispatch: the device result plus the valid row count.
-    ``materialize`` waits for the device and slices the padding off."""
+    """An in-flight dispatch: the result plus the valid row count.
 
-    __slots__ = ("_out", "_n", "bucket")
+    On a CUDA device the result is a pinned host tensor whose copy from
+    the device was queued right after the forward, and ``event`` was
+    recorded after that copy: :meth:`materialize` waits on that event
+    alone. (A ``.cpu()`` at materialize time would queue the copy behind
+    whatever was dispatched since — under the micro-batcher, batch N+1's
+    forward — so N's callers would wait out N+1 too.) On the CPU the
+    result is already computed."""
 
-    def __init__(self, out, n: int, bucket: int):
+    __slots__ = ("_out", "_n", "bucket", "_event")
+
+    def __init__(self, out, n: int, bucket: int, event=None):
         self._out = out
         self._n = n
         self.bucket = bucket
+        self._event = event
 
     def materialize(self) -> np.ndarray:
-        # .cpu() is the synchronization point: CUDA work is asynchronous.
         out = self._out
+        if self._event is not None:
+            self._event.synchronize()
         if isinstance(out, torch.Tensor):
-            out = out.float().cpu().numpy()
+            out = out.float().numpy()
         return out[: self._n]
 
 
@@ -160,13 +170,18 @@ def _host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def _dispatched(device: torch.device):
-    """An event after the work queued so far on ``device`` (None on CPU)."""
-    if device.type != "cuda":
-        return None
+def _to_host(out: torch.Tensor) -> tuple:
+    """``(host tensor, event)``: on a CUDA device the f32 result's copy
+    into fresh pinned host memory, queued now, and an event recorded
+    after it — the event covers the staging buffer's host→device copy,
+    the forward and this copy. On the CPU, ``(out, None)``."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(out.float(), non_blocking=True)
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
+    event.record(torch.cuda.current_stream(out.device))
+    return host, event
 
 
 class ParentScorer:
@@ -221,9 +236,9 @@ class ParentScorer:
         with self._staging.lock_for(b):
             slot, buf = self._staging.claim(b, n)
             buf[:n] = torch.from_numpy(np.asarray(features, np.float32))
-            out = self._forward(buf)
-            self._staging.commit(b, slot, _dispatched(self._device))
-        return ScoreHandle(out, n, b)
+            out, event = _to_host(self._forward(buf))
+            self._staging.commit(b, slot, event)
+        return ScoreHandle(out, n, b, event)
 
     def score(self, features: np.ndarray) -> np.ndarray:
         """Scores for [n, FEATURE_DIM] features; higher is better."""
@@ -285,17 +300,22 @@ class MLEvaluator:
     ``guard_trip_limit`` trips the evaluator escalates ONCE through
     ``on_quarantine`` (the hook owner quarantines the serving version).
     The latch is set only when the hook delivered (it did not raise or
-    return False); ``reset_guard()`` re-arms it after a model swap.
+    return False); ``reset_guard()`` re-arms it after a model swap, and a
+    scorer that reports ``last_version`` re-arms it by itself when the
+    version moves.
 
-    Not ported yet (ROADMAP.md, Queue 1 item 4): the micro-batcher's shed
-    branch (``BatcherSaturatedError``; ``shed_count`` stays 0), the
-    remote scorer's per-version guard reset, and the validation gate's
-    announce-trace recorder.
+    A :class:`~dragonfly2_tpu_torch.inference.batcher.MicroBatcher` in
+    front of the scorer may shed a request (``BatcherSaturatedError``):
+    that decision is the rule evaluator's, counted in ``shed_count`` and
+    ``ml_sheds`` — expected overload behaviour, never logged as a
+    failure. ``trace_log`` (``manager.validation.TraceLog``) records
+    every decision's feature matrix: the validation gate's replay corpus.
     """
 
     def __init__(self, scorer: ParentScorer | None, *,
                  stats=None, guard_trip_limit: int = 3,
-                 on_quarantine=None, track_quality: bool = False):
+                 on_quarantine=None, trace_log=None,
+                 track_quality: bool = False):
         self._scorer = scorer
         self._fallback = BaseEvaluator()
         # Count scores and fallbacks, log the first failure loudly: an
@@ -310,6 +330,8 @@ class MLEvaluator:
         self.guard_trip_limit = guard_trip_limit
         self._on_quarantine = on_quarantine
         self._quarantine_fired = False
+        # The version the guard state belongs to (see evaluate_parents).
+        self._guard_version: str | None = None
         # Guard bookkeeping is mutated from concurrent announce threads:
         # the trip counter's read-modify-write and the escalate-once
         # check-then-act hold the lock. The hook runs OUTSIDE it (it is
@@ -317,6 +339,7 @@ class MLEvaluator:
         # duplicating it meanwhile.
         self._guard_lock = threading.Lock()
         self._quarantine_inflight = False
+        self._trace_log = trace_log
         # Optional decision-quality ring: per decision, the rule score of
         # the CHOSEN top parent normalized into [0, 1] against the rule
         # evaluator's own best/worst over the same candidates (1.0 ==
@@ -333,9 +356,27 @@ class MLEvaluator:
         """Re-arm the guard after a model swap: a fresh version starts
         with a clean trip count and may escalate again."""
         with self._guard_lock:
-            self.guard_trips = 0
-            self._quarantine_fired = False
-            self._logged_guard = False
+            self._reset_guard_locked()
+
+    def _reset_guard_locked(self) -> None:
+        self.guard_trips = 0
+        self._quarantine_fired = False
+        self._logged_guard = False
+
+    def set_quarantine_hook(self, fn) -> None:
+        """Late-bind the escalation hook."""
+        self._on_quarantine = fn
+
+    def set_trace_log(self, trace_log) -> None:
+        """Late-bind the announce-trace recorder."""
+        self._trace_log = trace_log
+
+    def close(self) -> None:
+        """Release the scorer if it owns resources (a micro-batcher's
+        lane workers); scorers without a ``close`` are left alone."""
+        close = getattr(self._scorer, "close", None)
+        if close is not None:
+            close()
 
     def _record_quality(self, features: np.ndarray, chosen: int) -> None:
         if not self.track_quality:
@@ -398,9 +439,18 @@ class MLEvaluator:
             return []
         if self._scorer is None:
             return self._fallback.evaluate_parents(parents, child, total_piece_count)
+        # A fresh matrix: the micro-batcher holds the rows across an
+        # asynchronous dispatch.
         features = build_feature_matrix(parents, child, total_piece_count)
+        if self._trace_log is not None:
+            self._trace_log.record(features)
         try:
             scores = self._scorer.score(features)
+        except BatcherSaturatedError:
+            self.shed_count += 1
+            self._stats.tick("ml_sheds")
+            return self._fallback_ranked(parents, child, total_piece_count,
+                                         features)
         except Exception:  # noqa: BLE001 — a failing model degrades the
             if not self._logged_failure:  # decision to rules
                 self._logged_failure = True
@@ -409,6 +459,15 @@ class MLEvaluator:
                     "evaluation (further failures counted, not logged)")
             return self._fallback_ranked(parents, child, total_piece_count,
                                          features)
+        # A version-aware scorer starting to serve ANOTHER version
+        # re-arms the guard: trips of one version never condemn the next.
+        version = getattr(self._scorer, "last_version", "")
+        if version:
+            with self._guard_lock:
+                if version != self._guard_version:
+                    if self._guard_version is not None:
+                        self._reset_guard_locked()
+                    self._guard_version = version
         reason = guard_reason(scores, features=features)
         if reason is not None:
             # The poisoned batch never orders anything: this decision is
@@ -673,11 +732,10 @@ class GATParentScorer:
             di, dst = self._staging_dst.claim(b, n)
             src[:n] = torch.from_numpy(pairs[:, 0].astype(np.int32))
             dst[:n] = torch.from_numpy(pairs[:, 1].astype(np.int32))
-            out = self._forward(src, dst)
-            event = _dispatched(self._device)
+            out, event = _to_host(self._forward(src, dst))
             self._staging_src.commit(b, si, event)
             self._staging_dst.commit(b, di, event)
-        return ScoreHandle(out, n, b)
+        return ScoreHandle(out, n, b, event)
 
     def score(self, pairs: np.ndarray) -> np.ndarray:
         """Edge logits for [n, 2] (src, dst) host indices; higher is a

@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+from dragonfly2_tpu_torch.device import DeviceFault
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 SOURCES = ("table_gather", "table_scatter_add", "graph_flash_attention",
@@ -42,7 +44,7 @@ def nvcc_path() -> str:
             return os.path.join(cand, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+        raise DeviceFault("nvcc not found: the CUDA kernels build only on "
                            "a machine with the CUDA toolkit")
     return found
 
@@ -94,14 +96,17 @@ def build_all() -> dict[str, dict]:
             os.replace(tmp, target)
             reports[name] = {"ptxas": out, "seconds": seconds[name]}
         if failures:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+            raise DeviceFault("kernel build failed:\n" + "\n".join(failures))
         return reports
 
 
 def open_library(path) -> ctypes.CDLL:
     """Load a built kernel library. Every library exports
     ``df2_error_string(int) -> const char*``."""
-    lib = ctypes.CDLL(str(path))
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise DeviceFault(f"cannot load kernel library {path}: {exc}") from exc
     lib.df2_error_string.argtypes = [ctypes.c_int]
     lib.df2_error_string.restype = ctypes.c_char_p
     return lib
@@ -120,4 +125,4 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a C entry point returned a nonzero ``cudaError_t``."""
     if rc != 0:
         msg = lib.df2_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise DeviceFault(f"{what}: CUDA error {rc} ({msg})")

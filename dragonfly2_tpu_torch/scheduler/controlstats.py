@@ -12,13 +12,15 @@
 
 The ticks are lock-free, as in the reference: each fires once per
 candidate inside the filter hot loop, and a rare lost increment is
-acceptable for a monitoring counter. Publishing the snapshot on
-``/debug/vars`` waits for the port's debug monitor (ROADMAP.md).
+acceptable for a monitoring counter. :data:`STATS` is published as the
+``scheduler`` block on ``/debug/vars`` (``utils/debugmon.py``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+from dragonfly2_tpu_torch.utils.debugmon import register_debug_var
 
 COUNTER_KEYS = (
     "bad_node_fast",
@@ -59,5 +61,7 @@ class ControlPlaneStats:
         return {key: getattr(self, key) for key in COUNTER_KEYS}
 
 
-#: Process-wide default scope.
+#: Process-wide default scope — published as the ``scheduler`` block.
 STATS = ControlPlaneStats()
+
+register_debug_var("scheduler", STATS.snapshot)

@@ -36,32 +36,46 @@ PLUGIN_GROUP = "dragonfly2_tpu_torch.evaluator"
 
 def new_evaluator(algorithm: str = ALGORITHM_DEFAULT, *, scorer=None,
                   sidecar_target: str | None = None,
-                  micro_batch: bool = False, **guard_kwargs):
+                  micro_batch: bool = False,
+                  batch_adaptive_wait_s: float = 0.0005,
+                  batch_lanes: int = 1,
+                  batch_queue_depth: int = 0,
+                  **guard_kwargs):
     """Evaluator factory (evaluator.go:36-57 New).
 
     ``ml``: an in-process :class:`MLEvaluator` over ``scorer`` (``None``
-    ranks by rules). ``cost``: a :class:`LearnedCostEvaluator`; it needs
-    a ``CostScorer`` (``inference.sidecar._cost_scorer_from_artifact``)
-    and raises without one. ``plugin``: the first entry point of
+    ranks by rules). ``micro_batch`` fronts the scorer with a
+    :class:`~dragonfly2_tpu_torch.inference.batcher.MicroBatcher`, so
+    concurrent scheduling threads share device dispatches; ``batch_lanes``
+    shards it into independent lanes and ``batch_queue_depth`` bounds each
+    lane's queue (0 = unbounded). A shed request is ranked by the rule
+    evaluator and counted in ``shed_count``. The caller owns the
+    batcher: call ``evaluator.close()`` on teardown or model swap.
+    ``cost``: a :class:`LearnedCostEvaluator`; it needs a ``CostScorer``
+    (``inference.sidecar._cost_scorer_from_artifact``) and raises
+    without one. ``plugin``: the first entry point of
     :data:`PLUGIN_GROUP`. Anything else: :class:`BaseEvaluator`.
     ``guard_kwargs`` go to the evaluator's constructor.
 
-    The sidecar-backed evaluator (``sidecar_target``) and the
-    micro-batcher in front of an in-process scorer (``micro_batch``) are
-    not ported yet (ROADMAP.md, Queue 1 item 4): both raise
-    NotImplementedError rather than fall back silently.
+    The sidecar-backed evaluator (``sidecar_target``) needs the gRPC
+    transport, which is not ported yet (ROADMAP.md Queue 1 item 4, the
+    transport slice): it raises NotImplementedError rather than fall
+    back silently.
     """
     if sidecar_target:
         raise NotImplementedError(
-            "sidecar_target: the gRPC sidecar client is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
-    if micro_batch:
-        raise NotImplementedError(
-            "micro_batch: the micro-batcher is not ported yet (ROADMAP.md "
-            "Queue 1 item 4)")
+            "sidecar_target: the gRPC transport (InferenceClient, "
+            "RemoteMLEvaluator) is not ported yet (ROADMAP.md Queue 1 "
+            "item 4, the transport slice)")
     if algorithm == ALGORITHM_ML:
         from dragonfly2_tpu_torch.inference.scorer import MLEvaluator
 
+        if micro_batch and scorer is not None:
+            from dragonfly2_tpu_torch.inference.batcher import MicroBatcher
+
+            scorer = MicroBatcher(
+                scorer, adaptive_wait_s=batch_adaptive_wait_s,
+                lanes=batch_lanes, queue_depth=batch_queue_depth)
         return MLEvaluator(scorer, **guard_kwargs)
     if algorithm == ALGORITHM_COST:
         from dragonfly2_tpu_torch.inference.scorer import LearnedCostEvaluator

@@ -6,18 +6,19 @@ scorer, guard-tripped score batches); these counters let an operator
 tell "model live" from "fleet silently rule-falling-back". Components
 default to the process-wide :data:`SERVING` scope; tests inject a fresh
 instance. The keys are the reference's, so both packages' snapshots
-compare key for key; of them the port ticks ``ml_scored``,
-``ml_fallbacks``, ``ml_guard_trips`` and ``ml_quarantines_reported``
-(``MLEvaluator``). ``ml_sheds`` stays 0 until the micro-batcher is
-ported, and the rollout counters until the manager watcher and canary
-controller are (ROADMAP.md, Queue 1 item 4). Publishing on
-``/debug/vars`` waits for the port's debug monitor.
+compare key for key: ``MLEvaluator`` ticks the ``ml_*`` keys, the
+inference service the reload, shadow and canary keys, and the manager's
+model registry the validation, quarantine, rollback and promotion keys.
+:data:`SERVING` is published as the ``serving`` block on
+``/debug/vars`` (``utils/debugmon.py``).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+from dragonfly2_tpu_torch.utils.debugmon import register_debug_var
 
 COUNTER_KEYS = (
     "ml_scored",
@@ -58,5 +59,7 @@ class ServingStats:
             return dict(self._counts)
 
 
-#: Process-wide default scope.
+#: Process-wide default scope — published as the ``serving`` block.
 SERVING = ServingStats()
+
+register_debug_var("serving", SERVING.snapshot)

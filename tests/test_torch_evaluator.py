@@ -35,6 +35,7 @@ from dragonfly2_tpu.scheduler.replaylog import welford_snapshot as jax_welford
 from dragonfly2_tpu.utils.hosttypes import HostType
 from dragonfly2_tpu.utils.servingstats import ServingStats as JaxServingStats
 from dragonfly2_tpu_torch.inference import modelguard
+from dragonfly2_tpu_torch.inference.batcher import MicroBatcher
 from dragonfly2_tpu_torch.inference.scorer import (
     CostScorer,
     LearnedCostEvaluator,
@@ -576,10 +577,14 @@ def test_new_evaluator_every_algorithm(mlp, monkeypatch):
     for make in (new_evaluator, jax_new_evaluator):
         with pytest.raises(ValueError, match="CostScorer"):
             make("cost")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="transport slice"):
         new_evaluator("ml", scorer=scorer, sidecar_target="localhost:1")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        new_evaluator("ml", scorer=scorer, micro_batch=True)
+    batched = new_evaluator("ml", scorer=scorer, micro_batch=True,
+                            batch_lanes=2, batch_queue_depth=4)
+    assert isinstance(batched, MLEvaluator)
+    assert isinstance(batched._scorer, MicroBatcher)
+    assert (batched._scorer.lanes, batched._scorer.queue_depth) == (2, 4)
+    batched.close()
 
     import importlib.metadata as metadata
 

@@ -74,6 +74,19 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.train.mlp_trainer",
         "dragonfly2_tpu_torch.utils",
         "dragonfly2_tpu_torch.utils.servingstats",
+        "dragonfly2_tpu_torch.utils.percentile",
+        "dragonfly2_tpu_torch.utils.faultplan",
+        "dragonfly2_tpu_torch.utils.httpserver",
+        "dragonfly2_tpu_torch.utils.debugmon",
+        "dragonfly2_tpu_torch.inference.batcher",
+        "dragonfly2_tpu_torch.inference.loadgen",
+        "dragonfly2_tpu_torch.rpc",
+        "dragonfly2_tpu_torch.rpc.health",
+        "dragonfly2_tpu_torch.manager",
+        "dragonfly2_tpu_torch.manager.database",
+        "dragonfly2_tpu_torch.manager.objectstore",
+        "dragonfly2_tpu_torch.manager.service",
+        "dragonfly2_tpu_torch.manager.validation",
     }
     assert expected <= set(probe["imported"])
 
