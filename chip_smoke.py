@@ -7,8 +7,10 @@ blocks mode and serve the results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
-through the scheduler's ``ml`` and ``cost`` evaluators, on one NVIDIA
-H100 through ``dragonfly2_tpu_torch``, with the hand-written CUDA kernels.
+through the scheduler's ``ml`` and ``cost`` evaluators, and run the
+trainer's ``Training`` orchestrator from CSV dataset segments to the
+gated registry, on one NVIDIA H100 through ``dragonfly2_tpu_torch``,
+with the hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -167,7 +169,24 @@ Phases (any failure exits nonzero, before the final line):
    retried, an explicit rollback; ``model_reload_failures`` equal to the
    artifact faults, the load thread's only failures the injected
    UNAVAILABLE ones, health NOT_SERVING in grace windows, and device
-   memory after ``stop()`` within one model's footprint of the start).
+   memory after ``stop()`` within one model's footprint of the start);
+14. training, the slice 11 path: the 2000-host cluster's seeded records
+   (20 000 NetworkTopology, 2 000 Download, and the cost stand-in's
+   decisions as ReplayDecision records) written by the port's CSV writer
+   as two closed segments of each kind in a ``TrainerStorage``, plus one
+   topology segment left open; ``Training.train`` with all four jobs at
+   their published widths (config #2's GraphSAGE sampling on the device,
+   config #3's GraphTransformer in blocks mode, config #1's MLP, the cost
+   model) into a ``ManagerService`` whose gate builds candidates on the
+   card, with every launch count set to 0 just before and read just
+   after — K2a, K1 and K1's backward exactly as often as the steps, eval
+   chunks and the gate's embedding pass need, no other kernel — no job
+   error, F1 ≥ GNN_F1_MIN for both graph jobs, the MLP's eval MAE below
+   the train mean, each model's gate verdict, every closed segment
+   deleted and the open one kept, the host seconds of each stage and
+   each job's samples/s; then training_to_serve: an ``InferenceService``
+   whose ``reload_from_manager`` installs the gate-activated ``gat``
+   version, and one ModelInfer with finite scores.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -181,6 +200,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -348,6 +368,38 @@ SERVICE_CONTROL_THREADS = (8, 32)
 SLOW_SHED_S, SHED_BURST_S = 0.005, 1.0
 LIFECYCLE_TICK_S, LIFECYCLE_GRACE_S = 0.25, 0.5
 LIFECYCLE_UNAVAILABLE_NTH = 97
+# The training orchestrator (slice 11): records of config #2's 2000-host
+# cluster (bench.py:382-386) from one SyntheticCluster, topology first,
+# written as CSV segments: TRAINING_TOPOLOGY NetworkTopology records
+# (~3 probe edges each; config #2 has 2 M probes), TRAINING_DOWNLOADS
+# Download records (~2.5 pair examples each; config #1 has 300 000), and
+# the cost stand-in's decisions as ReplayDecision records, each kind in
+# TRAINING_SEGMENTS closed segments, plus one topology segment left open.
+# The models keep their published widths: config #2's GraphSAGE, config
+# #3's GraphTransformer in blocks mode, config #1's MLP, CostTrainConfig().
+# Each *_EPOCHS is the fewest after which seeds 0-2 reached GNN_F1_MIN
+# (graph jobs), or an eval MAE below predicting the train mean and a last
+# epoch's loss below 0.8 (the MLP, as MLP_EPOCHS), on this data
+# (tests/training_epochs_quality.py: GraphSAGE and the MLP on the CPU and
+# the card, the GraphTransformer on the card only, its CPU twins being
+# too slow for a search). The data is small against the published
+# batches: 6 GraphSAGE steps an epoch, 13 GraphTransformer steps, and one
+# MLP step (its batch clamps to the ~4 500-row train split).
+TRAINING_HOSTS, TRAINING_TOPOLOGY, TRAINING_DOWNLOADS = 2000, 20_000, 2_000
+TRAINING_SEGMENTS = 2
+TRAINING_GNN_EPOCHS = 16
+TRAINING_GAT_EPOCHS = 16
+TRAINING_MLP_EPOCHS = 4
+TRAINING_GNN_CFG = dict(hidden=128, embed=64, fanouts=(10, 5),
+                        batch_size=8192, device_sample=True,
+                        epochs=TRAINING_GNN_EPOCHS)
+TRAINING_GAT_CFG = dict(hidden=128, embed=64, layers=2, heads=4,
+                        neighbor_cap=64, chunk=1024, attention="blocks",
+                        epochs=TRAINING_GAT_EPOCHS)
+TRAINING_MLP_CFG = dict(hidden=(128, 128, 64), batch_size=16384,
+                        epochs=TRAINING_MLP_EPOCHS)
+TRAINING_IP, TRAINING_HOSTNAME = "10.0.0.1", "scheduler-1"
+TRAINING_HOST_ID, TRAINING_SCHEDULER_ID = "scheduler-host-1", 1
 
 
 def log(phase: str, **fields) -> None:
@@ -3139,6 +3191,284 @@ def run_lifecycle_gat(torch, artifacts: dict, counts) -> dict:
     return launches
 
 
+def training_records():
+    """(NetworkTopology records, Download records) of the training phase:
+    one seeded SyntheticCluster of TRAINING_HOSTS hosts, topology first."""
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+
+    cluster = SyntheticCluster(n_hosts=TRAINING_HOSTS, seed=SEED)
+    return (cluster.topology(TRAINING_TOPOLOGY),
+            cluster.downloads(TRAINING_DOWNLOADS))
+
+
+def replay_records(corpus) -> list:
+    """The cost stand-in's decisions as ``ReplayDecision`` records: each
+    valid slot a ``ReplayCandidate`` with its feature row, ``realized_n``
+    and ``realized_cost`` (float32 values, which the CSV round trip keeps
+    exactly)."""
+    from dragonfly2_tpu_torch.scheduler.evaluator.scoring import FEATURE_NAMES
+    from dragonfly2_tpu_torch.schema import (
+        ReplayCandidate,
+        ReplayDecision,
+        ReplayFeatureRow,
+    )
+
+    return [ReplayDecision(seq=i, verdict="parents", candidates=[
+        ReplayCandidate(
+            id=f"parent-{j}", rank=int(j),
+            features=ReplayFeatureRow(**dict(zip(
+                FEATURE_NAMES, map(float, corpus.features[i, j])))),
+            realized_n=int(corpus.realized_n[i, j]),
+            realized_cost=float(corpus.realized_cost[i, j]))
+        for j in np.flatnonzero(corpus.valid[i])])
+        for i in range(len(corpus.valid))]
+
+
+def write_segments(storage, prefix: str, record_type, records,
+                   n_segments: int, scratch: str) -> None:
+    """``records`` as ``n_segments`` CSV files (headered, the port's
+    writer), each appended to ``storage`` as a new segment of
+    TRAINING_HOST_ID."""
+    from dragonfly2_tpu_torch.schema.io import CsvRecordWriter
+
+    path = os.path.join(scratch, f"{prefix}.csv")
+    for part in np.array_split(np.arange(len(records)), n_segments):
+        with CsvRecordWriter(record_type, path) as writer:
+            for i in part:
+                writer.write(records[i])
+        with open(path, "rb") as f:
+            storage.append(prefix, TRAINING_HOST_ID, f.read(), new_file=True)
+        os.remove(path)
+
+
+class MetricFamily(dict):
+    """One labelled metric family kept as a dict by job name: the part of
+    a prometheus family that ``Training`` reports into."""
+
+    def labels(self, model: str):
+        def record(value: float) -> None:
+            self[model] = value
+        return types.SimpleNamespace(observe=record, set=record)
+
+
+class JobMetrics:
+    """``Training``'s metrics hook: each job's seconds and samples/s."""
+
+    def __init__(self):
+        self.training_duration = MetricFamily()
+        self.train_samples_per_sec = MetricFamily()
+
+
+def predicted_training_launches(graph, config, names) -> dict:
+    """The kernel launches ``Training.train`` must make on ``graph``:
+    GraphSAGE one K2a a forward (its steps and eval chunks), the blocks-mode
+    GraphTransformer one K1 forward a layer a forward (its steps, eval
+    chunks and the gate's embedding pass) and one K1 backward a layer a
+    step; the MLP and the cost model none. ``names``: every kernel's row
+    name."""
+    from dragonfly2_tpu_torch.train.split import edge_split
+
+    def steps_and_chunks(job_config, batch_size: int):
+        train_ids, eval_ids = edge_split(graph, job_config.eval_fraction,
+                                         job_config.seed)
+        batch = min(batch_size, len(train_ids))
+        steps = job_config.epochs * max(len(train_ids) // batch, 1)
+        return steps, -(-len(eval_ids) // batch)
+
+    gnn_steps, gnn_chunks = steps_and_chunks(config.gnn,
+                                             config.gnn.batch_size)
+    gat_steps, gat_chunks = steps_and_chunks(config.gat,
+                                             config.gat.edge_batch_size)
+    layers = config.gat.layers
+    counts = dict.fromkeys(names, 0)
+    counts["table_gather"] = gnn_steps + gnn_chunks
+    counts["graph_flash_attention"] = layers * (gat_steps + gat_chunks + 1)
+    counts["graph_flash_attention_backward"] = layers * gat_steps
+    return counts
+
+
+def run_training(torch, mlp_x, mlp_y, counts) -> dict:
+    """The training orchestrator, slice 11's path: seeded records written
+    as CSV segments (each kind in TRAINING_SEGMENTS closed segments and
+    one topology segment left open), ``Training.train`` with all four
+    jobs at their published widths on the card, the registry a
+    ``ManagerService`` gating on the card, with every launch count set to
+    0 just before and read just after — each kernel exactly as often as
+    ``predicted_training_launches`` says; no job error; the GraphSAGE and
+    GraphTransformer F1 at least GNN_F1_MIN and the MLP's eval MAE below
+    predicting the train mean; every closed segment deleted and the open
+    one kept; the gate's verdict for each model, the ``gat`` version
+    active and answering ModelInfer through ``reload_from_manager``.
+    Returns the launches."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.data import ArrayDataset
+    from dragonfly2_tpu_torch.data.features import (
+        graph_from_table,
+        pair_examples_from_table,
+    )
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.schema import (
+        Download,
+        NetworkTopology,
+        ReplayDecision,
+    )
+    from dragonfly2_tpu_torch.schema.io import records_to_table
+    from dragonfly2_tpu_torch.train.cost_trainer import (
+        CostTrainConfig,
+        cost_examples_from_corpus,
+    )
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
+    from dragonfly2_tpu_torch.train.gnn_trainer import GNNTrainConfig
+    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
+    from dragonfly2_tpu_torch.trainer import (
+        TrainerStorage,
+        Training,
+        TrainingConfig,
+    )
+
+    host_s = {}
+    t0 = time.perf_counter()
+    topology, downloads = training_records()
+    decisions = replay_records(cost_corpus(mlp_x, mlp_y))
+    host_s["generate"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="smoke-training-")
+    try:
+        storage = TrainerStorage(os.path.join(tmp, "segments"))
+        t0 = time.perf_counter()
+        for prefix, record_type, records in (
+                ("networktopology", NetworkTopology, topology),
+                ("download", Download, downloads),
+                ("replay", ReplayDecision, decisions)):
+            write_segments(storage, prefix, record_type, records,
+                           TRAINING_SEGMENTS, tmp)
+        storage.close_host(TRAINING_HOST_ID)
+        with open(storage.network_topology_files(TRAINING_HOST_ID)[0],
+                  "rb") as f:
+            open_path = storage.append("networktopology", TRAINING_HOST_ID,
+                                       f.read(), new_file=True)
+        host_s["write"] = time.perf_counter() - t0
+        closed = [p for files in storage.snapshot(TRAINING_HOST_ID)
+                  for p in files]
+
+        # The stages Training runs inside one call, timed on their own.
+        t0 = time.perf_counter()
+        files = storage.snapshot(TRAINING_HOST_ID)
+        topo_recs = storage.list_network_topology(TRAINING_HOST_ID, files[1])
+        dl_recs = storage.list_download(TRAINING_HOST_ID, files[0])
+        replay_recs = storage.list_replay(TRAINING_HOST_ID, files[2])
+        host_s["snapshot_parse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = graph_from_table(records_to_table(NetworkTopology, topo_recs))
+        host_s["graph_from_table"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        X, y = pair_examples_from_table(records_to_table(Download, dl_recs))
+        host_s["pair_examples_from_table"] = time.perf_counter() - t0
+        cost_x, _ = cost_examples_from_corpus(replay_recs)
+        del topo_recs, dl_recs, replay_recs
+
+        config = TrainingConfig(
+            gnn=GNNTrainConfig(**TRAINING_GNN_CFG),
+            mlp=MLPTrainConfig(**TRAINING_MLP_CFG),
+            gat=GATTrainConfig(**TRAINING_GAT_CFG),
+            cost=CostTrainConfig(), train_gat_model=True)
+        predicted = predicted_training_launches(graph, config,
+                                                counts.read())
+        manager = ManagerService(
+            Database(os.path.join(tmp, "manager.db")),
+            FilesystemObjectStore(os.path.join(tmp, "objects")),
+            validation=ValidationConfig())
+        metrics = JobMetrics()
+        training = Training(storage, manager, config, metrics=metrics)
+        counts.reset()
+        t0 = time.perf_counter()
+        outcome = training.train(TRAINING_IP, TRAINING_HOSTNAME,
+                                 TRAINING_HOST_ID, TRAINING_SCHEDULER_ID)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = counts.read()
+        host_s["jobs"] = dict(metrics.training_duration)
+        rows = manager.db.find("models", scheduler_id=TRAINING_SCHEDULER_ID)
+        registry = [{"type": r.type, "name": r.name, "version": r.version,
+                     "scheduler_id": r.scheduler_id, "state": r.state,
+                     "gate": r.evaluation.get("validation")} for r in rows]
+        left = sorted(os.listdir(os.path.join(tmp, "segments")))
+        evaluations = {job: getattr(outcome, f"{job}_evaluation")
+                       for job in ("gnn", "gat", "mlp", "cost")}
+        train_ds, held = ArrayDataset(X, y).split(
+            config.mlp.eval_fraction, config.mlp.seed)
+        mean_mae = float(np.abs(held.arrays[1]
+                                - train_ds.arrays[1].mean()).mean())
+        log("training", seconds=train_s, host_seconds=host_s,
+            n_nodes=graph.n_nodes, n_edges=graph.n_edges,
+            pair_examples=len(X), cost_examples=len(cost_x),
+            records={"topology": len(topology), "download": len(downloads),
+                     "replay": len(decisions)},
+            segments_closed=len(closed), segments_left=left,
+            samples_per_sec=dict(metrics.train_samples_per_sec),
+            evaluations=evaluations, mlp_mean_mae=mean_mae,
+            model_ids={job: getattr(outcome, f"{job}_model_id")
+                       for job in ("gnn", "gat", "mlp", "cost")},
+            errors=outcome.errors, registry=registry,
+            launches=launches, predicted_launches=predicted)
+        if outcome.errors:
+            raise AssertionError(f"training job errors: {outcome.errors}")
+        if launches != predicted:
+            raise AssertionError(f"training launches {launches} != "
+                                 f"predicted {predicted}")
+        for job in ("gnn", "gat"):
+            if not evaluations[job]["f1"] >= GNN_F1_MIN:
+                raise AssertionError(f"training {job}: F1 "
+                                     f"{evaluations[job]['f1']} < {GNN_F1_MIN}")
+        if not evaluations["mlp"]["mae"] < mean_mae:
+            raise AssertionError(f"training mlp: eval MAE "
+                                 f"{evaluations['mlp']['mae']} >= {mean_mae}")
+        if any(os.path.exists(p) for p in closed) or left != [
+                os.path.basename(open_path)]:
+            raise AssertionError(f"segments left after training: {left}")
+        by_type = {r["type"]: r for r in registry}
+        if set(by_type) != {"gnn", "gat", "mlp", "cost"} or any(
+                r["state"] not in ("active", "quarantined")
+                for r in registry):
+            raise AssertionError(f"registry rows {registry}")
+        if by_type["gat"]["state"] != "active":
+            raise AssertionError(f"the gate quarantined the gat version: "
+                                 f"{by_type['gat']['gate']}")
+
+        service = InferenceService(manager=manager,
+                                   scheduler_id=TRAINING_SCHEDULER_ID,
+                                   micro_batch=False)
+        try:
+            if not service.reload_from_manager():
+                raise AssertionError("reload_from_manager installed nothing")
+            installed = service.serving_version("gat")
+            pairs = np.random.default_rng(SEED).integers(
+                0, graph.n_nodes, (16, 2))
+            scores = service.ModelInfer(ModelInferRequest("gat", pairs),
+                                        CallContext()).outputs
+        finally:
+            service.stop()
+        if installed != by_type["gat"]["version"] or not (
+                scores.shape == (16,) and np.isfinite(scores).all()):
+            raise AssertionError(f"gat {installed} scores {scores}")
+        log("training_to_serve", gat_version=installed,
+            scores=[float(v) for v in scores])
+        storage.close_host(TRAINING_HOST_ID)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -3523,6 +3853,9 @@ def main() -> int:
         torch, mlp_x, mlp_y, counts)
     check_cost_evaluator(torch, cost_artifact, cost_scorer)
 
+    # -- phase 14: the training orchestrator, slice 11's path ---------------
+    training_launches = run_training(torch, mlp_x, mlp_y, counts)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -3533,7 +3866,8 @@ def main() -> int:
                    "train_gnn_host": host_launches[row["name"]],
                    "train_mlp": mlp_launches[row["name"]],
                    "train_cost": cost_launches[row["name"]],
-                   "lifecycle": lifecycle_launches[row["name"]]}
+                   "lifecycle": lifecycle_launches[row["name"]],
+                   "training": training_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -1,15 +1,20 @@
-"""Synthetic P2P cluster — the columnar paths of
-``dragonfly2_tpu/data/synthetic.py``, in numpy.
+"""Synthetic P2P cluster — port of ``dragonfly2_tpu/data/synthetic.py``.
 
 Hosts live in a ``region|zone|rack`` hierarchy with an IDC and a latent
 upload bandwidth; probe RTT = base RTT by location distance × lognormal
 noise, so topology is recoverable from probes (the GNNs' input), and a
 piece's bandwidth from a parent = min(parent upload bandwidth, the link
 bandwidth of the RTT class) × congestion noise, so parent quality is
-predictable from pair features (the MLP's input). The draws from
-``self.rng`` happen in the same order as in the JAX package, so one seed
-gives bit-identical graphs and pair examples in both packages. The
-record path (schema objects, idgen) is not part of this port.
+predictable from pair features (the MLP's input).
+
+Two output paths: the columnar one (:meth:`SyntheticCluster.
+pair_example_columns`, :meth:`SyntheticCluster.probe_graph`) feeds the
+trainers directly; the record one (:meth:`SyntheticCluster.downloads`,
+:meth:`SyntheticCluster.topology`) gives ``schema`` records for the CSV
+datasets the training orchestrator reads. The draws from ``self.rng``
+happen in the same order as in the JAX package, so one seed gives
+bit-identical graphs, pair examples and records in both packages; only
+the ``peer_id_v2`` ids of downloads and their parents are random uuids.
 """
 
 from __future__ import annotations
@@ -19,6 +24,22 @@ from dataclasses import dataclass
 import numpy as np
 
 from dragonfly2_tpu_torch.data.features import Graph
+from dragonfly2_tpu_torch.schema import (
+    MAX_DEST_HOSTS,
+    DestHost,
+    Download,
+    Host,
+    Network,
+    NetworkTopology,
+    Parent,
+    Piece,
+    Probes,
+    SrcHost,
+    Task,
+)
+from dragonfly2_tpu_torch.utils import idgen
+
+PIECE_LENGTH = 4 << 20  # dfdaemon default piece size, 4 MiB
 
 # Base RTT (ns) by location proximity class: same rack / same zone /
 # same region / cross-region.
@@ -41,6 +62,12 @@ class HostPool:
 
     def __len__(self) -> int:
         return len(self.region)
+
+    def location(self, i: int) -> str:
+        return f"r{self.region[i]}|z{self.zone[i]}|k{self.rack[i]}"
+
+    def idc_name(self, i: int) -> str:
+        return f"idc-{self.idc[i]}"
 
     def proximity(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         """0=rack, 1=zone, 2=region, 3=cross-region for index arrays a,b."""
@@ -179,3 +206,108 @@ class SyntheticCluster:
             ],
             axis=1,
         ).astype(np.float32)
+
+    # -- record-object path --------------------------------------------------
+
+    def _host_record(self, i: int) -> Host:
+        h = self.hosts
+        return Host(
+            id=idgen.host_id_v1(f"host-{i}", 8002),
+            type="super" if h.is_seed[i] else "normal",
+            hostname=f"host-{i}",
+            ip=f"10.{i >> 16 & 255}.{i >> 8 & 255}.{i & 255}",
+            port=8002,
+            download_port=8001,
+            concurrent_upload_limit=int(h.upload_limit[i]),
+            network=Network(idc=h.idc_name(i), location=h.location(i)),
+        )
+
+    def downloads(self, n: int, max_parents: int = 4) -> list[Download]:
+        out = []
+        for _ in range(n):
+            child = int(self.rng.integers(0, len(self.hosts)))
+            n_parents = int(self.rng.integers(1, max_parents + 1))
+            parents_idx = self.rng.integers(0, len(self.hosts), n_parents)
+            total_pieces = int(self.rng.choice([64, 256]))
+            url = ("https://origin.example.com/obj-"
+                   f"{self.rng.integers(0, 1 << 20)}")
+            parents = []
+            total_cost = 0
+            for p in parents_idx:
+                bw = float(self.pair_bandwidth(np.array([p]),
+                                               np.array([child]))[0])
+                n_pieces = int(self.rng.integers(1, 8))
+                pieces = [
+                    Piece(length=PIECE_LENGTH,
+                          cost=int(PIECE_LENGTH / bw * 1e9))
+                    for _ in range(n_pieces)
+                ]
+                total_cost += sum(q.cost for q in pieces)
+                parents.append(
+                    Parent(
+                        id=idgen.peer_id_v2(),
+                        state="Running",
+                        finished_piece_count=int(
+                            self.rng.integers(0, total_pieces)),
+                        upload_piece_count=n_pieces,
+                        host=self._host_record(int(p)),
+                        pieces=pieces,
+                    )
+                )
+            out.append(
+                Download(
+                    id=idgen.peer_id_v2(),
+                    state="Succeeded",
+                    cost=total_cost,
+                    finished_piece_count=total_pieces,
+                    task=Task(
+                        id=idgen.task_id_v2(url),
+                        url=url,
+                        content_length=total_pieces * PIECE_LENGTH,
+                        total_piece_count=total_pieces,
+                        state="Succeeded",
+                    ),
+                    host=self._host_record(child),
+                    parents=parents,
+                )
+            )
+        return out
+
+    def topology(self, n: int) -> list[NetworkTopology]:
+        out = []
+        for _ in range(n):
+            src = int(self.rng.integers(0, len(self.hosts)))
+            n_dest = int(self.rng.integers(1, MAX_DEST_HOSTS + 1))
+            dst = self.rng.integers(0, len(self.hosts), n_dest)
+            rtts = self.rtt_ns(np.full(n_dest, src), dst)
+            src_rec = self._host_record(src)
+            out.append(
+                NetworkTopology(
+                    id=idgen.host_id_v2(src_rec.ip, src_rec.hostname),
+                    host=SrcHost(
+                        id=src_rec.id,
+                        type=src_rec.type,
+                        hostname=src_rec.hostname,
+                        ip=src_rec.ip,
+                        port=src_rec.port,
+                        network=src_rec.network,
+                    ),
+                    dest_hosts=[
+                        DestHost(
+                            id=self._host_record(int(d)).id,
+                            type=("super" if self.hosts.is_seed[d]
+                                  else "normal"),
+                            hostname=f"host-{d}",
+                            ip=self._host_record(int(d)).ip,
+                            port=8002,
+                            network=Network(
+                                idc=self.hosts.idc_name(int(d)),
+                                location=self.hosts.location(int(d)),
+                            ),
+                            probes=Probes(average_rtt=int(r)),
+                        )
+                        for d, r in zip(dst, rtts)
+                    ],
+                )
+            )
+        return out

@@ -6,8 +6,9 @@ Every mode trains on the card. The inverse index of the neighbor lists
 device once: in gather mode the neighbor gather's backward (the
 ``table_scatter_add`` kernel) walks it, in blocks, flash and ring mode
 the backward of ``graph_flash_attention`` (K1) does. Ring mode runs in a
-world of one (the blocks math); sharding rows over several processes
-belongs to the parallel slice (ROADMAP.md Queue 1).
+world of one (the blocks math). Sharding rows or batches over several
+processes belongs to the parallel slice (ROADMAP.md Queue 1 item 8), so
+a ``torch.distributed`` world larger than one raises in every mode.
 
 The loop is the JAX trainer's: the attention structure is built from
 TRAIN edges only (an eval edge's RTT, a function of its label, never
@@ -35,6 +36,7 @@ from dragonfly2_tpu_torch.models.graph_transformer import (
     pad_graph_sparse,
     pad_multiple,
 )
+from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
 from dragonfly2_tpu_torch.train.metrics import (
     confusion,
     metrics_from_confusion,
@@ -109,6 +111,12 @@ class GATTrainer:
 
     def __init__(self, graph: Graph, config: GATTrainConfig = GATTrainConfig(),
                  device=None, init_state: dict | None = None):
+        # Every mode: ring mode's row sharding and the other modes' batch
+        # sharding both belong to the parallel slice.
+        if group_size_rank()[0] > 1:
+            raise NotImplementedError(
+                "train_gat runs on one device; data parallelism over a "
+                "larger torch.distributed world is not ported yet")
         self.device = default_device(device)
         self.config = config
         # Pair-level split: every sighting of an eval (src, dst) pair

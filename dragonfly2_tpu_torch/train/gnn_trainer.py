@@ -26,13 +26,15 @@ Both gather the node features on the device through ``table_gather``,
 one launch a forward (the K2a kernel on the card). ``steps_per_call``
 groups steps for the budget's accounting only; PyTorch runs each step
 eagerly, so the trajectory does not depend on it (the JAX trainer scans
-K steps a dispatch and drops an epoch's remainder group).
+K steps a dispatch and drops an epoch's remainder group). Data
+parallelism over several cards is not ported (ROADMAP.md, Queue 1 item
+8): a ``torch.distributed`` world larger than one raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ from dragonfly2_tpu_torch.data.graph_sampler import CSRGraph, EdgeBatchSampler
 from dragonfly2_tpu_torch.data.prefetch import prefetch
 from dragonfly2_tpu_torch.device import default_device
 from dragonfly2_tpu_torch.models.graphsage import GraphSAGE
+from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
 from dragonfly2_tpu_torch.train.fused_sampling import (
     apply_indexed,
     put_edge_tables,
@@ -77,6 +80,10 @@ class GNNTrainConfig:
     rtt_threshold_ns: int = 20_000_000
     # Wall cap for the step loop (the first step excluded).
     max_seconds: Optional[float] = None
+    # Publishing hooks: (steps, samples/s) every 25 budget ticks, and the
+    # first step's seconds once.
+    progress_callback: Optional[Callable[[int, float], None]] = None
+    compile_callback: Optional[Callable[[float], None]] = None
     device_sample: bool = True
     # Steps per budget tick, as the JAX trainer's steps per dispatch.
     steps_per_call: int = 1
@@ -112,6 +119,10 @@ class GNNTrainer:
 
     def __init__(self, graph: Graph, config: GNNTrainConfig = GNNTrainConfig(),
                  device=None, init_state: dict | None = None):
+        if group_size_rank()[0] > 1:
+            raise NotImplementedError(
+                "train_gnn runs on one device; data parallelism over a "
+                "larger torch.distributed world is not ported yet")
         self.device = default_device(device)
         self.config = config
         labels = graph.edge_labels(config.rtt_threshold_ns)
@@ -255,7 +266,9 @@ class GNNTrainer:
 
     def fit(self) -> GNNTrainResult:
         config, batch = self.config, self.batch
-        budget = StepBudget(config.max_seconds)
+        budget = StepBudget(config.max_seconds,
+                            on_compile=config.compile_callback,
+                            on_progress=config.progress_callback)
         k = max(min(int(config.steps_per_call), self.steps_per_epoch), 1)
         history, step_losses, losses = [], [], []
 

@@ -52,6 +52,10 @@ class MLPTrainConfig:
     # Wall-clock budget for the step loop (the first step excluded);
     # None = run all epochs.
     max_seconds: float | None = None
+    # Publishing hooks: (steps, samples/s) every 25 steps, and the first
+    # step's seconds once.
+    progress_callback: object = None
+    compile_callback: object = None
 
 
 @dataclass
@@ -205,7 +209,9 @@ class MLPTrainer:
 
     def fit(self) -> MLPTrainResult:
         config, batch = self.config, self.batch
-        budget = StepBudget(config.max_seconds)
+        budget = StepBudget(config.max_seconds,
+                            on_compile=config.compile_callback,
+                            on_progress=config.progress_callback)
         history, step_losses = [], []
         stop = False
         for epoch in range(config.epochs):

@@ -11,7 +11,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grpc", "pyarrow",
-             "tensorstore", "dragonfly2_tpu")
+             "pandas", "tensorstore", "dragonfly2_tpu")
 
 _PROBE = """
 import importlib, importlib.util, json, pkgutil, sys
@@ -87,6 +87,14 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.manager.objectstore",
         "dragonfly2_tpu_torch.manager.service",
         "dragonfly2_tpu_torch.manager.validation",
+        "dragonfly2_tpu_torch.schema",
+        "dragonfly2_tpu_torch.schema.records",
+        "dragonfly2_tpu_torch.schema.io",
+        "dragonfly2_tpu_torch.trainer",
+        "dragonfly2_tpu_torch.trainer.storage",
+        "dragonfly2_tpu_torch.trainer.training",
+        "dragonfly2_tpu_torch.utils.digest",
+        "dragonfly2_tpu_torch.utils.idgen",
     }
     assert expected <= set(probe["imported"])
 

@@ -50,7 +50,7 @@ from dragonfly2_tpu_torch.inference.sidecar import (
     _gat_scorer_from_artifact,
 )
 from dragonfly2_tpu_torch.models import graph_transformer
-from dragonfly2_tpu_torch.train import metrics
+from dragonfly2_tpu_torch.train import gat_trainer, metrics
 from dragonfly2_tpu_torch.train.checkpoint import (
     ModelMetadata,
     gat_artifact_from_result,
@@ -338,6 +338,18 @@ def test_ring_mode_refused(graphs, monkeypatch):
                         lambda group=None: (2, 0))
     with pytest.raises(NotImplementedError, match="parallel set"):
         train_gat(tg, GATTrainConfig(**CFG, attention="ring"), device="cpu")
+
+
+@pytest.mark.parametrize("attention", ["gather", "blocks", "flash", "ring"])
+def test_train_gat_refuses_a_larger_world(graphs, monkeypatch, attention):
+    """Data parallelism over several cards is not ported: inside a
+    torch.distributed world of two, train_gat raises in every mode before
+    it trains, instead of training a whole replica on every rank."""
+    _, tg = graphs
+    monkeypatch.setattr(gat_trainer, "group_size_rank", lambda: (2, 0))
+    with pytest.raises(NotImplementedError, match="one device"):
+        train_gat(tg, GATTrainConfig(**CFG, attention=attention),
+                  device="cpu")
 
 
 def test_blocks_mode_trains_on_cpu(graphs):
