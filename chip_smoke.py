@@ -7,10 +7,12 @@ blocks mode and serve the results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
-through the scheduler's ``ml`` and ``cost`` evaluators, and run the
+through the scheduler's ``ml`` and ``cost`` evaluators, run the
 trainer's ``Training`` orchestrator from CSV dataset segments to the
-gated registry, on one NVIDIA H100 through ``dragonfly2_tpu_torch``,
-with the hand-written CUDA kernels.
+gated registry, and run federated multi-cluster training (BASELINE
+config #4) through the crash-safe coordinator to a gated global model,
+on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
+hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -186,7 +188,27 @@ Phases (any failure exits nonzero, before the final line):
    deleted and the open one kept, the host seconds of each stage and
    each job's samples/s; then training_to_serve: an ``InferenceService``
    whose ``reload_from_manager`` installs the gate-activated ``gat``
-   version, and one ModelInfer with finite scores.
+   version, and one ModelInfer with finite scores;
+15. federated training, the slice 12 path (BASELINE config #4), after a
+   check that the profiler's kernel count sees K2a launches
+   (profiler_check: of PROFILER_CHECK launches, how many it recorded):
+   federated (``run_federated_bench(seed=SEED, include_kill=True)`` on
+   the card at the JAX bench's settings — the clean fleet's rounds
+   through ``FederationCoordinator``, registered through the gate and
+   replayed against each solo model and the rule; the poisoned fleet's
+   screens, escalation and quarantine; the child coordinator SIGKILLed
+   mid-round and resumed from its journal without retraining —
+   ``verdict_pass`` required) and federated_config4 (config #1's 300 000
+   examples over three band clusters at (128, 128, 64), batch 16384,
+   FedAvg over 3 rounds at quorum 3 with a gating registry: every round
+   committed, a second fresh run and a run whose round 0 first fails
+   quorum and resumes bit-identical to the first, the global's
+   pooled-holdout MAE below the train mean, each round's seconds split
+   into local fits, screening, aggregation, journal writes and the gate,
+   and, when the gate activates the global, ``reload_from_manager`` and
+   ModelInfer). On both, every launch count is set to 0 just before and
+   read just after, and the profiler counts the port's kernels by name:
+   no kernel may launch (the path is dense products).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -400,6 +422,38 @@ TRAINING_MLP_CFG = dict(hidden=(128, 128, 64), batch_size=16384,
                         epochs=TRAINING_MLP_EPOCHS)
 TRAINING_IP, TRAINING_HOSTNAME = "10.0.0.1", "scheduler-1"
 TRAINING_HOST_ID, TRAINING_SCHEDULER_ID = "scheduler-host-1", 1
+# Federated training (slice 12, BASELINE config #4). Phase "federated"
+# runs the port's fedbench at the JAX bench's own settings
+# (run_federated_bench's defaults: 3 clusters x 300 decisions, a
+# 400-decision eval corpus, 2 rounds, the kill rung's child on the card).
+# Phase "federated_config4" runs config #4 at config #1's scale and
+# widths: config #1's 300 000 examples (bench.py:441-446) split over
+# three band clusters, FED4_DECISIONS decisions each (~6 candidates a
+# decision, ~100 000 examples), locals at config #1's widths and batch
+# with FED4_EPOCHS = TRAINING_MLP_EPOCHS (the training phase's MLP
+# epochs; PERF.md §6 says why they stay), FedAvg over FED4_ROUNDS rounds
+# at quorum 3 (tests/fed4_epochs_quality.py measures epochs and rounds).
+FED4_CLUSTERS, FED4_DECISIONS, FED4_ROUNDS = 3, 16_667, 3
+FED4_EPOCHS = TRAINING_MLP_EPOCHS
+FED4_LOCAL_CFG = dict(hidden=(128, 128, 64), batch_size=16384,
+                      learning_rate=3e-3, eval_fraction=0.1,
+                      epochs=FED4_EPOCHS, seed=SEED)
+FED_EVAL_DECISIONS = 400
+# K2a launches the profiler is shown before the federated phases' zero
+# counts are read from it (check_profiler_sees_kernels).
+PROFILER_CHECK = 500
+# Each row of the kernels line → the __global__ functions of its
+# sources, read from the profiler's kernel names.
+KERNEL_FUNCTIONS = {
+    "table_gather": ("table_gather_kernel",),
+    "table_scatter_add": ("table_scatter_add_kernel",),
+    "graph_flash_attention": ("graph_flash_kernel",),
+    "graph_flash_attention_backward": ("graph_flash_dq_kernel",
+                                       "graph_flash_dkdv_kernel"),
+    "flash_attention": ("fwd_kernel", "fwd_ring_kernel"),
+    "flash_attention_backward": ("bwd_fused_kernel", "delta_kernel",
+                                 "dkdv_kernel", "dq_kernel"),
+}
 
 
 def log(phase: str, **fields) -> None:
@@ -3469,6 +3523,407 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
     return launches
 
 
+def profiled_kernel_launches(torch, fn):
+    """``fn()`` under ``torch.profiler`` (the card's activity) → (its
+    result, {"launches": {kernel row: launches}, "device_events": every
+    kernel and copy on the card}), each row's launches counted from the
+    profiler's kernel names that are one of KERNEL_FUNCTIONS[row] as a
+    whole word — what ran on the card, whoever launched it. A warm-up
+    step comes first and its events are discarded: without it a
+    profiling window's first kernels can go missing
+    (``tests/profiler_capture.py`` measures how often). The raw events
+    are read, not
+    ``key_averages()``: a training phase records hundreds of thousands
+    of them."""
+    import collections
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = collections.Counter()
+
+    def collect(prof):
+        names.update(e.name() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=collect) as prof:
+        torch.ones(8, 8, device="cuda").sum()
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    launches = {}
+    for row, functions in KERNEL_FUNCTIONS.items():
+        pattern = re.compile(r"(?<!\w)(%s)(?!\w)" % "|".join(functions))
+        launches[row] = sum(n for name, n in names.items()
+                            if pattern.search(name))
+    return out, {"launches": launches, "device_events": sum(names.values())}
+
+
+def check_profiler_sees_kernels(torch) -> None:
+    """The profiler's count must see the port's kernels: of PROFILER_CHECK
+    K2a launches it must record at least one, on K2a's row alone, so a
+    0 read from it on a path means no launch there that it could see.
+    Deep in this script the profiler records only a share of the
+    launches it is shown (``gather_library_profile`` records a fifth of
+    ``index_select``'s), so the share is logged too."""
+    from dragonfly2_tpu_torch.ops.table_gather import table_gather
+
+    table = torch.zeros(64, 16, device="cuda")
+    idx = torch.arange(32, device="cuda", dtype=torch.int32)
+
+    def launch():
+        for _ in range(PROFILER_CHECK):
+            table_gather(table, idx)
+
+    _, seen = profiled_kernel_launches(torch, launch)
+    log("profiler_check", launched=PROFILER_CHECK, recorded=seen["launches"],
+        device_events=seen["device_events"])
+    others = {row: n for row, n in seen["launches"].items()
+              if row != "table_gather"}
+    if seen["launches"]["table_gather"] < 1 or any(others.values()):
+        raise AssertionError(f"the profiler's kernel count read "
+                             f"{seen['launches']} for {PROFILER_CHECK} "
+                             f"K2a launches")
+
+
+def run_federated(torch, counts) -> dict:
+    """The federated bench's three rungs on the card
+    (``run_federated_bench(seed=SEED, include_kill=True)``: the clean
+    fleet registered through the gate and replayed against each solo
+    model and the rule, the poisoned fleet's screens and quarantine, and
+    the SIGKILLed child coordinator resumed from its journal), with
+    every launch count set to 0 just before and read just after and the
+    profiler's kernel count over the run — no kernel of the port may
+    launch. ``verdict_pass`` must hold. Returns the launches."""
+    from dragonfly2_tpu_torch.train.fedbench import run_federated_bench
+
+    counts.reset()
+    t0 = time.perf_counter()
+    report, profiled = profiled_kernel_launches(
+        torch, lambda: run_federated_bench(seed=SEED, include_kill=True))
+    seconds = time.perf_counter() - t0
+    launches = counts.read()
+    clean, poisoned, kill = (report["clean"], report["poisoned"],
+                             report["kill"])
+    log("federated", seconds=seconds, rung_seconds=report["seconds"],
+        verdict_pass=report["verdict_pass"], error=report["error"],
+        clean_rounds=clean["rounds"], poisoned_rounds=poisoned["rounds"],
+        screened_reasons=poisoned["screened_reasons"],
+        screens_ok=poisoned["screens_ok"], escalated=poisoned["escalated"],
+        quarantined_version=poisoned["quarantined_version"],
+        gate_state={"clean": clean["gate_state"],
+                    "poisoned": poisoned["gate_state"]},
+        regret=clean["regret"], best_solo_regret=clean["best_solo_regret"],
+        federated_regret=clean["federated_regret"],
+        poisoned_regret=poisoned["regret"],
+        within_poison_bound=poisoned["within_poison_bound"],
+        deterministic=clean["deterministic"],
+        rank_agreement={name: (s or {}).get("rank_agreement_mean")
+                        for name, s in (report.get("ab") or {}).get(
+                            "evaluators", {}).items()},
+        kill={key: kill.get(key) for key in (
+            "ok", "killed_after_updates", "resumed", "received",
+            "committed", "train_counts", "no_retrain", "error")},
+        bounds=report["bounds"], launches=launches,
+        profiled_launches=profiled["launches"],
+        profiled_device_events=profiled["device_events"])
+    if not report["verdict_pass"]:
+        raise AssertionError(f"federated bench failed: {report['error']}; "
+                             f"clean ok {clean['ok']}, poisoned ok "
+                             f"{poisoned['ok']}, kill {kill}")
+    if any(launches.values()) or any(profiled["launches"].values()):
+        raise AssertionError(f"the federated path launched kernels: "
+                             f"{launches}, profiled {profiled['launches']}")
+    return launches
+
+
+class FederationProbe:
+    """Times a coordinator's stages from outside: while entered, the
+    federation module's ``train_mlp`` (each local fit: seconds,
+    samples/s, steps, batch), ``screen_updates``, ``aggregate_updates``,
+    ``atomic_write_json`` (seconds, fsync included, and bytes) and
+    ``register_federated_model`` (the gate: seconds, state, report) are
+    wrapped; :meth:`take` returns and clears what was recorded."""
+
+    NAMES = ("train_mlp", "screen_updates", "aggregate_updates",
+             "atomic_write_json", "register_federated_model")
+
+    def __init__(self):
+        from dragonfly2_tpu_torch.trainer import federation
+
+        self._module = federation
+        self._events = []
+
+    def _wrap(self, name, original):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            if name == "train_mlp":
+                # Each fit ends reading its params to the host, so the
+                # host clock holds its device work. Its batch is
+                # train_mlp's: the config's, clamped to the train split.
+                rows, config = len(args[0]), args[2]
+                extra = {"samples_per_sec": out.samples_per_sec,
+                         "steps": len(out.step_losses), "rows": rows,
+                         "batch": min(config.batch_size, rows - int(
+                             rows * config.eval_fraction))}
+            elif name == "atomic_write_json":
+                extra = {"bytes": os.path.getsize(args[0])}
+            elif name == "register_federated_model":
+                extra = {"state": out.state,
+                         "gate": out.evaluation.get("validation")}
+            else:
+                extra = {}
+            self._events.append((name, time.perf_counter() - t0, extra))
+            return out
+        return timed
+
+    def __enter__(self):
+        self._saved = {n: getattr(self._module, n) for n in self.NAMES}
+        for n, fn in self._saved.items():
+            setattr(self._module, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._module, n, fn)
+
+    def take(self) -> dict:
+        events, self._events = self._events, []
+        by = {n: [(s, x) for name, s, x in events if name == n]
+              for n in self.NAMES}
+        fits = [dict(x, seconds=s,
+                     step_ms=(x["batch"] / x["samples_per_sec"] * 1e3
+                              if x["samples_per_sec"] else None))
+                for s, x in by["train_mlp"]]
+        gates = [dict(x, seconds=s)
+                 for s, x in by["register_federated_model"]]
+        return {
+            "fits": fits,
+            "fit_seconds": sum(f["seconds"] for f in fits),
+            "screen_seconds": sum(s for s, _ in by["screen_updates"]),
+            "aggregate_seconds": sum(s for s, _ in by["aggregate_updates"]),
+            "journal_writes": len(by["atomic_write_json"]),
+            "journal_seconds": sum(s for s, _ in by["atomic_write_json"]),
+            "journal_bytes": sum(x["bytes"]
+                                 for _, x in by["atomic_write_json"]),
+            "gate_seconds": sum(g["seconds"] for g in gates),
+            "gate_states": [g["state"] for g in gates],
+            "gate_reports": [g["gate"] for g in gates],
+        }
+
+
+def fed4_endpoints(datasets, local, counter_path=None, straggler=None,
+                   straggler_delay_s=0.0):
+    """One ``LocalClusterEndpoint`` a dataset on the card, each fit
+    appended to ``counter_path``; cluster ``straggler`` sleeps
+    ``straggler_delay_s`` and then fails its attempt once, so it never
+    journals an update in the round it misses."""
+    from dragonfly2_tpu_torch.trainer.federation import LocalClusterEndpoint
+
+    return [LocalClusterEndpoint(
+        ds, local, counter_path=counter_path,
+        **({"delay_s": straggler_delay_s, "fail_times": 1}
+           if ds.scheduler_id == straggler else {}))
+        for ds in datasets]
+
+
+def run_federated_config4(torch, counts) -> dict:
+    """Config #4 at config #1's scale and widths (FED4_*): three band
+    clusters of ~100 000 examples, FedAvg over FED4_ROUNDS rounds at
+    quorum 3 through ``FederationCoordinator`` with a gating
+    ``ManagerService`` and traces from the eval corpus, on the card. With
+    every launch count set to 0 just before and read just after (and the
+    profiler's kernel count over the second run) — no kernel may launch
+    — it requires: every round committed; a second run on a fresh
+    journal with the same global params, bit for bit; a run whose round
+    0 first fails quorum (cluster 3 straggles past the deadline, 2
+    updates journaled), resumed by a new coordinator that trains only
+    cluster 3 (one fit a journaled cluster in the counter file), with
+    the same bits again; and the global's pooled-holdout MAE below the
+    train-mean predictor's. Logs each round's seconds split into local
+    fits, screening, aggregation, journal writes and the gate, with its
+    verdict, and peak device memory; when the global activates, serves
+    it through ``reload_from_manager`` and ModelInfer. Returns the
+    launches."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.scheduler.replay import _row_array
+    from dragonfly2_tpu_torch.train.fedbench import (
+        synth_cluster_corpora,
+        synth_federated_corpus,
+    )
+    from dragonfly2_tpu_torch.train.federated import (
+        GLOBAL_SCHEDULER_ID,
+        FederatedConfig,
+        cluster_datasets_from_corpora,
+        tree_leaves,
+    )
+    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
+    from dragonfly2_tpu_torch.trainer.federation import (
+        FederationConfig,
+        FederationCoordinator,
+        FederationQuorumError,
+    )
+
+    t0 = time.perf_counter()
+    corpora = synth_cluster_corpora(FED4_CLUSTERS, FED4_DECISIONS, seed=SEED)
+    datasets = cluster_datasets_from_corpora(corpora)
+    eval_events = list(synth_federated_corpus(
+        FED_EVAL_DECISIONS, seed=SEED + 7919, band=None).decisions())
+    traces = [np.stack([_row_array(c) for c in e.candidates])
+              for e in eval_events[:100] if e.candidates]
+    data_s = time.perf_counter() - t0
+    local = MLPTrainConfig(**FED4_LOCAL_CFG)
+    fed = FederatedConfig(local=local, rounds=FED4_ROUNDS)
+    tmp = tempfile.mkdtemp(prefix="smoke-fed4-")
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        def coordinator(journal, endpoints, deadline_s=60.0):
+            manager = ManagerService(
+                Database(os.path.join(tmp, f"{journal}.db")),
+                FilesystemObjectStore(os.path.join(tmp, f"{journal}-obj")),
+                validation=ValidationConfig())
+            return FederationCoordinator(
+                endpoints, os.path.join(tmp, journal),
+                FederationConfig(fed=fed, quorum=FED4_CLUSTERS,
+                                 round_deadline_s=deadline_s),
+                manager=manager, traces=traces), manager
+
+        # Run 1: clean, timed stage by stage.
+        coord, manager = coordinator("clean", fed4_endpoints(datasets, local))
+        rounds = []
+        with FederationProbe() as probe:
+            while coord.stats["rounds_committed"] < FED4_ROUNDS:
+                report = coord.run_round()
+                rounds.append(dict(report.to_dict(), **probe.take()))
+        clean = tree_leaves(coord.global_params)
+        result = coord.result()
+        # The train-mean predictor: the mean of every cluster's local
+        # training targets, scored on the pooled holdout.
+        train_y = np.concatenate([ep._train_y for ep in coord.endpoints])
+        hold_y = coord.holdout[1]
+        mean_mae = float(np.abs(hold_y - train_y.mean()).mean())
+
+        # Run 2: a fresh journal, under the profiler.
+        def second_run():
+            run = coordinator("again", fed4_endpoints(datasets, local))[0]
+            run.run(FED4_ROUNDS)
+            return run
+
+        again, profiled = profiled_kernel_launches(torch, second_run)
+        same_again = all(np.array_equal(a, b) for a, b in zip(
+            clean, tree_leaves(again.global_params)))
+
+        # Run 3: round 0 fails quorum, a new coordinator resumes it.
+        fit_s = sorted(f["seconds"] for f in rounds[0]["fits"])
+        deadline_s = max(8.0, 5.0 + 3.0 * sum(fit_s[:2]))
+        counter = os.path.join(tmp, "fits.txt")
+        failing, _ = coordinator("resume", fed4_endpoints(
+            datasets, local, counter, straggler=3,
+            straggler_delay_s=deadline_s + 1.0), deadline_s)
+        t0 = time.perf_counter()
+        try:
+            failing.run_round()
+            raise AssertionError("round 0 committed without cluster 3")
+        except FederationQuorumError as exc:
+            quorum_error = str(exc)
+        failed_s = time.perf_counter() - t0
+        drained = failing.drain(timeout=120.0)
+        with open(os.path.join(tmp, "resume", "round_000000.json")) as f:
+            journaled = sorted(int(s) for s in json.load(f)["updates"])
+        resumer, _ = coordinator("resume", fed4_endpoints(
+            datasets, local, counter))
+        resumed = resumer.run(FED4_ROUNDS)
+        with open(counter) as f:
+            fits = [tuple(map(int, line.split())) for line in f]
+        round0_fits = {sid: sum(1 for s, r in fits if s == sid and r == 0)
+                       for sid in (1, 2, 3)}
+        same_resumed = all(np.array_equal(a, b) for a, b in zip(
+            clean, tree_leaves(resumer.global_params)))
+        launches = counts.read()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        active = manager.get_active_model("mlp", GLOBAL_SCHEDULER_ID)
+        served = None
+        if active is not None:
+            service = InferenceService(manager=manager,
+                                       scheduler_id=GLOBAL_SCHEDULER_ID,
+                                       micro_batch=False)
+            try:
+                if not service.reload_from_manager():
+                    raise AssertionError("reload_from_manager installed "
+                                         "nothing")
+                scores = service.ModelInfer(
+                    ModelInferRequest("mlp", traces[0]),
+                    CallContext()).outputs
+            finally:
+                service.stop()
+            if not (scores.shape == (len(traces[0]),)
+                    and np.isfinite(scores).all()):
+                raise AssertionError(f"federated global scores {scores}")
+            served = {"version": active.version,
+                      "scores": [float(v) for v in scores]}
+        log("federated_config4", data_seconds=data_s,
+            examples={d.scheduler_id: len(d.X) for d in datasets},
+            holdout_rows=len(hold_y), train_rows=len(train_y),
+            local=dict(FED4_LOCAL_CFG, hidden=list(local.hidden)),
+            rounds=rounds, lineage=result.lineage,
+            holdout_mse=result.mse, holdout_mae=result.mae,
+            train_mean_mae=mean_mae, bit_identical_again=same_again,
+            quorum_failure={"deadline_s": deadline_s, "seconds": failed_s,
+                            "error": quorum_error, "journaled": journaled,
+                            "drained": drained,
+                            "resumed": resumed[0].resumed,
+                            "received": resumed[0].received,
+                            "round0_fits": round0_fits,
+                            "rounds_committed": len(resumed)},
+            bit_identical_resumed=same_resumed, served=served,
+            launches=launches, profiled_launches=profiled["launches"],
+            profiled_device_events=profiled["device_events"],
+            peak_memory_gib=peak_gib)
+        if not all(r["committed"] for r in rounds) or len(rounds) != \
+                FED4_ROUNDS:
+            raise AssertionError(f"config #4 rounds {rounds}")
+        if not same_again:
+            raise AssertionError("config #4: a second run on a fresh "
+                                 "journal gave other global params")
+        if not (drained and journaled == [1, 2]
+                and resumed[0].resumed == [1, 2]
+                and round0_fits == {1: 1, 2: 1, 3: 1}
+                and len(resumed) == FED4_ROUNDS and same_resumed):
+            raise AssertionError("config #4 quorum failure and resume: "
+                                 f"journaled {journaled}, drained {drained},"
+                                 f" resumed {resumed[0].to_dict()}, round 0 "
+                                 f"fits {round0_fits}, same bits "
+                                 f"{same_resumed}")
+        if not result.mae < mean_mae:
+            raise AssertionError(f"config #4 global holdout MAE "
+                                 f"{result.mae} >= train-mean {mean_mae}")
+        if any(launches.values()) or any(profiled["launches"].values()):
+            raise AssertionError(f"config #4 launched kernels: {launches}, "
+                                 f"profiled {profiled['launches']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -3856,6 +4311,11 @@ def main() -> int:
     # -- phase 14: the training orchestrator, slice 11's path ---------------
     training_launches = run_training(torch, mlp_x, mlp_y, counts)
 
+    # -- phase 15: federated training, config #4, slice 12 ------------------
+    check_profiler_sees_kernels(torch)
+    federated_launches = run_federated(torch, counts)
+    config4_launches = run_federated_config4(torch, counts)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -3867,7 +4327,9 @@ def main() -> int:
                    "train_mlp": mlp_launches[row["name"]],
                    "train_cost": cost_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
-                   "training": training_launches[row["name"]]}
+                   "training": training_launches[row["name"]],
+                   "federated": federated_launches[row["name"]],
+                   "federated_config4": config4_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -1,9 +1,27 @@
 """Replay-plane helpers — the part of ``dragonfly2_tpu/scheduler/replaylog.py``
-the learned-cost evaluator reads. The recorder itself is not ported."""
+that the learned-cost evaluator, the columnar store and the replay
+harness read. The recorder itself is not ported."""
 
 from __future__ import annotations
 
+from dataclasses import fields as dataclass_fields
+
 import numpy as np
+
+from dragonfly2_tpu_torch.schema import ReplayFeatureRow
+from dragonfly2_tpu_torch.scheduler.evaluator import scoring
+
+#: The schema record's field order IS the canonical feature layout; a
+#: drift here would silently corrupt every recorded corpus.
+_FEATURE_FIELDS = tuple(f.name for f in dataclass_fields(ReplayFeatureRow))
+if _FEATURE_FIELDS != scoring.FEATURE_NAMES:  # pragma: no cover - import guard
+    raise ImportError(
+        "schema.ReplayFeatureRow fields "
+        f"{_FEATURE_FIELDS} drifted from scoring.FEATURE_NAMES "
+        f"{scoring.FEATURE_NAMES}; keep them in lockstep")
+
+VERDICT_PARENTS = "parents"
+VERDICT_BACK_TO_SOURCE = "back_to_source"
 
 
 def welford_snapshot(candidate) -> tuple:

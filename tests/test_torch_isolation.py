@@ -95,6 +95,12 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.trainer.training",
         "dragonfly2_tpu_torch.utils.digest",
         "dragonfly2_tpu_torch.utils.idgen",
+        "dragonfly2_tpu_torch.utils.backoff",
+        "dragonfly2_tpu_torch.scheduler.replaystore",
+        "dragonfly2_tpu_torch.train.federated",
+        "dragonfly2_tpu_torch.train.fedbench",
+        "dragonfly2_tpu_torch.train.fedproc",
+        "dragonfly2_tpu_torch.trainer.federation",
     }
     assert expected <= set(probe["imported"])
 
