@@ -9,9 +9,10 @@ a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 (BASELINE config #1) and the piece-cost model and rank parents with them
 through the scheduler's ``ml`` and ``cost`` evaluators, run the
 trainer's ``Training`` orchestrator from CSV dataset segments to the
-gated registry, and run federated multi-cluster training (BASELINE
+gated registry, run federated multi-cluster training (BASELINE
 config #4) through the crash-safe coordinator to a gated global model,
-on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
+and train configs #1-#3 and the orchestrator data-parallel over
+``torch.distributed`` ranks, on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
@@ -208,7 +209,23 @@ Phases (any failure exits nonzero, before the final line):
    and, when the gate activates the global, ``reload_from_manager`` and
    ModelInfer). On both, every launch count is set to 0 just before and
    read just after, and the profiler counts the port's kernels by name:
-   no kernel may launch (the path is dense products).
+   no kernel may launch (the path is dense products);
+16. data parallelism, the slice 13 path (the JAX mesh's ``data`` axis):
+   dp_world_one (a child process joins a world of one over NCCL through
+   ``init_multihost`` from the ``DF2_*`` environment and trains config
+   #2 GraphSAGE for one epoch: its parameters must equal the no-group
+   run's bit for bit), dp_train (DP_WORLD ranks spawned once on the one
+   card over gloo, each checking all_reduce and broadcast on a CUDA
+   tensor, then training config #2 with sampling on the device and on
+   the host, config #1, config #3 in blocks and in gather mode cut to
+   one epoch, and ``Training.train`` on the training phase's records
+   with ``group=`` the world: both ranks' parameter digests equal, gaps
+   to the world-of-one runs within the CPU tests' limits, each rank's
+   K1, K2a and K2b launches as predicted, rank 0 alone uploading; the
+   step, the all-reduce's time and share, samples/s and each rank's
+   peak memory, labelled "gloo, 2 ranks on one card") and
+   dp_nccl_cards (the same over NCCL with a rank a card where there are
+   several cards; logged as waiting on one).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -442,6 +459,24 @@ FED_EVAL_DECISIONS = 400
 # K2a launches the profiler is shown before the federated phases' zero
 # counts are read from it (check_profiler_sees_kernels).
 PROFILER_CHECK = 500
+# Data parallelism (slice 13): DP_WORLD ranks on the one card over gloo
+# (NCCL refuses two ranks on one card), each job as its own phase trains
+# it but without a wall-clock cap, config #3 cut to DP_GAT_EPOCHS epoch
+# (59 steps of 8192), and Training.train on the training phase's
+# records. Gaps of rank 0's final loss, F1 and MAE to the world of one's
+# on the card: the limits the CPU tests hold bf16 runs to
+# (tests/test_torch_data_parallel.py against the JAX trainer: losses
+# 1e-2 for GraphSAGE and the MLP, 5e-2 for the GraphTransformer, MAE 5e-2
+# relative; F1 0.05 as tests/test_torch_graphsage.py, 0.1 as
+# tests/test_torch_train.py). The all-reduce is timed over
+# DP_ALLREDUCE_ITERS calls after each job.
+DP_WORLD = 2
+DP_GAT_EPOCHS = 1
+DP_LOSS_TOL = {"gnn": 1e-2, "mlp": 1e-2, "gat": 5e-2}
+DP_F1_TOL = {"gnn": 0.05, "gat": 0.1}
+DP_MAE_RTOL = 5e-2
+DP_ALLREDUCE_ITERS = 20
+DP_TIMEOUT_S = 300
 # Each row of the kernels line → the __global__ functions of its
 # sources, read from the profiler's kernel names.
 KERNEL_FUNCTIONS = {
@@ -3295,6 +3330,50 @@ def write_segments(storage, prefix: str, record_type, records,
         os.remove(path)
 
 
+def write_training_segments(storage, mlp_x, mlp_y, scratch: str,
+                            host_s: dict) -> tuple:
+    """The training phase's records (``training_records`` and the cost
+    stand-in's decisions) written into ``storage`` as TRAINING_SEGMENTS
+    closed segments of each kind; the host seconds of generating and
+    writing go into ``host_s``. Returns (topology, downloads,
+    decisions)."""
+    from dragonfly2_tpu_torch.schema import (
+        Download,
+        NetworkTopology,
+        ReplayDecision,
+    )
+
+    t0 = time.perf_counter()
+    topology, downloads = training_records()
+    decisions = replay_records(cost_corpus(mlp_x, mlp_y))
+    host_s["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for prefix, record_type, records in (
+            ("networktopology", NetworkTopology, topology),
+            ("download", Download, downloads),
+            ("replay", ReplayDecision, decisions)):
+        write_segments(storage, prefix, record_type, records,
+                       TRAINING_SEGMENTS, scratch)
+    storage.close_host(TRAINING_HOST_ID)
+    host_s["write"] = time.perf_counter() - t0
+    return topology, downloads, decisions
+
+
+def training_config():
+    """The training phase's jobs at their published widths."""
+    from dragonfly2_tpu_torch.train.cost_trainer import CostTrainConfig
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
+    from dragonfly2_tpu_torch.train.gnn_trainer import GNNTrainConfig
+    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
+    from dragonfly2_tpu_torch.trainer import TrainingConfig
+
+    return TrainingConfig(
+        gnn=GNNTrainConfig(**TRAINING_GNN_CFG),
+        mlp=MLPTrainConfig(**TRAINING_MLP_CFG),
+        gat=GATTrainConfig(**TRAINING_GAT_CFG),
+        cost=CostTrainConfig(), train_gat_model=True)
+
+
 class MetricFamily(dict):
     """One labelled metric family kept as a dict by job name: the part of
     a prometheus family that ``Training`` reports into."""
@@ -3353,7 +3432,8 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
     predicting the train mean; every closed segment deleted and the open
     one kept; the gate's verdict for each model, the ``gat`` version
     active and answering ModelInfer through ``reload_from_manager``.
-    Returns the launches."""
+    Returns (the launches, the predicted launches, each job's
+    evaluation)."""
     import tempfile
 
     from dragonfly2_tpu_torch.data import ArrayDataset
@@ -3372,46 +3452,25 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
         ManagerService,
     )
     from dragonfly2_tpu_torch.manager.validation import ValidationConfig
-    from dragonfly2_tpu_torch.schema import (
-        Download,
-        NetworkTopology,
-        ReplayDecision,
-    )
+    from dragonfly2_tpu_torch.schema import Download, NetworkTopology
     from dragonfly2_tpu_torch.schema.io import records_to_table
     from dragonfly2_tpu_torch.train.cost_trainer import (
-        CostTrainConfig,
         cost_examples_from_corpus,
     )
-    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
-    from dragonfly2_tpu_torch.train.gnn_trainer import GNNTrainConfig
-    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
-    from dragonfly2_tpu_torch.trainer import (
-        TrainerStorage,
-        Training,
-        TrainingConfig,
-    )
+    from dragonfly2_tpu_torch.trainer import TrainerStorage, Training
 
     host_s = {}
-    t0 = time.perf_counter()
-    topology, downloads = training_records()
-    decisions = replay_records(cost_corpus(mlp_x, mlp_y))
-    host_s["generate"] = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="smoke-training-")
     try:
         storage = TrainerStorage(os.path.join(tmp, "segments"))
+        topology, downloads, decisions = write_training_segments(
+            storage, mlp_x, mlp_y, tmp, host_s)
         t0 = time.perf_counter()
-        for prefix, record_type, records in (
-                ("networktopology", NetworkTopology, topology),
-                ("download", Download, downloads),
-                ("replay", ReplayDecision, decisions)):
-            write_segments(storage, prefix, record_type, records,
-                           TRAINING_SEGMENTS, tmp)
-        storage.close_host(TRAINING_HOST_ID)
         with open(storage.network_topology_files(TRAINING_HOST_ID)[0],
                   "rb") as f:
             open_path = storage.append("networktopology", TRAINING_HOST_ID,
                                        f.read(), new_file=True)
-        host_s["write"] = time.perf_counter() - t0
+        host_s["write"] += time.perf_counter() - t0
         closed = [p for files in storage.snapshot(TRAINING_HOST_ID)
                   for p in files]
 
@@ -3431,11 +3490,7 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
         cost_x, _ = cost_examples_from_corpus(replay_recs)
         del topo_recs, dl_recs, replay_recs
 
-        config = TrainingConfig(
-            gnn=GNNTrainConfig(**TRAINING_GNN_CFG),
-            mlp=MLPTrainConfig(**TRAINING_MLP_CFG),
-            gat=GATTrainConfig(**TRAINING_GAT_CFG),
-            cost=CostTrainConfig(), train_gat_model=True)
+        config = training_config()
         predicted = predicted_training_launches(graph, config,
                                                 counts.read())
         manager = ManagerService(
@@ -3520,7 +3575,7 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
         storage.close_host(TRAINING_HOST_ID)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, predicted, evaluations
 
 
 def profiled_kernel_launches(torch, fn):
@@ -3924,6 +3979,455 @@ def run_federated_config4(torch, counts) -> dict:
     return launches
 
 
+def dp_configs() -> dict:
+    """The data-parallel phases' jobs: config #2 (both sampling paths)
+    and config #1 as their phases train them, config #3 cut to one epoch,
+    each without a wall-clock cap (a cap would add a collective a step:
+    the ranks must agree when to stop)."""
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
+    from dragonfly2_tpu_torch.train.gnn_trainer import GNNTrainConfig
+    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
+
+    gnn = dict(GNN_CFG, max_seconds=None)
+    gat = dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS, max_seconds=None)
+    return {
+        "gnn_device": ("gnn", GNNTrainConfig(**gnn, device_sample=True)),
+        "gnn_host": ("gnn", GNNTrainConfig(**gnn, device_sample=False)),
+        "mlp": ("mlp", MLPTrainConfig(**dict(MLP_CFG, max_seconds=None))),
+        "gat_blocks": ("gat", GATTrainConfig(**gat, attention="blocks")),
+        "gat_gather": ("gat", GATTrainConfig(**gat, attention="gather")),
+    }
+
+
+def dp_data(kind: str):
+    """The seeded inputs of a job: config #2's graph, config #1's pair
+    examples or config #3's graph."""
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+
+    if kind == "gnn":
+        return SyntheticCluster(n_hosts=GNN_HOSTS, seed=SEED).probe_graph(
+            GNN_EDGES)
+    if kind == "mlp":
+        return SyntheticCluster(n_hosts=MLP_HOSTS, seed=SEED
+                                ).pair_example_columns(MLP_ROWS)
+    return SyntheticCluster(n_hosts=N_HOSTS, seed=SEED).probe_graph(N_EDGES)
+
+
+def dp_fit(kind: str, config, data, group):
+    """One job's trainer (the body of ``train_gnn`` / ``train_mlp`` /
+    ``train_gat``) over ``group`` → (trainer, result, state dict, the
+    kernel launches one rank must make)."""
+    from dragonfly2_tpu_torch.train.checkpoint import mlp_state_dict_from_flax
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
+    from dragonfly2_tpu_torch.train.gnn_trainer import GNNTrainer
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+    from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainer
+
+    expected = dict.fromkeys(Counts().read(), 0)
+    if kind == "mlp":
+        trainer = MLPTrainer(*data, config, group=group)
+        result = trainer.fit()
+        return (trainer, result, mlp_state_dict_from_flax(result.params),
+                expected)
+    cls = GNNTrainer if kind == "gnn" else GATTrainer
+    trainer = cls(data, config, group=group)
+    result = trainer.fit()
+    steps = len(result.step_losses)
+    chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    if kind == "gnn":
+        # One K2a a forward on each rank, over its share of the rows.
+        expected["table_gather"] = steps + chunks
+    elif config.attention == "blocks":
+        # Every rank runs the whole graph's embedding pass.
+        expected["graph_flash_attention"] = config.layers * (steps + chunks)
+        expected["graph_flash_attention_backward"] = config.layers * steps
+    else:
+        expected["table_gather"] = config.layers * (steps + chunks)
+        expected["table_scatter_add"] = config.layers * steps
+    return trainer, result, result.state_dict, expected
+
+
+def dp_quality(kind: str, result) -> dict:
+    key = "mae" if kind == "mlp" else "f1"
+    return {"loss": float(result.history[-1]), key: float(getattr(result,
+                                                                  key))}
+
+
+def dp_allreduce_ms(torch, trainer) -> float:
+    """Milliseconds of the trainer's per-step all-reduce (every gradient
+    and the loss in one buffer) on the trained model's gradients, over
+    DP_ALLREDUCE_ITERS calls, each rank calling alike."""
+    params = list(trainer.model.parameters())
+    loss = torch.zeros((), device=trainer.device)
+    for _ in range(3):
+        trainer.dp.allreduce_grads_(params, loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_ITERS):
+        trainer.dp.allreduce_grads_(params, loss)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / DP_ALLREDUCE_ITERS * 1e3
+
+
+def dp_rank(rank: int, world: int, address: str, backend: str,
+            out_dir: str, segments: str, predicted: dict) -> None:
+    """One rank of the dp_train phase (a spawned process): joins the
+    fleet with ``init_multihost`` (its device cuda:(rank % cards)),
+    checks all_reduce and broadcast on one CUDA tensor, then trains every
+    job of :func:`dp_configs` and ``Training.train`` over the default
+    group, each with the launch counts set to 0 just before and read
+    just after. Writes ``rank<rank>.json`` to ``out_dir`` (a traceback to
+    ``rank<rank>.err``)."""
+    import traceback
+
+    try:
+        report = dp_rank_jobs(rank, world, address, backend, segments,
+                              predicted)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def dp_rank_jobs(rank, world, address, backend, segments, predicted) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.parallel.dryrun import state_digest
+    from dragonfly2_tpu_torch.parallel.multihost import agree, init_multihost
+    from dragonfly2_tpu_torch.trainer import TrainerStorage, Training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    info = init_multihost(address, world, rank, backend=backend)
+    report = {"rank": rank, "backend": info.backend,
+              "device": str(info.device),
+              "start_seconds": time.perf_counter() - t_start}
+    try:
+        # gloo stages CUDA tensors through the host: one tensor each way.
+        summed = torch.full((4,), float(rank + 1), device=info.device)
+        dist.all_reduce(summed)
+        sent = torch.full((4,), float(rank + 7), device=info.device)
+        dist.broadcast(sent, src=0)
+        torch.cuda.synchronize()
+        report["collective_check"] = {
+            "all_reduce": summed.tolist(), "broadcast": sent.tolist(),
+            "ok": bool((summed == world * (world + 1) / 2).all()
+                       and (sent == 7).all())}
+        if not report["collective_check"]["ok"]:
+            raise AssertionError(f"collectives on CUDA tensors: "
+                                 f"{report['collective_check']}")
+        counts = Counts()
+        data = {}
+        for name, (kind, config) in dp_configs().items():
+            if kind not in data:
+                data[kind] = dp_data(kind)
+            counts.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, result, state, expected = dp_fit(kind, config,
+                                                      data[kind], None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = counts.read()
+            digests = agree(state_digest(state)).ravel().tolist()
+            step_ms = trainer.batch / result.samples_per_sec * 1e3
+            allreduce_ms = dp_allreduce_ms(torch, trainer)
+            report[name] = dict(
+                seconds=seconds, steps=len(result.step_losses),
+                batch=trainer.batch, history=result.history,
+                **dp_quality(kind, result), digests=digests,
+                launches=launches, expected_launches=expected,
+                step_ms=step_ms,
+                samples_per_sec_global=result.samples_per_sec,
+                samples_per_sec_per_rank=result.samples_per_sec / world,
+                allreduce_ms=allreduce_ms,
+                allreduce_share=allreduce_ms / step_ms,
+                allreduce_bytes=4 * (1 + sum(
+                    p.numel() for p in trainer.model.parameters())),
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del trainer, result, state
+        del data
+
+        # The orchestrator on the training phase's records, each rank on
+        # its own copy of the segments; rank 0 alone uploads.
+        root = f"{segments}-rank{rank}"
+        shutil.copytree(segments, os.path.join(root, "segments"))
+        try:
+            storage = TrainerStorage(os.path.join(root, "segments"))
+            manager = ManagerService(
+                Database(os.path.join(root, "manager.db")),
+                FilesystemObjectStore(os.path.join(root, "objects")),
+                validation=ValidationConfig())
+            metrics = JobMetrics()
+            counts.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outcome = Training(storage, manager, training_config(),
+                               metrics=metrics, group=None).train(
+                TRAINING_IP, TRAINING_HOSTNAME, TRAINING_HOST_ID,
+                TRAINING_SCHEDULER_ID)
+            torch.cuda.synchronize()
+            expected = dict(predicted)
+            if rank != 0:
+                # The gate's embedding pass runs where the upload goes.
+                expected["graph_flash_attention"] -= training_config(
+                    ).gat.layers
+            rows = manager.db.find("models",
+                                   scheduler_id=TRAINING_SCHEDULER_ID)
+            report["training"] = dict(
+                seconds=time.perf_counter() - t0, errors=outcome.errors,
+                evaluations={job: getattr(outcome, f"{job}_evaluation")
+                             for job in ("gnn", "gat", "mlp", "cost")},
+                job_seconds=dict(metrics.training_duration),
+                samples_per_sec_global=dict(metrics.train_samples_per_sec),
+                registered=sorted((r.type, r.state) for r in rows),
+                launches=counts.read(), expected_launches=expected,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    return report
+
+
+def dp_world_one_child(address: str, out_path: str) -> None:
+    """The dp_world_one phase's process: a world of one joined through the
+    ``DF2_*`` environment over NCCL on cuda:0, training config #2
+    GraphSAGE (sampling on the device) over it; saves the state dict to
+    ``out_path``."""
+    import torch
+
+    from dragonfly2_tpu_torch.parallel.multihost import init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(DF2_COORDINATOR_ADDRESS=address, DF2_NUM_PROCESSES="1",
+                      DF2_PROCESS_ID="0")
+    info = init_multihost()
+    import torch.distributed as dist
+
+    try:
+        kind, config = dp_configs()["gnn_device"]
+        _, result, state, _ = dp_fit(kind, config, dp_data(kind), None)
+        torch.save({"state": state, "backend": info.backend,
+                    "history": result.history}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def release_card_memory(torch) -> float:
+    """Return this process's cached device memory to the card before
+    ranks that share it start (the earlier phases leave tens of GB
+    reserved in the caching allocator); returns the GiB still reserved."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_processes(targets) -> list:
+    """Start each (function, args) in a spawned process."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
+    for proc in procs:
+        proc.start()
+    return procs
+
+
+def join_processes(procs, timeout_s: float, out_dir: str) -> None:
+    """Wait for ``procs`` within ``timeout_s``, terminate what is left, and
+    raise with each failed process's traceback (``rank<i>.err`` under
+    ``out_dir``)."""
+    deadline = time.monotonic() + timeout_s
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    hung = [i for i, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    failed = {}
+    for i, proc in enumerate(procs):
+        if proc.exitcode != 0:
+            err = os.path.join(out_dir, f"rank{i}.err")
+            failed[i] = (open(err).read()[-4000:] if os.path.exists(err)
+                         else f"exit code {proc.exitcode}")
+    if hung or failed:
+        raise AssertionError(f"processes hung {hung} or failed {failed}")
+
+
+def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
+    """Data parallelism, slice 13's path (the JAX mesh's ``data`` axis).
+
+    dp_world_one: a child process joins a world of one over NCCL through
+    ``init_multihost`` and trains config #2 GraphSAGE; its parameters
+    must equal the same run's without a process group (here) bit for
+    bit (its seconds include this process's reference runs beside it). dp_train: DP_WORLD ranks spawned once on cuda:0 over gloo (NCCL
+    refuses two ranks on one card) train every job of :func:`dp_configs`
+    and ``Training.train`` (:func:`dp_train`). dp_nccl_cards: the same
+    over NCCL with a rank a card where the machine has several cards;
+    with one it is logged as waiting. Returns rank 0's launches in
+    dp_train, summed over its jobs."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.trainer import TrainerStorage
+
+    tmp = tempfile.mkdtemp(prefix="smoke-dp-")
+    try:
+        # dp_world_one's child (NCCL, one rank) runs while this process
+        # trains the world-of-one references (no process group) and
+        # writes the training records; the card's numerics do not depend
+        # on who else runs on it.
+        t0 = time.perf_counter()
+        parent_gib = release_card_memory(torch)
+        out_path = os.path.join(tmp, "world_one.pt")
+        child = start_processes([(dp_world_one_child,
+                                  (f"localhost:{free_port()}", out_path))])
+        reference, state_one = {}, None
+        for name, (kind, config) in dp_configs().items():
+            trainer, result, state, _ = dp_fit(kind, config, dp_data(kind),
+                                               None)
+            reference[name] = dp_quality(kind, result)
+            if name == "gnn_device":
+                state_one = {k: v.clone() for k, v in state.items()}
+            del trainer, result, state
+        reference["training"] = training_ref["evaluations"]
+        segments = os.path.join(tmp, "segments")
+        write_training_segments(TrainerStorage(segments), mlp_x, mlp_y, tmp,
+                                {})
+        join_processes(child, DP_TIMEOUT_S, tmp)
+        one = torch.load(out_path)
+        gaps = {k: float((one["state"][k].float()
+                          - state_one[k].float()).abs().max())
+                for k in state_one}
+        log("dp_world_one", seconds=time.perf_counter() - t0,
+            parent_reserved_gib=parent_gib,
+            backend=one["backend"], max_abs_gap=max(gaps.values()),
+            bit_equal=all(torch.equal(one["state"][k], state_one[k])
+                          for k in state_one),
+            history=one["history"])
+        if not all(torch.equal(one["state"][k], state_one[k])
+                   for k in state_one):
+            raise AssertionError(f"dp_world_one: a world of one over NCCL "
+                                 f"is not the no-group run: {gaps}")
+
+        ranks = dp_train(torch, "dp_train", "gloo", DP_WORLD, tmp, segments,
+                         training_ref["predicted"], reference)
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            dp_train(torch, "dp_nccl_cards", "nccl", cards, tmp, segments,
+                     training_ref["predicted"], reference)
+        else:
+            log("dp_nccl_cards", cards=cards)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict.fromkeys(ranks[0]["training"]["launches"], 0)
+    for name in list(dp_configs()) + ["training"]:
+        for row, n in ranks[0][name]["launches"].items():
+            launches[row] += n
+    return launches
+
+
+def dp_train(torch, phase: str, backend: str, world: int, tmp: str,
+             segments: str, predicted: dict, reference: dict) -> list:
+    """``world`` ranks over ``backend``, spawned once (:func:`dp_rank`):
+    both ranks' parameter digests equal, each job's gaps to its
+    world-of-one run (``reference``; the training phase's evaluations for
+    ``Training.train``) within DP_LOSS_TOL / DP_F1_TOL / DP_MAE_RTOL, each
+    rank's launches as predicted, rank 0 alone uploading; logs the step,
+    the all-reduce's time and share of it, samples/s and peak memory of
+    each rank as ``phase``. Returns the ranks' reports."""
+    out_dir = os.path.join(tmp, phase)
+    os.makedirs(out_dir)
+    parent_gib = release_card_memory(torch)
+    t0 = time.perf_counter()
+    address = f"localhost:{free_port()}"
+    join_processes(start_processes(
+        [(dp_rank, (rank, world, address, backend, out_dir, segments,
+                    predicted)) for rank in range(world)]),
+        DP_TIMEOUT_S, out_dir)
+    ranks = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    seconds = time.perf_counter() - t0
+
+    failures, jobs = [], {}
+    for name, (kind, _) in dp_configs().items():
+        per_rank = [r[name] for r in ranks]
+        key = "mae" if kind == "mlp" else "f1"
+        ref = reference[name]
+        gaps = {"loss": abs(per_rank[0]["loss"] - ref["loss"]),
+                key: abs(per_rank[0][key] - ref[key])}
+        tol = {"loss": DP_LOSS_TOL[kind],
+               key: (DP_MAE_RTOL * ref[key] if kind == "mlp"
+                     else DP_F1_TOL[kind])}
+        jobs[name] = {"world_one": ref, "gaps": gaps, "tol": tol,
+                      "ranks": per_rank}
+        if len({d for r in per_rank for d in r["digests"]}) != 1:
+            failures.append(f"{name}: digests {per_rank[0]['digests']}")
+        if any(gaps[k] > tol[k] for k in gaps):
+            failures.append(f"{name}: gaps {gaps} over {tol}")
+        for r in per_rank:
+            if r["launches"] != r["expected_launches"]:
+                failures.append(f"{name}: launches {r['launches']} != "
+                                f"{r['expected_launches']}")
+    training = [r["training"] for r in ranks]
+    t_gaps = {}
+    for job, key in (("gnn", "f1"), ("gat", "f1"), ("mlp", "mae")):
+        got = training[0]["evaluations"][job][key]
+        want = reference["training"][job][key]
+        t_gaps[job] = abs(got - want)
+        tol = DP_MAE_RTOL * want if key == "mae" else DP_F1_TOL[job]
+        if t_gaps[job] > tol:
+            failures.append(f"training {job}: {key} {got} vs {want}")
+    for r in training:
+        if r["errors"] or r["launches"] != r["expected_launches"]:
+            failures.append(f"training: errors {r['errors']}, launches "
+                            f"{r['launches']} != {r['expected_launches']}")
+    if len(training[0]["registered"]) != 4 or any(
+            r["registered"] for r in training[1:]):
+        failures.append(f"training uploads "
+                        f"{[r['registered'] for r in training]}")
+    if any(r["evaluations"] != training[0]["evaluations"]
+           for r in training[1:]):
+        failures.append("training: the ranks' evaluations differ")
+    where = "one card" if backend == "gloo" else f"{world} cards"
+    log(phase, label=f"{backend}, {world} ranks on {where}", seconds=seconds,
+        world=world, parent_reserved_gib=parent_gib,
+        collective_check=[r["collective_check"] for r in ranks],
+        start_seconds=[r["start_seconds"] for r in ranks], jobs=jobs,
+        training={"ranks": training, "world_one": reference["training"],
+                  "gaps": t_gaps})
+    if failures:
+        raise AssertionError(f"{phase}: {failures}")
+    return ranks
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -4309,12 +4813,17 @@ def main() -> int:
     check_cost_evaluator(torch, cost_artifact, cost_scorer)
 
     # -- phase 14: the training orchestrator, slice 11's path ---------------
-    training_launches = run_training(torch, mlp_x, mlp_y, counts)
+    training_launches, training_predicted, training_evals = run_training(
+        torch, mlp_x, mlp_y, counts)
 
     # -- phase 15: federated training, config #4, slice 12 ------------------
     check_profiler_sees_kernels(torch)
     federated_launches = run_federated(torch, counts)
     config4_launches = run_federated_config4(torch, counts)
+
+    # -- phase 16: data parallelism, slice 13 -------------------------------
+    dp_launches = run_data_parallel(torch, mlp_x, mlp_y, {
+        "evaluations": training_evals, "predicted": training_predicted})
 
     for row in rows:
         by_path = {"serve": launches[row["name"]],
@@ -4329,7 +4838,8 @@ def main() -> int:
                    "lifecycle": lifecycle_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "federated": federated_launches[row["name"]],
-                   "federated_config4": config4_launches[row["name"]]}
+                   "federated_config4": config4_launches[row["name"]],
+                   "data_parallel": dp_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

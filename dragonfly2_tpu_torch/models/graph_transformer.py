@@ -263,7 +263,7 @@ class GraphAttentionBlock(nn.Module):
                 raise NotImplementedError(
                     "attention='ring' across several processes (K/V rows "
                     "sharded around the ring) comes with the parallel set "
-                    "(ROADMAP.md Queue 1 item 8); in a world of one it is "
+                    "(ROADMAP.md Queue 1 item 8b); in a world of one it is "
                     "the blocks math")
             # The CPU's key block; the kernel takes none.
             block = (_divisor_block(n, self.chunk) if self.attention == "ring"

@@ -104,11 +104,12 @@ def train_cost(
     y: np.ndarray,
     config: CostTrainConfig = CostTrainConfig(),
     device=None,
+    group=None,
 ) -> CostTrainResult:
     """Train the cost predictor. ``y`` is realized piece cost in SECONDS
     (positive); the loop regresses log1p(y) standardized, so sub-second
     and multi-second costs share a scale. ``device=None`` means the
-    card."""
+    card; ``group`` is :func:`train_mlp`'s data-parallel group."""
     if len(X) < MIN_COST_EXAMPLES:
         raise ValueError(
             f"{len(X)} cost examples < {MIN_COST_EXAMPLES}; refusing to "
@@ -123,7 +124,8 @@ def train_cost(
         eval_fraction=config.eval_fraction,
         max_seconds=config.max_seconds,
     )
-    result = train_mlp(X, np.asarray(y, np.float32), mlp_config, device)
+    result = train_mlp(X, np.asarray(y, np.float32), mlp_config, device,
+                       group=group)
     return CostTrainResult(
         params=result.params,
         normalizer=result.normalizer,

@@ -57,6 +57,7 @@ from dragonfly2_tpu_torch.train.federated import (
     FederatedConfig,
     cluster_datasets_from_corpora,
 )
+from dragonfly2_tpu_torch.parallel.mesh import LOCAL
 from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig, train_mlp
 
 #: The checkout root: ``run_federated_kill``'s child runs from it, so
@@ -431,7 +432,7 @@ def run_federated_bench(*, seed: int = 0, n_decisions: int = 300,
         evaluators["federated"] = MLEvaluator(
             _scorer_from_artifact(active.artifact, device=device))
         for ds in datasets:
-            solo = train_mlp(ds.X, ds.y, local, device)
+            solo = train_mlp(ds.X, ds.y, local, device, group=LOCAL)
             evaluators[f"solo{ds.scheduler_id}"] = MLEvaluator(ParentScorer(
                 solo.model, solo.normalizer, solo.target_norm,
                 device=device))
@@ -453,7 +454,7 @@ def run_federated_bench(*, seed: int = 0, n_decisions: int = 300,
         liar_dir = os.path.join(workdir, "liar-artifact")
         liar_ds = next(ds for ds in poisoned_datasets
                        if ds.scheduler_id == flip_sid)
-        liar = train_mlp(liar_ds.X, liar_ds.y, local, device)
+        liar = train_mlp(liar_ds.X, liar_ds.y, local, device, group=LOCAL)
         save_model(liar_dir,
                    mlp_tree(liar.params, liar.normalizer, liar.target_norm),
                    ModelMetadata(model_id="liar", model_type="mlp",

@@ -53,6 +53,7 @@ from dragonfly2_tpu_torch.models.mlp import (
     Normalizer,
     predict_bandwidth,
 )
+from dragonfly2_tpu_torch.parallel.mesh import LOCAL
 from dragonfly2_tpu_torch.train.checkpoint import (
     ModelMetadata,
     flax_from_mlp_state_dict,
@@ -499,6 +500,7 @@ def train_federated_mlp(
                 ds.X, ds.y, config.local, device,
                 init_params=global_params,
                 normalizer=normalizer, target_norm=target_norm,
+                group=LOCAL,
             )
             per_cluster[ds.scheduler_id] = result
             updates.append(ClusterUpdate(

@@ -44,6 +44,7 @@ def main(argv=None) -> int:
         FederatedConfig,
         cluster_datasets_from_corpora,
     )
+    from dragonfly2_tpu_torch.parallel.mesh import LOCAL
     from dragonfly2_tpu_torch.train.mlp_trainer import train_mlp
     from dragonfly2_tpu_torch.trainer.federation import (
         FederationConfig,
@@ -60,7 +61,8 @@ def main(argv=None) -> int:
     # One throwaway fit first: the device's context, its library handles
     # and the kernels load here, not inside the round, so the endpoints'
     # delays — not start-up — set when each update reaches the journal.
-    train_mlp(datasets[0].X, datasets[0].y, local, args.device)
+    train_mlp(datasets[0].X, datasets[0].y, local, args.device,
+              group=LOCAL)
     endpoints = [
         LocalClusterEndpoint(ds, local, args.device,
                              delay_s=delays[i % len(delays)],

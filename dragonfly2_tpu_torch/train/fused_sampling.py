@@ -9,6 +9,12 @@ the CPU and on the card. The JAX package derives its two salts a step
 from a threefry key; the port has no threefry, so its callers pass the
 salts in (the trainer draws them from a seeded ``torch.Generator``).
 
+The hash is keyed by the GLOBAL row-major position, as the JAX
+package's (it partitions over any mesh with "identical results
+regardless of device count"): a data-parallel rank that samples rows
+``[r0, r0 + b)`` of a global edge batch passes ``row_offset=r0``, and its
+neighbors are those rows of the whole batch's, bit for bit.
+
 torch has no usable uint32, so the hash works in int64 on values kept in
 [0, 2³²): every add and product is masked with ``0xFFFFFFFF``, and a
 product with a 32-bit constant is taken in 16-bit halves
@@ -89,27 +95,34 @@ def _lowbias32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _hashed_bits(salt: int, shape: tuple, device=None) -> torch.Tensor:
+def _hashed_bits(salt: int, shape: tuple, device=None,
+                 offset: int = 0) -> torch.Tensor:
     """Uniform 32-bit values (int64 in [0, 2³²)) from (``salt``, the
-    global row-major position in ``shape``), bit-identical to the JAX
-    package's ``_hashed_bits``: positions and sums wrap mod 2³²."""
+    global row-major position), bit-identical to the JAX package's
+    ``_hashed_bits``: positions and sums wrap mod 2³². ``shape`` is this
+    slice's and ``offset`` the global position of its first element, so
+    a slice of a larger array hashes as that array's rows."""
     salt = int(salt) & _MASK32
     n = int(np.prod(shape, dtype=np.int64))
     idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    idx = (idx + salt) & _MASK32
+    idx = (idx + ((int(offset) + salt) & _MASK32)) & _MASK32
     return _lowbias32(_lowbias32(idx) ^ ((salt * 0x9E3779B9) & _MASK32))
 
 
 def sample_neighbors(graph: GraphTables, nodes: torch.Tensor, fanout: int,
-                     salt: int):
+                     salt: int, row_offset: int = 0):
     """Fanout-sample WITH replacement for each node of int32 ``nodes``;
     returns (nbr_idx int32, rtt f32, mask f32), each ``nodes.shape +
     (fanout,)``. Padded slots (zero-degree nodes) carry index 0, rtt 0
-    and mask 0; a node with out-edges fills all ``fanout`` slots."""
+    and mask 0; a node with out-edges fills all ``fanout`` slots.
+    ``nodes`` are rows ``[row_offset, …)`` of a larger batch along the
+    leading axis, and hash as those rows."""
     nodes = nodes.long()
     start = graph.indptr[nodes]
     deg = graph.indptr[nodes + 1] - start
-    bits = _hashed_bits(salt, tuple(nodes.shape) + (fanout,), nodes.device)
+    per_row = int(np.prod(nodes.shape[1:], dtype=np.int64)) * fanout
+    bits = _hashed_bits(salt, tuple(nodes.shape) + (fanout,), nodes.device,
+                        offset=row_offset * per_row)
     safe_deg = torch.clamp(deg, min=1).long()
     pos = start[..., None].long() + bits % safe_deg[..., None]
     # Zero-degree tail nodes point at indptr[-1] == E (out of bounds);
@@ -122,18 +135,21 @@ def sample_neighbors(graph: GraphTables, nodes: torch.Tensor, fanout: int,
 
 
 def sample_indices(graph: GraphTables, src: torch.Tensor, dst: torch.Tensor,
-                   salts: tuple[int, int], fanouts: tuple[int, int]):
+                   salts: tuple[int, int], fanouts: tuple[int, int],
+                   row_offset: int = 0):
     """The 2-hop neighborhood of each target edge's endpoints, sampled on
     the tensors' device with salts ``(s1, s2)`` for the two hops →
     (centers [B, 2], nbr1, rtt1, mask1 [B, 2, f1], nbr2, rtt2, mask2
     [B, 2, f1, f2]); ids int32, the 2-hop mask zero under padded 1-hop
     slots and the 2-hop rtt multiplied by it, as the JAX package's
-    ``sample_and_apply`` feeds its model."""
+    ``sample_and_apply`` feeds its model. The edges are rows
+    ``[row_offset, …)`` of a global edge batch (a data-parallel rank's
+    slice)."""
     f1, f2 = fanouts
     s1, s2 = salts
     centers = torch.stack([src, dst], dim=-1).to(torch.int32)
-    nbr1, rtt1, mask1 = sample_neighbors(graph, centers, f1, s1)
-    nbr2, rtt2, mask2 = sample_neighbors(graph, nbr1, f2, s2)
+    nbr1, rtt1, mask1 = sample_neighbors(graph, centers, f1, s1, row_offset)
+    nbr2, rtt2, mask2 = sample_neighbors(graph, nbr1, f2, s2, row_offset)
     mask2 = mask2 * mask1[..., None]
     return centers, nbr1, rtt1, mask1, nbr2, rtt2 * mask2, mask2
 
@@ -163,23 +179,29 @@ def apply_indexed(model, node_features: torch.Tensor, centers, nbr1, rtt1,
 
 
 def sample_and_apply(model, graph: GraphTables, src, dst,
-                     salts: tuple[int, int], fanouts: tuple[int, int]):
+                     salts: tuple[int, int], fanouts: tuple[int, int],
+                     row_offset: int = 0):
     """Sample the 2-hop neighborhood on the device and run the forward
     pass → logits [B]."""
     centers, nbr1, rtt1, mask1, nbr2, rtt2, mask2 = sample_indices(
-        graph, src, dst, salts, fanouts)
+        graph, src, dst, salts, fanouts, row_offset)
     return apply_indexed(model, graph.node_features, centers, nbr1, rtt1,
                          mask1, nbr2, rtt2, mask2)
 
 
-def train_step(optimizer, forward, lr: float) -> torch.Tensor:
+def train_step(optimizer, forward, lr: float, dp=None) -> torch.Tensor:
     """One AdamW step at learning rate ``lr`` on mean sigmoid BCE;
-    ``forward()`` returns (logits, labels). Returns the loss (a 0-d
-    tensor on the device, not waited for)."""
+    ``forward()`` returns (logits, labels). With ``dp`` (a
+    ``parallel.mesh.DataParallel``) the gradients and the loss are
+    averaged over its group first. Returns the loss (a 0-d tensor on the
+    device, not waited for)."""
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.zero_grad(set_to_none=True)
     loss = F.binary_cross_entropy_with_logits(*forward())
     loss.backward()
+    if dp is not None:
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        loss = dp.allreduce_grads_(params, loss)
     optimizer.step()
     return loss.detach()

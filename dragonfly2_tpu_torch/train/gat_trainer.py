@@ -1,14 +1,26 @@
-"""Full-graph GraphTransformer training (BASELINE config #3) on one device —
-port of ``dragonfly2_tpu/train/gat_trainer.py``.
+"""Data-parallel full-graph GraphTransformer training (BASELINE config
+#3) — port of ``dragonfly2_tpu/train/gat_trainer.py``.
 
 Every mode trains on the card. The inverse index of the neighbor lists
 (``build_inverse_index``) is built once per graph and placed on the
 device once: in gather mode the neighbor gather's backward (the
 ``table_scatter_add`` kernel) walks it, in blocks, flash and ring mode
-the backward of ``graph_flash_attention`` (K1) does. Ring mode runs in a
-world of one (the blocks math). Sharding rows or batches over several
-processes belongs to the parallel slice (ROADMAP.md Queue 1 item 8), so
-a ``torch.distributed`` world larger than one raises in every mode.
+the backward of ``graph_flash_attention`` (K1) does.
+
+Data parallelism over ``group`` (``parallel/mesh.py``) in gather,
+blocks and flash mode: the global edge batch is rounded to a multiple of
+the world and each rank takes its contiguous share of it (the same
+epoch order on every rank, from ``config.seed``); every rank runs the
+full-graph embedding pass on the whole graph, then scores its edges; one
+all-reduce a step averages the gradients and the loss. The JAX trainer
+shards the node rows over its ``data`` axis instead, replicates the edge
+batch and all-gathers the embedding table; replicated rows compute the
+same gradients, and gloo, which lets ranks share one card, has no
+all-gather of CUDA tensors. So the port's edge batch must divide by the
+world, where the JAX trainer's need not, and rows pad as in a world of
+one. Row sharding comes with ring mode across ranks, which still refuses
+a world larger than one, as does tensor parallelism (ROADMAP.md Queue 1
+item 8b).
 
 The loop is the JAX trainer's: the attention structure is built from
 TRAIN edges only (an eval edge's RTT, a function of its label, never
@@ -36,7 +48,11 @@ from dragonfly2_tpu_torch.models.graph_transformer import (
     pad_graph_sparse,
     pad_multiple,
 )
-from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
+from dragonfly2_tpu_torch.parallel.mesh import (
+    DataParallel,
+    global_batch,
+    group_size_rank,
+)
 from dragonfly2_tpu_torch.train.metrics import (
     confusion,
     metrics_from_confusion,
@@ -106,19 +122,20 @@ class GATTrainResult:
 
 
 class GATTrainer:
-    """One training run: the graph, model and optimizer on ``device``.
-    :meth:`fit` is the whole run; :meth:`step` is one optimizer step."""
+    """One training run: the graph, model and optimizer on ``device``,
+    data-parallel over ``group``. :meth:`fit` is the whole run;
+    :meth:`step` is one optimizer step."""
 
     def __init__(self, graph: Graph, config: GATTrainConfig = GATTrainConfig(),
-                 device=None, init_state: dict | None = None):
-        # Every mode: ring mode's row sharding and the other modes' batch
-        # sharding both belong to the parallel slice.
-        if group_size_rank()[0] > 1:
+                 device=None, init_state: dict | None = None, group=None):
+        # Ring mode shards rows across ranks, which is not ported.
+        if config.attention == "ring" and group_size_rank(group)[0] > 1:
             raise NotImplementedError(
-                "train_gat runs on one device; data parallelism over a "
-                "larger torch.distributed world is not ported yet")
+                "ring mode trains on one device; ring attention across "
+                "ranks is not ported yet")
         self.device = default_device(device)
         self.config = config
+        self.dp = DataParallel(group)
         # Pair-level split: every sighting of an eval (src, dst) pair
         # stays out of training AND out of the attention bias.
         self.train_ids, self.eval_ids = edge_split(
@@ -148,11 +165,16 @@ class GATTrainer:
         if init_state is not None:
             self.model.load_state_dict(init_state)
         self.model.to(self.device)
+        self.dp.broadcast_(self.model)
         self.optimizer = torch.optim.AdamW(
             self.model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=config.weight_decay)
 
-        self.batch = min(config.edge_batch_size, len(self.train_ids))
+        self.batch = global_batch(config.edge_batch_size,
+                                  len(self.train_ids), self.dp.world)
+        if self.batch == 0:
+            raise ValueError(f"train split of {len(self.train_ids)} edges "
+                             f"can't fill a batch of {self.dp.world} ranks")
         self.steps_per_epoch = max(len(self.train_ids) // self.batch, 1)
         self.total_steps = max(config.epochs * self.steps_per_epoch, 2)
         self.warmup_steps = min(100, self.total_steps // 10 + 1)
@@ -171,13 +193,17 @@ class GATTrainer:
             np.float32))
 
     def _edges(self, ids: np.ndarray):
-        ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+        """(src, dst, labels) of this rank's share of the global edge
+        batch ``ids``, on the device."""
+        ids = np.asarray(ids, np.int64)[self.dp.rows(len(ids))]
+        ids = torch.from_numpy(ids).to(self.device)
         return self.g_src[ids], self.g_dst[ids], self.g_y[ids]
 
     def step(self, ids: np.ndarray) -> torch.Tensor:
-        """One AdamW step on the edges ``ids``; returns the loss (a 0-d
-        tensor on the device, not waited for). The learning rate is the
-        schedule at the step count before the update, as optax's."""
+        """One AdamW step on the global edge batch ``ids``, of which this
+        rank takes its share; returns the loss over the global batch (a
+        0-d tensor on the device, not waited for). The learning rate is
+        the schedule at the step count before the update, as optax's."""
         lr = warmup_cosine_lr(self.step_count, self.config.learning_rate,
                               self.warmup_steps, self.total_steps)
         for group in self.optimizer.param_groups:
@@ -188,6 +214,7 @@ class GATTrainer:
                             inv=self.g_inv)
         loss = F.binary_cross_entropy_with_logits(logits, y)
         loss.backward()
+        loss = self.dp.allreduce_grads_(self.model.parameters(), loss)
         self.optimizer.step()
         self.step_count += 1
         return loss.detach()
@@ -195,13 +222,17 @@ class GATTrainer:
     @torch.no_grad()
     def evaluate(self) -> dict:
         """Exact eval over the eval edges in fixed-size chunks with a
-        zero-weighted tail → precision/recall/f1/accuracy."""
+        zero-weighted tail, each rank scoring its share of a chunk and
+        the counts summed over the group →
+        precision/recall/f1/accuracy."""
         cm = torch.zeros(4, dtype=torch.float32, device=self.device)
         for ids, weights in padded_chunks(self.eval_ids, self.batch):
             src, dst, y = self._edges(ids)
-            w = torch.from_numpy(weights).to(self.device)
+            w = torch.from_numpy(weights[self.dp.rows(len(weights))]).to(
+                self.device)
             logits = self.model(self.g_feat, self.g_nbr, self.g_val, src, dst)
             cm += confusion(logits, y, w)
+        cm = self.dp.sum_(cm)
         return metrics_from_confusion(cm.cpu().numpy().astype(np.float64))
 
     def fit(self) -> GATTrainResult:
@@ -227,7 +258,8 @@ class GATTrainer:
                     break
                 for ids_1 in ids.reshape(gk, batch):
                     losses.append(self.step(ids_1))
-                if budget.tick(gk * batch, losses[-1]):
+                if self.dp.any(budget.tick(gk * batch, losses[-1]),
+                               self.device):
                     stop = True
                     break
             if losses:
@@ -258,8 +290,10 @@ class GATTrainer:
 
 
 def train_gat(graph: Graph, config: GATTrainConfig = GATTrainConfig(),
-              device=None, init_state: dict | None = None) -> GATTrainResult:
+              device=None, init_state: dict | None = None,
+              group=None) -> GATTrainResult:
     """Train a GraphTransformer on ``graph``. ``device=None`` means the
     card; ``init_state`` is a GraphTransformer state dict to start from
-    (else a seeded init)."""
-    return GATTrainer(graph, config, device, init_state).fit()
+    (else a seeded init); ``group`` is the data-parallel process group
+    (``parallel/mesh.py``), every rank passing the same graph."""
+    return GATTrainer(graph, config, device, init_state, group).fit()

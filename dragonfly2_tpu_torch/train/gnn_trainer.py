@@ -1,4 +1,4 @@
-"""GraphSAGE training (BASELINE config #2) on one device — port of
+"""Data-parallel GraphSAGE training (BASELINE config #2) — port of
 ``dragonfly2_tpu/train/gnn_trainer.py``.
 
 The loop is the JAX trainer's: a pair-level train/eval split, a message
@@ -26,9 +26,21 @@ Both gather the node features on the device through ``table_gather``,
 one launch a forward (the K2a kernel on the card). ``steps_per_call``
 groups steps for the budget's accounting only; PyTorch runs each step
 eagerly, so the trajectory does not depend on it (the JAX trainer scans
-K steps a dispatch and drops an epoch's remainder group). Data
-parallelism over several cards is not ported (ROADMAP.md, Queue 1 item
-8): a ``torch.distributed`` world larger than one raises.
+K steps a dispatch and drops an epoch's remainder group).
+
+Data parallelism over ``group`` (``parallel/mesh.py``), the JAX mesh's
+``data`` axis: every rank holds the tables and draws the same epoch
+order and salts from ``config.seed`` (never from its rank); the global
+batch is rounded to a multiple of the world as the JAX trainer rounds
+it, and each rank takes its contiguous share of every global batch. On
+the device path a rank samples its rows with their global positions in
+the counter hash, so the world's neighborhoods are the world-of-one's;
+on the host path each rank samples the whole global batch with the
+step's generator and keeps its rows, as the JAX trainer's ``put_batch``
+places them. One all-reduce a step averages the gradients and the loss;
+the initial parameters are rank 0's; eval chunks split the same way and
+the confusion counts are summed over the group. Pipeline and expert
+parallelism are not ported (ROADMAP.md, Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from dragonfly2_tpu_torch.data.graph_sampler import CSRGraph, EdgeBatchSampler
 from dragonfly2_tpu_torch.data.prefetch import prefetch
 from dragonfly2_tpu_torch.device import default_device
 from dragonfly2_tpu_torch.models.graphsage import GraphSAGE
-from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
+from dragonfly2_tpu_torch.parallel.mesh import DataParallel, global_batch
 from dragonfly2_tpu_torch.train.fused_sampling import (
     apply_indexed,
     put_edge_tables,
@@ -114,24 +126,23 @@ class GNNTrainResult:
 
 
 class GNNTrainer:
-    """One training run: tables, model and optimizer on ``device``.
-    :meth:`fit` is the whole run; :meth:`step` is one optimizer step."""
+    """One training run: tables, model and optimizer on ``device``,
+    data-parallel over ``group``. :meth:`fit` is the whole run;
+    :meth:`step` is one optimizer step."""
 
     def __init__(self, graph: Graph, config: GNNTrainConfig = GNNTrainConfig(),
-                 device=None, init_state: dict | None = None):
-        if group_size_rank()[0] > 1:
-            raise NotImplementedError(
-                "train_gnn runs on one device; data parallelism over a "
-                "larger torch.distributed world is not ported yet")
+                 device=None, init_state: dict | None = None, group=None):
         self.device = default_device(device)
         self.config = config
+        self.dp = DataParallel(group)
         labels = graph.edge_labels(config.rtt_threshold_ns)
         self.train_ids, self.eval_ids = edge_split(
             graph, config.eval_fraction, config.seed)
-        self.batch = min(config.batch_size, len(self.train_ids))
+        self.batch = global_batch(config.batch_size, len(self.train_ids),
+                                  self.dp.world)
         if self.batch == 0:
             raise ValueError(f"train split of {len(self.train_ids)} edges "
-                             "can't fill a batch")
+                             f"can't fill a batch of {self.dp.world} ranks")
         train_graph = Graph(
             node_ids=graph.node_ids, node_features=graph.node_features,
             edge_src=graph.edge_src[self.train_ids],
@@ -155,6 +166,7 @@ class GNNTrainer:
         if init_state is not None:
             self.model.load_state_dict(init_state)
         self.model.to(self.device)
+        self.dp.broadcast_(self.model)
         self.optimizer = torch.optim.AdamW(
             self.model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=config.weight_decay)
@@ -188,20 +200,24 @@ class GNNTrainer:
 
     def _place(self, ids: np.ndarray, sampler: EdgeBatchSampler,
                rng_key: tuple):
-        """Host half of a batch: the edge ids on the device path, the
-        host-sampled index batch on the other."""
+        """Host half of this rank's share of a global batch: its edge ids
+        and their first global row on the device path; on the other,
+        its rows of the index batch sampled for the whole global
+        batch."""
+        rows = self.dp.rows(len(ids))
         if self.config.device_sample:
-            return self._put(np.asarray(ids, np.int64))
+            return self._put(np.asarray(ids[rows], np.int64)), rows.start
         batch = sampler.sample_indices(ids, np.random.default_rng(rng_key))
-        return tuple(self._put(a) for a in batch.astuple())
+        return tuple(self._put(a[rows]) for a in batch.astuple())
 
     def _logits(self, placed, edges, salt_gen):
         """(logits, labels) for a placed batch on the device."""
         if self.config.device_sample:
-            src, dst, y = (t[placed] for t in edges)
+            ids, row_offset = placed
+            src, dst, y = (t[ids] for t in edges)
             salts = self._draw_salts(salt_gen)
             return sample_and_apply(self.model, self.tables, src, dst, salts,
-                                    self.config.fanouts), y
+                                    self.config.fanouts, row_offset), y
         *inputs, y = placed
         return apply_indexed(self.model, self.node_features, *inputs), y
 
@@ -217,7 +233,7 @@ class GNNTrainer:
         lr = warmup_cosine_lr(self.step_count, self.config.learning_rate,
                               self.warmup_steps, self.total_steps)
         loss = train_step(self.optimizer, lambda: self._logits(
-            placed, self.train_edges, self._salts), lr)
+            placed, self.train_edges, self._salts), lr, self.dp)
         self.step_count += 1
         return loss
 
@@ -230,15 +246,19 @@ class GNNTrainer:
 
     def step(self, ids: np.ndarray, epoch: int = 0,
              step: int = 0) -> torch.Tensor:
-        """One AdamW step on the train-split positions ``ids``; returns
-        the loss (a 0-d tensor on the device, not waited for). ``epoch``
-        and ``step`` key the host path's sampling generator."""
+        """One AdamW step on the global batch of train-split positions
+        ``ids``, of which this rank takes its share; returns the loss
+        over the global batch (a 0-d tensor on the device, not waited
+        for). ``epoch`` and ``step`` key the host path's sampling
+        generator."""
         return self._step_placed(self._place_train((epoch, step, ids))[2])
 
     @torch.no_grad()
     def evaluate(self) -> dict:
         """Exact eval over the eval split in fixed-size chunks with a
-        zero-weighted tail → precision/recall/f1/accuracy."""
+        zero-weighted tail, each rank scoring its share of a chunk and
+        the counts summed over the group →
+        precision/recall/f1/accuracy."""
         config = self.config
         cm = torch.zeros(4, dtype=torch.float32, device=self.device)
         salt_gen = torch.Generator().manual_seed(config.seed + 2)
@@ -247,13 +267,14 @@ class GNNTrainer:
             ids, weights = chunk
             key = (config.seed, 2, ids[0] if len(ids) else 0)
             return (self._place(ids, self.eval_sampler, key),
-                    self._put(weights))
+                    self._put(weights[self.dp.rows(len(weights))]))
 
         for placed, weights in self._stream(
                 padded_chunks(np.arange(self.eval_sampler.n_edges),
                               self.batch), build):
             logits, y = self._logits(placed, self.eval_edges, salt_gen)
             cm += confusion(logits, y, weights)
+        cm = self.dp.sum_(cm)
         return metrics_from_confusion(cm.cpu().numpy().astype(np.float64))
 
     def _tasks(self):
@@ -290,7 +311,8 @@ class GNNTrainer:
             # A budget tick closes each group of k steps and an epoch's
             # last (possibly shorter) group.
             if in_group == k or step == self.steps_per_epoch - 1:
-                done = budget.tick(in_group * batch, losses[-1])
+                done = self.dp.any(budget.tick(in_group * batch, losses[-1]),
+                                   self.device)
                 in_group = 0
                 if done:
                     stream.close()
@@ -317,8 +339,10 @@ class GNNTrainer:
 
 
 def train_gnn(graph: Graph, config: GNNTrainConfig = GNNTrainConfig(),
-              device=None, init_state: dict | None = None) -> GNNTrainResult:
+              device=None, init_state: dict | None = None,
+              group=None) -> GNNTrainResult:
     """Train a GraphSAGE on ``graph``. ``device=None`` means the card;
     ``init_state`` is a GraphSAGE state dict to start from (else a seeded
-    init)."""
-    return GNNTrainer(graph, config, device, init_state).fit()
+    init); ``group`` is the data-parallel process group
+    (``parallel/mesh.py``), every rank passing the same graph."""
+    return GNNTrainer(graph, config, device, init_state, group).fit()

@@ -1,4 +1,4 @@
-"""MLP bandwidth-predictor training (BASELINE config #1) on one device —
+"""Data-parallel MLP bandwidth-predictor training (BASELINE config #1) —
 port of ``dragonfly2_tpu/train/mlp_trainer.py``.
 
 The loop is the JAX trainer's: a seeded train/eval split
@@ -11,9 +11,17 @@ through ``expm1``.
 
 The normalized train and eval splits live on the device; a step gathers
 its batch there by the epoch's numpy permutation, uploaded once an
-epoch, so it ships no features. Data parallelism over several cards is
-not ported (ROADMAP.md, Queue 1 item 8): a ``torch.distributed`` world
-larger than one raises.
+epoch, so it ships no features.
+
+Data parallelism over ``group`` (``parallel/mesh.py``), the JAX mesh's
+``data`` axis: every rank holds both splits and draws the same epoch
+order from ``config.seed`` (never from its rank); the global batch is
+rounded to a multiple of the world as the JAX trainer rounds it, each
+rank steps on its contiguous share, and one all-reduce a step averages
+the gradients and the loss. The initial parameters are rank 0's. Eval
+sums are taken over each rank's share of every chunk and summed over
+the group. Tensor, pipeline and expert parallelism are not ported
+(ROADMAP.md, Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 from dragonfly2_tpu_torch.data.pipeline import ArrayDataset
 from dragonfly2_tpu_torch.device import default_device
 from dragonfly2_tpu_torch.models.mlp import MLPBandwidthPredictor, Normalizer
-from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
+from dragonfly2_tpu_torch.parallel.mesh import DataParallel, global_batch
 from dragonfly2_tpu_torch.train.checkpoint import (
     flax_from_mlp_state_dict,
     mlp_state_dict_from_flax,
@@ -98,14 +106,18 @@ def adamw(model: MLPBandwidthPredictor,
 
 
 def train_step(model: MLPBandwidthPredictor, optimizer, x: torch.Tensor,
-               target: torch.Tensor, lr: float) -> torch.Tensor:
-    """One optimizer step on :func:`mlp_loss` at learning rate ``lr``;
-    returns the loss (a 0-d tensor on the device, not waited for)."""
+               target: torch.Tensor, lr: float,
+               dp: DataParallel | None = None) -> torch.Tensor:
+    """One optimizer step on :func:`mlp_loss` at learning rate ``lr``,
+    the gradients averaged over ``dp``'s group; returns the loss (its
+    mean over the group; a 0-d tensor on the device, not waited for)."""
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.zero_grad(set_to_none=True)
     loss = mlp_loss(model, x, target)
     loss.backward()
+    if dp is not None:
+        loss = dp.allreduce_grads_(model.parameters(), loss)
     optimizer.step()
     return loss.detach()
 
@@ -120,28 +132,26 @@ def _state_dict(init_params) -> dict:
 
 class MLPTrainer:
     """One training run: normalized splits, model and optimizer on
-    ``device``. :meth:`fit` is the whole run; :meth:`step` one optimizer
-    step."""
+    ``device``, data-parallel over ``group``. :meth:`fit` is the whole
+    run; :meth:`step` one optimizer step."""
 
     def __init__(self, X: np.ndarray, y: np.ndarray,
                  config: MLPTrainConfig = MLPTrainConfig(), device=None, *,
                  init_params=None, normalizer: Normalizer | None = None,
-                 target_norm: Normalizer | None = None):
-        if group_size_rank()[0] > 1:
-            raise NotImplementedError(
-                "train_mlp runs on one device; data parallelism over a "
-                "larger torch.distributed world is not ported yet")
+                 target_norm: Normalizer | None = None, group=None):
         self.device = default_device(device)
         self.config = config
+        self.dp = DataParallel(group)
         train_ds, eval_ds = ArrayDataset(X, y).split(config.eval_fraction,
                                                      config.seed)
         self.train_ds = train_ds
-        # The batch may not exceed the train split, or no batch would
-        # ever be yielded.
-        self.batch = min(config.batch_size, len(train_ds))
+        # The global batch may not exceed the train split, or no batch
+        # would ever be yielded, and splits evenly over the group.
+        self.batch = global_batch(config.batch_size, len(train_ds),
+                                  self.dp.world)
         if self.batch == 0:
             raise ValueError(f"train split of {len(train_ds)} rows can't "
-                             "fill a batch")
+                             f"fill a batch of {self.dp.world} ranks")
         if normalizer is None:
             normalizer = Normalizer.fit(train_ds.arrays[0])
         if target_norm is None:
@@ -166,6 +176,7 @@ class MLPTrainer:
         if init_params is not None:
             self.model.load_state_dict(_state_dict(init_params))
         self.model.to(self.device)
+        self.dp.broadcast_(self.model)
         self.optimizer = adamw(self.model, config.weight_decay)
         self.steps_per_epoch = max(len(train_ds) // self.batch, 1)
         self.total_steps = max(config.epochs * self.steps_per_epoch, 2)
@@ -180,32 +191,38 @@ class MLPTrainer:
         return torch.from_numpy(order).to(self.device)
 
     def step(self, idx: torch.Tensor) -> torch.Tensor:
-        """One AdamW step on the train rows ``idx`` (on the device);
-        returns the loss (a 0-d tensor on the device, not waited for)."""
+        """One AdamW step on the global batch of train rows ``idx`` (on
+        the device), of which this rank takes its share; returns the
+        loss over the global batch (a 0-d tensor on the device, not
+        waited for)."""
         lr = warmup_cosine_lr(self.step_count, self.config.learning_rate,
                               self.warmup_steps, self.total_steps)
+        idx = idx[self.dp.rows(len(idx))]
         loss = train_step(self.model, self.optimizer,
                           self.train_x.index_select(0, idx),
-                          self.train_t.index_select(0, idx), lr)
+                          self.train_t.index_select(0, idx), lr, self.dp)
         self.step_count += 1
         return loss
 
     @torch.no_grad()
     def evaluate(self) -> tuple[float, float]:
         """(MSE, MAE) of the eval split on the raw MB/s scale, in chunks
-        of the batch size; NaN when the split is empty."""
+        of the global batch, each rank scoring its share of a chunk and
+        the sums added over the group; NaN when the split is empty."""
         n = len(self.eval_y)
         if n == 0:
             return float("nan"), float("nan")
-        se = torch.zeros((), dtype=torch.float64, device=self.device)
-        ae = torch.zeros_like(se)
+        sums = torch.zeros(2, dtype=torch.float64, device=self.device)
         for start in range(0, n, self.batch):
-            x = self.eval_x[start:start + self.batch]
-            pred = torch.expm1(self.model(x) * self.t_std + self.t_mean)
-            err = pred - self.eval_y[start:start + self.batch]
-            se += (err ** 2).sum().double()
-            ae += err.abs().sum().double()
-        return float(se) / n, float(ae) / n
+            rows = self.dp.rows(min(self.batch, n - start))
+            rows = slice(start + rows.start, start + rows.stop)
+            pred = torch.expm1(self.model(self.eval_x[rows]) * self.t_std
+                               + self.t_mean)
+            err = pred - self.eval_y[rows]
+            sums[0] += (err ** 2).sum().double()
+            sums[1] += err.abs().sum().double()
+        se, ae = self.dp.sum_(sums).tolist()
+        return se / n, ae / n
 
     def fit(self) -> MLPTrainResult:
         config, batch = self.config, self.batch
@@ -219,7 +236,8 @@ class MLPTrainer:
             losses = []
             for start in range(0, len(order) - batch + 1, batch):
                 losses.append(self.step(order[start:start + batch]))
-                if budget.tick(batch, losses[-1]):
+                if self.dp.any(budget.tick(batch, losses[-1]),
+                               self.device):
                     stop = True
                     break
             if losses:
@@ -249,16 +267,21 @@ class MLPTrainer:
 def train_mlp(X: np.ndarray, y: np.ndarray,
               config: MLPTrainConfig = MLPTrainConfig(), device=None, *,
               init_params=None, normalizer: Normalizer | None = None,
-              target_norm: Normalizer | None = None) -> MLPTrainResult:
+              target_norm: Normalizer | None = None,
+              group=None) -> MLPTrainResult:
     """Train the bandwidth predictor on pair examples.
 
     ``X``: [n, FEATURE_DIM] float32 (raw, unnormalized); ``y``: [n] MB/s.
     ``device=None`` means the card. ``init_params`` (a flax tree, bare or
     ``{"params": …}``, or a port state dict), ``normalizer`` and
-    ``target_norm`` warm-start from an existing model.
+    ``target_norm`` warm-start from an existing model. ``group`` is the
+    data-parallel process group (``parallel/mesh.py``: ``None`` the
+    default group if one is initialized, ``LOCAL`` this process alone);
+    every rank passes the same ``X`` and ``y``.
     """
     return MLPTrainer(X, y, config, device, init_params=init_params,
-                      normalizer=normalizer, target_norm=target_norm).fit()
+                      normalizer=normalizer, target_norm=target_norm,
+                      group=group).fit()
 
 
 def bandwidth_examples_from_corpus(

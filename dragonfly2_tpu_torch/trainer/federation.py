@@ -75,6 +75,7 @@ from dragonfly2_tpu_torch.train.federated import (
     screen_updates,
     tree_map,
 )
+from dragonfly2_tpu_torch.parallel.mesh import LOCAL
 from dragonfly2_tpu_torch.train.mlp_trainer import train_mlp
 from dragonfly2_tpu_torch.utils.backoff import full_jitter
 
@@ -227,7 +228,8 @@ class LocalClusterEndpoint:
             result = train_mlp(
                 self._train_X, self._train_y, self._config, self._device,
                 init_params=global_params,
-                normalizer=normalizer, target_norm=target_norm)
+                normalizer=normalizer, target_norm=target_norm,
+                group=LOCAL)
         self.train_calls += 1
         if self.counter_path:
             # Append + fsync: the kill rung reads this across process

@@ -11,6 +11,16 @@ GraphTransformer and the cost model. One topology graph, built once a
 cycle, feeds both graph jobs. A job's exception is recorded in
 ``TrainOutcome.errors`` and the others still run; the files trained from
 are deleted at the end.
+
+``group`` makes every job data-parallel over a ``torch.distributed``
+process group, as ``mesh`` does in the reference: every rank runs
+``train`` on the same dataset files and trains the same models. Rank 0
+alone writes each artifact and calls ``create_model``; the other ranks
+fill the same outcome and upload nothing. The reference runs its upload
+in every process, but its orbax writer saves a replicated tree from the
+primary process (process 0) only, so process 0's is its one complete
+artifact; the port's npz writer has no such coordination, and N
+uploads of one model id would put N versions through the gate.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from dragonfly2_tpu_torch.data.features import (
     graph_from_table,
     pair_examples_from_table,
 )
+from dragonfly2_tpu_torch.parallel.mesh import DataParallel
 from dragonfly2_tpu_torch.schema import Download, NetworkTopology
 from dragonfly2_tpu_torch.schema.io import records_to_table
 from dragonfly2_tpu_torch.train.checkpoint import (
@@ -119,7 +130,9 @@ class Training:
     """``device=None`` trains on the card (the CPU only when asked);
     ``metrics`` is any object with the trainer metrics' two families,
     ``training_duration`` and ``train_samples_per_sec`` (``.labels(model=
-    ...)`` then ``.observe`` / ``.set``), or None."""
+    ...)`` then ``.observe`` / ``.set``), or None; ``group`` is the
+    jobs' data-parallel process group (``parallel/mesh.py``; the module
+    docstring says which rank registers)."""
 
     def __init__(
         self,
@@ -128,12 +141,14 @@ class Training:
         config: Optional[TrainingConfig] = None,
         device=None,
         metrics=None,
+        group=None,
     ) -> None:
         self.storage = storage
         self.registry = registry
         self.config = config or TrainingConfig()
         self.device = device
         self.metrics = metrics
+        self.group = group
         # One training job at a time: the device is not shared.
         self._train_lock = threading.Lock()
 
@@ -218,7 +233,8 @@ class Training:
                         host_id)
             return
         job_start = time.monotonic()
-        result = train_gnn(graph, self.config.gnn, self.device)
+        result = train_gnn(graph, self.config.gnn, self.device,
+                           group=self.group)
         self._observe_job("gnn", time.monotonic() - job_start,
                           result.samples_per_sec)
         evaluation = {
@@ -251,7 +267,8 @@ class Training:
                         host_id)
             return
         job_start = time.monotonic()
-        result = train_gat(graph, self.config.gat, self.device)
+        result = train_gat(graph, self.config.gat, self.device,
+                           group=self.group)
         self._observe_job("gat", time.monotonic() - job_start,
                           result.samples_per_sec)
         evaluation = {
@@ -292,7 +309,8 @@ class Training:
             logger.info("skip MLP for %s: %d pair examples", host_id, len(X))
             return
         job_start = time.monotonic()
-        result = train_mlp(X, y, self.config.mlp, self.device)
+        result = train_mlp(X, y, self.config.mlp, self.device,
+                           group=self.group)
         self._observe_job("mlp", time.monotonic() - job_start,
                           result.samples_per_sec)
         evaluation = {"mse": result.mse, "mae": result.mae,
@@ -322,7 +340,8 @@ class Training:
                         host_id, len(X), self.config.min_cost_records)
             return
         job_start = time.monotonic()
-        result = train_cost(X, y, self.config.cost, self.device)
+        result = train_cost(X, y, self.config.cost, self.device,
+                            group=self.group)
         self._observe_job("cost", time.monotonic() - job_start,
                           result.samples_per_sec)
         evaluation = {"mse": result.mse, "mae": result.mae,
@@ -339,6 +358,8 @@ class Training:
 
     def _register(self, model_id, model_type, host_id, ip, hostname,
                   scheduler_id, evaluation, tree, config) -> None:
+        if DataParallel(self.group).rank != 0:
+            return
         tmp = tempfile.mkdtemp(prefix=f"df2-model-{model_type}-")
         try:
             save_model(tmp, tree, ModelMetadata(

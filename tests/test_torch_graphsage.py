@@ -53,7 +53,6 @@ from dragonfly2_tpu_torch.train.checkpoint import (
     load_artifact,
     write_artifact,
 )
-from dragonfly2_tpu_torch.train import gnn_trainer
 from dragonfly2_tpu_torch.train.gnn_trainer import (
     GNNTrainConfig,
     GNNTrainer,
@@ -511,19 +510,6 @@ def test_too_few_edges_raises():
     g = SyntheticCluster(n_hosts=10, seed=0).probe_graph(4)
     with pytest.raises(ValueError, match="can't fill"):
         train_gnn(g, GNNTrainConfig(eval_fraction=1.0), device="cpu")
-
-
-@pytest.mark.parametrize("device_sample", [True, False])
-def test_train_gnn_refuses_a_larger_world(graphs, monkeypatch, device_sample):
-    """Data parallelism over several cards is not ported: inside a
-    torch.distributed world of two, train_gnn raises on either sampling
-    path instead of training a whole replica on every rank."""
-    _, tg = graphs
-    monkeypatch.setattr(gnn_trainer, "group_size_rank", lambda: (2, 0))
-    with pytest.raises(NotImplementedError, match="one device"):
-        train_gnn(tg, GNNTrainConfig(hidden=8, embed=4, epochs=1,
-                                     device_sample=device_sample),
-                  device="cpu")
 
 
 def test_default_device_is_the_card(graphs, monkeypatch):

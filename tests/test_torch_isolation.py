@@ -101,6 +101,8 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.train.fedbench",
         "dragonfly2_tpu_torch.train.fedproc",
         "dragonfly2_tpu_torch.trainer.federation",
+        "dragonfly2_tpu_torch.parallel.multihost",
+        "dragonfly2_tpu_torch.parallel.dryrun",
     }
     assert expected <= set(probe["imported"])
 

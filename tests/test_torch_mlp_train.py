@@ -210,16 +210,6 @@ def test_train_mlp_own_init_and_state_dict_warm_start(dataset):
     assert warm.history[0] < first.history[0]
 
 
-def test_train_mlp_refuses_a_larger_world(dataset, monkeypatch):
-    """Data parallelism over several cards is not ported: inside a
-    torch.distributed world of two, train_mlp raises."""
-    X, y = dataset
-    monkeypatch.setattr(mlp_trainer, "group_size_rank", lambda: (2, 0))
-    with pytest.raises(NotImplementedError, match="one device"):
-        mlp_trainer.train_mlp(X, y, mlp_trainer.MLPTrainConfig(
-            hidden=(8,), epochs=1), device="cpu")
-
-
 def test_train_mlp_edge_cases(dataset):
     X, y = dataset
     no_eval = mlp_trainer.train_mlp(

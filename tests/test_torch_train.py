@@ -340,13 +340,15 @@ def test_ring_mode_refused(graphs, monkeypatch):
         train_gat(tg, GATTrainConfig(**CFG, attention="ring"), device="cpu")
 
 
-@pytest.mark.parametrize("attention", ["gather", "blocks", "flash", "ring"])
+@pytest.mark.parametrize("attention", ["ring"])
 def test_train_gat_refuses_a_larger_world(graphs, monkeypatch, attention):
-    """Data parallelism over several cards is not ported: inside a
-    torch.distributed world of two, train_gat raises in every mode before
-    it trains, instead of training a whole replica on every rank."""
+    """Ring attention across ranks is not ported: inside a
+    torch.distributed world of two, train_gat in ring mode raises before
+    it trains. (Gather, blocks and flash mode train data-parallel:
+    tests/test_torch_data_parallel.py.)"""
     _, tg = graphs
-    monkeypatch.setattr(gat_trainer, "group_size_rank", lambda: (2, 0))
+    monkeypatch.setattr(gat_trainer, "group_size_rank",
+                        lambda group=None: (2, 0))
     with pytest.raises(NotImplementedError, match="one device"):
         train_gat(tg, GATTrainConfig(**CFG, attention=attention),
                   device="cpu")

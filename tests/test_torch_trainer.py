@@ -577,19 +577,22 @@ def _jax_inits(monkeypatch):
     from the JAX trainers' flax inits, so the two runs share their
     trajectories' starting points (the port's own seeded init is another
     draw)."""
-    def gnn(graph, config, device=None):
+    def gnn(graph, config, device=None, group=None):
         return gnn_trainer.train_gnn(graph, config, device,
-                                     init_state=_jax_gnn_init(graph, config))
+                                     init_state=_jax_gnn_init(graph, config),
+                                     group=group)
 
-    def gat(graph, config, device=None):
+    def gat(graph, config, device=None, group=None):
         return gat_trainer.train_gat(graph, config, device,
-                                     init_state=_jax_gat_init(graph, config))
+                                     init_state=_jax_gat_init(graph, config),
+                                     group=group)
 
-    def mlp(X, y, config, device=None):
+    def mlp(X, y, config, device=None, group=None):
         init = JaxMLP(hidden=tuple(config.hidden)).init(
             jax.random.key(config.seed), jnp.zeros((1, X.shape[1])))
         return mlp_trainer.train_mlp(X, y, config, device,
-                                     init_params=jax.device_get(init))
+                                     init_params=jax.device_get(init),
+                                     group=group)
 
     monkeypatch.setattr(port_training, "train_gnn", gnn)
     monkeypatch.setattr(port_training, "train_gat", gat)

@@ -1,5 +1,7 @@
-"""Multi-process runs of the port's Ulysses attention (and of ring-mode
-GraphTransformer's refusal) on the CPU (gloo).
+"""Multi-process runs of the port on the CPU (gloo): Ulysses attention,
+ring-mode GraphTransformer's refusal, and any function of
+``tests/torch_dp_worker.py`` (the data-parallel trainers, ``sync`` and
+``agree``, the dryrun twin).
 
 :func:`spawn_worlds` starts one process per rank for each world size, all
 at once, each joining its world's process group through a ``file://``
@@ -45,6 +47,10 @@ def _run_case(case: dict, rank: int, world: int) -> dict:
 
     from dragonfly2_tpu_torch.parallel import ulysses_attention
 
+    if "call" in case:
+        import torch_dp_worker
+
+        return getattr(torch_dp_worker, case["call"])(case, rank, world)
     if case.get("ring_model"):
         return {"error": np.array(_ring_model_error())}
 
@@ -101,7 +107,9 @@ def spawn_worlds(worlds: dict, tmp_dir: str, timeout_s: float = 90.0):
     every world at once. A case holds global q/k/v [T, H, D] f32 arrays,
     ``causal``, and optionally ``chunk``, ``grad`` and ``expect_error``;
     or ``ring_model``, which runs a ring-mode GraphTransformer and returns
-    what it raised under ``error``.
+    what it raised under ``error``; or ``call``, the name of a function
+    of ``torch_dp_worker`` that takes (case, rank, world) and returns
+    ``{key: array}``.
     Returns ``{world: {case name: {key: per-rank arrays, rank order}}}``.
     Raises when a rank fails or the whole run outlasts ``timeout_s``
     (the ranks are then terminated)."""
@@ -136,6 +144,12 @@ def spawn_worlds(worlds: dict, tmp_dir: str, timeout_s: float = 90.0):
                                      else f"exit code {proc.exitcode}")
     if failed:
         raise RuntimeError(f"ranks failed: {failed}")
+    return load_worlds(worlds, tmp_dir)
+
+
+def load_worlds(worlds: dict, tmp_dir: str):
+    """What :func:`spawn_worlds` returns, read back from the ranks' files
+    under ``tmp_dir``."""
     results = {}
     for world, cases in worlds.items():
         out_dir = os.path.join(tmp_dir, f"world{world}")
@@ -146,3 +160,33 @@ def spawn_worlds(worlds: dict, tmp_dir: str, timeout_s: float = 90.0):
                    for key in per_rank[0].files if key.startswith(name + "/")}
             for name in cases}
     return results
+
+
+def run_once(root: str, run) -> None:
+    """``run()`` once for every process that asks with the same ``root``
+    (pytest-xdist workers of one run): the first runs it under a file
+    lock, the others wait for it and see its result, or its failure."""
+    from filelock import FileLock
+
+    os.makedirs(root, exist_ok=True)
+    done, error = (os.path.join(root, name) for name in ("done", "error"))
+    with FileLock(os.path.join(root, "lock")):
+        if os.path.exists(error):
+            raise RuntimeError(open(error).read())
+        if not os.path.exists(done):
+            try:
+                run()
+            except Exception as exc:
+                with open(error, "w") as fh:
+                    fh.write(f"{type(exc).__name__}: {exc}")
+                raise
+            open(done, "w").close()
+
+
+def spawn_once(names: dict, build, root: str, timeout_s: float = 90.0):
+    """:func:`spawn_worlds` of ``build()`` into ``root`` once a test run
+    (:func:`run_once`: only the first caller builds the cases), its
+    results read back by every caller. ``names`` is ``{world: case
+    names}`` of what ``build()`` returns."""
+    run_once(root, lambda: spawn_worlds(build(), root, timeout_s))
+    return load_worlds(names, root)
