@@ -12,7 +12,9 @@ trainer's ``Training`` orchestrator from CSV dataset segments to the
 gated registry, run federated multi-cluster training (BASELINE
 config #4) through the crash-safe coordinator to a gated global model,
 and train configs #1-#3 and the orchestrator data-parallel over
-``torch.distributed`` ranks, on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
+``torch.distributed`` ranks, and fan a Llama-3-8B safetensors shard
+through the P2P client and scheduler into device memory (BASELINE
+config #5), on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
@@ -225,7 +227,29 @@ Phases (any failure exits nonzero, before the final line):
    step, the all-reduce's time and share, samples/s and each rank's
    peak memory, labelled "gloo, 2 ranks on one card") and
    dp_nccl_cards (the same over NCCL with a rank a card where there are
-   several cards; logged as waiting on one).
+   several cards; logged as waiting on one);
+17. BASELINE config #5, the slice 14 path (no kernel: the copies are
+   host-to-device DMAs): hbm_sink_small (``HBMSink`` onto cuda:0 at test
+   size: pieces in reversed order with the header last and the data at
+   an odd offset, every safetensors dtype, the header and first tensor
+   alone until that tensor lands, a write past the end, a timeout's
+   progress message; every tensor bit-equal to its source after a copy
+   back; the copies' event seconds) and hbm_fanout (Llama-3-8B's
+   embedding and layers 0-8 at their published shapes in bf16, 4 976
+   689 152 data bytes from per-tensor seeded streams, offsets padded to
+   64 bytes, at an origin served by ``OriginServer`` → the port's
+   in-process ``SchedulerService`` with a SUPER_SEED daemon and a peer
+   that downloads the file first → a third daemon's ``download_to_hbm``
+   onto cuda:0, with every launch count set to 0 just before and read
+   just after (no kernel may launch): every tensor bf16 at its shape,
+   its bytes copied back equal to the sha256 made when the file was
+   written, a tensor on the card before the last piece; the JAX
+   artifact's quantities — last piece, last tensor, the tail, the same
+   copies again after the fact, overlap hidden, download and
+   host-to-device rates — plus the pinned staging allocation, the
+   sink's write share, peak memory, ``native.available()``, the piece
+   size and count and a timeline; fewer layers only if the disk is
+   short, and everything deleted after).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -477,6 +501,26 @@ DP_F1_TOL = {"gnn": 0.05, "gat": 0.1}
 DP_MAE_RTOL = 5e-2
 DP_ALLREDUCE_ITERS = 20
 DP_TIMEOUT_S = 300
+# BASELINE config #5 (slice 14): a safetensors file with Llama-3-8B's
+# tensor names and shapes from its published config.json (hidden 4096,
+# intermediate 14336, 32 heads, 8 KV heads of 128, vocab 128256, bf16),
+# cut to the size of the model's published first shard: the embedding
+# and layers 0-8 whole, 4 976 689 152 data bytes of 16.06 GB.
+LLAMA3_8B = dict(hidden=4096, intermediate=14336, kv_width=8 * 128,
+                 vocab=128256)
+FANOUT_LAYERS = 9
+FANOUT_DATA_BYTES = 4_976_689_152
+# Data offsets padded to FANOUT_ALIGN bytes, as real files are; each
+# tensor's bytes from its own seeded stream (np.random.default_rng((SEED,
+# tensor index))), written in FANOUT_CHUNK-byte chunks.
+FANOUT_ALIGN = 64
+FANOUT_CHUNK = 64 << 20
+# The origin and three daemon stores each hold the file; FANOUT_DISK_SLACK
+# more must be free, or the phase takes fewer layers and says so.
+FANOUT_COPIES = 4
+FANOUT_DISK_SLACK = 1 << 30
+FANOUT_TIMEOUT_S = 900
+FANOUT_SAMPLE_S = 0.25
 # Each row of the kernels line → the __global__ functions of its
 # sources, read from the profiler's kernel names.
 KERNEL_FUNCTIONS = {
@@ -4428,6 +4472,489 @@ def dp_train(torch, phase: str, backend: str, world: int, tmp: str,
     return ranks
 
 
+# -- BASELINE config #5, slice 14: the P2P mesh into the device sink ---------
+
+class OriginServer:
+    """Config #5's origin: one directory over HTTP/1.1 with single-range
+    support (the port's ``client/piece.parse_http_range``), answering as
+    ``tests/fileserver.py`` does; bodies go out with ``sendfile``."""
+
+    def __init__(self, root: str, host: str = "127.0.0.1"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from dragonfly2_tpu_torch.client.piece import parse_http_range
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _file(self):
+                path = os.path.join(root, self.path.lstrip("/"))
+                if not os.path.isfile(path):
+                    self.send_error(404)
+                    return None
+                return path
+
+            def do_HEAD(self):  # noqa: N802
+                path = self._file()
+                if path is not None:
+                    self.send_response(200)
+                    self.send_header("Content-Length",
+                                     str(os.path.getsize(path)))
+                    self.end_headers()
+
+            def do_GET(self):  # noqa: N802
+                path = self._file()
+                if path is None:
+                    return
+                size = os.path.getsize(path)
+                start, length = 0, size
+                header = self.headers.get("Range")
+                if header:
+                    rng = parse_http_range(header, size)
+                    start, length = rng.start, rng.length
+                    self.send_response(206)
+                    self.send_header("Content-Range",
+                                     f"bytes {rng.start}-{rng.end}/{size}")
+                else:
+                    self.send_response(200)
+                self.send_header("Content-Length", str(length))
+                self.end_headers()
+                if length:
+                    with open(path, "rb") as f:
+                        self.connection.sendfile(f, start, length)
+
+        self._server = ThreadingHTTPServer((host, 0), Handler)
+        self._thread = None
+
+    def url(self, name: str) -> str:
+        host, port = self._server.server_address[:2]
+        return f"http://{host}:{port}/{name}"
+
+    def __enter__(self):
+        import threading
+
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="origin", daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=10)
+
+
+def sink_case(torch, dev, sink, sources: dict, timeout_s: float = 60.0):
+    """Wait for ``sink``; every tensor must sit on ``dev`` with its
+    source's dtype and shape and, copied back, the source's bytes."""
+    got = sink.wait(timeout=timeout_s)
+    if set(got) != set(sources):
+        raise AssertionError(f"sink names {sorted(got)} != "
+                             f"{sorted(sources)}")
+    for name, want in sources.items():
+        t = got[name]
+        if (t.device != dev or t.dtype != want.dtype
+                or tuple(t.shape) != tuple(want.shape)):
+            raise AssertionError(f"{name}: {t.device} {t.dtype} "
+                                 f"{tuple(t.shape)}, want {dev} "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        back = t.cpu().reshape(-1).view(torch.uint8)
+        if not torch.equal(back, want.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{name}: bytes differ after the copy back")
+    return sum(sink.copy_ms.values()) / 1e3
+
+
+def sink_test_tensors(torch) -> dict:
+    """``tests/test_hbm_sink.py``'s tensors plus a BF16 one."""
+    rng = np.random.default_rng(SEED)
+    bf16 = rng.integers(0, 1 << 16, (3, 33), dtype=np.uint16)
+    return {name: torch.from_numpy(arr) for name, arr in {
+        "embed.weight": rng.normal(size=(256, 64)).astype(np.float32),
+        "layer0.w": rng.normal(size=(64, 128)).astype(np.float32),
+        "layer0.b": rng.normal(size=(128,)).astype(np.float32),
+        "head.weight": rng.normal(size=(128, 32)).astype(np.float16),
+        "counts": rng.integers(0, 100, size=(7,)).astype(np.int32),
+    }.items()} | {"norm.bf16": torch.from_numpy(
+        bf16.view(np.int16)).view(torch.bfloat16)}
+
+
+def every_dtype_tensors(torch) -> dict:
+    """One tensor of each safetensors dtype, in odd sizes."""
+    from dragonfly2_tpu_torch.client.hbm_sink import _DTYPES
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for i, (name, dtype) in enumerate(_DTYPES.items()):
+        shape = (3, 5 + i)
+        bits = rng.integers(0, 256, int(np.prod(shape)) * dtype.itemsize,
+                            dtype=np.uint8)
+        if dtype == torch.bool:
+            bits %= 2
+        out[f"t.{name.lower()}"] = torch.from_numpy(bits).view(
+            dtype).reshape(shape)
+    return out
+
+
+def unaligned_file(path: str, tensors: dict) -> bytes:
+    """The tensors written with metadata padded until the data starts at
+    an odd offset: no wide element of the file is aligned."""
+    from dragonfly2_tpu_torch.client.hbm_sink import (
+        parse_safetensors_header,
+        write_safetensors,
+    )
+
+    for pad in range(16):
+        write_safetensors(path, tensors, metadata={"pad": "x" * pad})
+        with open(path, "rb") as f:
+            raw = f.read()
+        if parse_safetensors_header(raw)[1] % 2:
+            return raw
+    raise AssertionError("no metadata length gave an odd data start")
+
+
+def run_hbm_sink_small(torch, dev) -> None:
+    """The sink on the card at test size: pieces in reversed order (the
+    header last) with an unaligned header, every dtype, the header and
+    first tensor alone (eager transfer), a write past the end, and a
+    timeout's progress message."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.client.hbm_sink import (
+        HBMSink,
+        parse_safetensors_header,
+    )
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-sink-") as tmp:
+        model = sink_test_tensors(torch)
+        raw = unaligned_file(os.path.join(tmp, "m.safetensors"), model)
+        all_dtypes = every_dtype_tensors(torch)
+        raw_all = unaligned_file(os.path.join(tmp, "d.safetensors"),
+                                 all_dtypes)
+    copy_s, staging_s = {}, {}
+    for case, (data, sources, piece) in {
+            "reversed": (raw, model, 1000),
+            "every_dtype_reversed": (raw_all, all_dtypes, 333)}.items():
+        sink = HBMSink(len(data), device=dev)
+        for off in reversed(range(0, len(data), piece)):
+            sink.write(off, data[off:off + piece])
+        copy_s[case] = sink_case(torch, dev, sink, sources)
+        staging_s[case] = sink.staging_seconds
+
+    first = parse_safetensors_header(raw)[0][0]
+    sink = HBMSink(len(raw), device=dev)
+    sink.write(0, raw[:first.end])  # header + first tensor only
+    deadline = time.monotonic() + 30
+    while sink.tensors_on_device < 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("eager: the first tensor never landed")
+        time.sleep(0.01)
+    eager_before_rest = sink.tensors_on_device
+    sink.write(first.end, raw[first.end:])
+    copy_s["eager"] = sink_case(torch, dev, sink, model)
+
+    sink = HBMSink(100, device=dev)
+    try:
+        sink.write(90, b"x" * 20)
+        raise AssertionError("a write past the end was accepted")
+    except ValueError as exc:
+        past_end = str(exc)
+    sink.close()
+
+    sink = HBMSink(len(raw), device=dev)
+    sink.write(0, raw[:first.start])  # the header only
+    try:
+        sink.wait(timeout=0.2)
+        raise AssertionError("wait did not time out")
+    except TimeoutError as exc:
+        timeout_msg = str(exc)
+    sink.close()
+    if not timeout_msg.startswith(f"hbm sink: 0/{len(model)} tensors"):
+        raise AssertionError(f"timeout message {timeout_msg!r}")
+    log("hbm_sink_small", device=str(dev),
+        data_start=parse_safetensors_header(raw)[1],
+        tensors={"model": len(model), "every_dtype": len(all_dtypes)},
+        copy_event_seconds=copy_s, staging_seconds=staging_s,
+        eager_on_device_before_rest=eager_before_rest,
+        past_end=past_end, timeout=timeout_msg,
+        seconds=time.perf_counter() - t_phase)
+
+
+def llama_shard_specs(layers: int) -> list:
+    """(name, shape) of Llama-3-8B's embedding and first ``layers``
+    decoder layers, in the order of its first safetensors shard."""
+    h, f = LLAMA3_8B["hidden"], LLAMA3_8B["intermediate"]
+    kv = LLAMA3_8B["kv_width"]
+    specs = [("model.embed_tokens.weight", (LLAMA3_8B["vocab"], h))]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        specs += [(p + "self_attn.q_proj.weight", (h, h)),
+                  (p + "self_attn.k_proj.weight", (kv, h)),
+                  (p + "self_attn.v_proj.weight", (kv, h)),
+                  (p + "self_attn.o_proj.weight", (h, h)),
+                  (p + "mlp.gate_proj.weight", (f, h)),
+                  (p + "mlp.up_proj.weight", (f, h)),
+                  (p + "mlp.down_proj.weight", (h, f)),
+                  (p + "input_layernorm.weight", (h,)),
+                  (p + "post_attention_layernorm.weight", (h,))]
+    return specs
+
+
+def bf16_bytes(shape) -> int:
+    return 2 * int(np.prod(shape))
+
+
+def write_llama_shard(path: str, specs: list) -> dict:
+    """Write the shard as bf16 safetensors, each tensor's bytes from its
+    own seeded stream, data offsets padded to FANOUT_ALIGN; returns the
+    sha256 of each tensor's bytes."""
+    import hashlib
+    import struct
+
+    header, offset = {}, 0
+    for name, shape in specs:
+        n = bf16_bytes(shape)
+        header[name] = {"dtype": "BF16", "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n + (-n) % FANOUT_ALIGN
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header).encode()
+    raw += b" " * ((-(8 + len(raw))) % FANOUT_ALIGN)
+    digests = {}
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for i, (name, shape) in enumerate(specs):
+            rng = np.random.default_rng((SEED, i))
+            digest, left = hashlib.sha256(), bf16_bytes(shape)
+            while left:
+                chunk = rng.bytes(min(left, FANOUT_CHUNK))
+                digest.update(chunk)
+                f.write(chunk)
+                left -= len(chunk)
+            f.write(b"\0" * ((-bf16_bytes(shape)) % FANOUT_ALIGN))
+            digests[name] = digest.hexdigest()
+    return digests
+
+
+def fanout_mesh(root: str):
+    """The port's in-process config #5 topology, built as
+    ``tests/test_p2p_e2e.py`` builds the JAX one: the scheduler service
+    (resource model, scheduling core, dataset storage); returns it and a
+    function that starts a daemon on it."""
+    from dragonfly2_tpu_torch.client.daemon import Daemon, DaemonConfig
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import BaseEvaluator
+    from dragonfly2_tpu_torch.scheduler.resource.resource import Resource
+    from dragonfly2_tpu_torch.scheduler.scheduling.core import (
+        Scheduling,
+        SchedulingConfig,
+    )
+    from dragonfly2_tpu_torch.scheduler.service import SchedulerService
+    from dragonfly2_tpu_torch.scheduler.storage.storage import Storage
+
+    scheduler = SchedulerService(
+        resource=Resource(),
+        scheduling=Scheduling(BaseEvaluator(), SchedulingConfig(
+            retry_interval=0.01, retry_back_to_source_limit=2)),
+        storage=Storage(os.path.join(root, "datasets")))
+
+    def daemon(name: str, host_type):
+        d = Daemon(scheduler, DaemonConfig(
+            storage_root=os.path.join(root, name), hostname=name,
+            host_type=host_type))
+        d.start()
+        return d
+
+    return scheduler, daemon
+
+
+def fanout_layers(tmp: str) -> int:
+    """The most layers (up to FANOUT_LAYERS) whose shard fits
+    FANOUT_COPIES times on the disk under ``tmp``."""
+    free = shutil.disk_usage(tmp).free
+    layers = FANOUT_LAYERS
+    while layers > 0 and FANOUT_COPIES * sum(
+            bf16_bytes(s) for _, s in llama_shard_specs(layers)) \
+            + FANOUT_DISK_SLACK > free:
+        layers -= 1
+    return layers
+
+
+def run_hbm_fanout(torch, counts, dev) -> dict:
+    """BASELINE config #5 through the port's entry point: the shard at an
+    origin → the in-process scheduler, a SUPER_SEED daemon and a warmed
+    peer → a third daemon's ``download_to_hbm`` onto ``dev``. Launch
+    counts are set to 0 just before the download and read just after."""
+    import hashlib
+    import tempfile
+    import threading
+
+    from dragonfly2_tpu_torch import native
+    from dragonfly2_tpu_torch.client.hbm_sink import download_to_hbm
+    from dragonfly2_tpu_torch.client.piece import (
+        compute_piece_count,
+        compute_piece_size,
+    )
+    from dragonfly2_tpu_torch.utils.hosttypes import HostType
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-fanout-")
+    daemons = []
+    try:
+        layers = fanout_layers(tmp)
+        if layers < 1:
+            raise AssertionError(f"{shutil.disk_usage(tmp).free} bytes free "
+                                 "under the temp dir: not one layer fits")
+        specs = llama_shard_specs(layers)
+        reduced = [
+            f"Llama-3-8B cut to its first shard's tensors: "
+            f"model.embed_tokens.weight and layers 0-{layers - 1} whole "
+            f"({sum(bf16_bytes(s) for _, s in specs)} data bytes; the "
+            "published first shard is 4.98 of 16.06 GB)",
+            "random bf16 bits from seeds, not trained weights",
+            "one process: the in-process scheduler service, no gRPC"]
+        if layers < FANOUT_LAYERS:
+            reduced.append(f"{FANOUT_LAYERS - layers} fewer layers: "
+                           "the disk under the temp dir is short")
+        origin_dir = os.path.join(tmp, "origin")
+        os.makedirs(origin_dir)
+        path = os.path.join(origin_dir, "model.safetensors")
+        t0 = time.perf_counter()
+        digests = write_llama_shard(path, specs)
+        write_s = time.perf_counter() - t0
+        length = os.path.getsize(path)
+        piece_size = compute_piece_size(length)
+
+        with OriginServer(origin_dir) as origin:
+            url = origin.url("model.safetensors")
+            scheduler, start_daemon = fanout_mesh(tmp)
+            daemons.append(start_daemon("seed-1", HostType.SUPER_SEED))
+            scheduler.seed_peer_client = daemons[0].seed_client()
+            daemons.append(start_daemon("peer-warm", HostType.NORMAL))
+            t0 = time.perf_counter()
+            warm = daemons[1].download_file(url)
+            if not warm.success:
+                raise AssertionError(f"warm download failed: {warm.error}")
+            warm_s = time.perf_counter() - t0
+            daemons.append(start_daemon("peer-hbm", HostType.NORMAL))
+
+            if on_card:
+                release_card_memory(torch)
+                torch.cuda.reset_peak_memory_stats()
+            box, timeline = {}, []
+            stop = threading.Event()
+
+            def sample():
+                while not stop.wait(FANOUT_SAMPLE_S):
+                    sink = box.get("sink")
+                    if sink is not None:
+                        timeline.append([
+                            round(time.perf_counter() - t_start, 3),
+                            sink._coverage.covered_bytes(),
+                            sink.tensors_on_device])
+
+            counts.reset()
+            t_start = time.perf_counter()
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            tensors = download_to_hbm(
+                daemons[2], url, device=dev, timeout=FANOUT_TIMEOUT_S,
+                on_sink=lambda s: box.update(sink=s))
+            t_last_tensor = time.perf_counter() - t_start
+            launches = counts.read()
+            stop.set()
+            sampler.join(timeout=10)
+            peak_gib = (torch.cuda.max_memory_allocated() / 2**30
+                        if on_card else None)
+        sink = box["sink"]
+        t_last_piece = sink.written_at - t_start
+        landed = sorted(t - t_start for t in sink.landed.values())
+
+        # Every tensor on the device, right dtype and shape, its bytes
+        # copied back equal to the digest made when the file was written.
+        t0 = time.perf_counter()
+        for name, shape in specs:
+            t = tensors[name]
+            if (t.device != dev or t.dtype != torch.bfloat16
+                    or tuple(t.shape) != shape):
+                raise AssertionError(f"{name}: {t.device} {t.dtype} "
+                                     f"{tuple(t.shape)}")
+            back = t.reshape(-1).view(torch.uint8).cpu().numpy()
+            if hashlib.sha256(back).hexdigest() != digests[name]:
+                raise AssertionError(f"{name}: sha256 differs from the "
+                                     "origin's")
+        if set(tensors) != set(digests):
+            raise AssertionError("extra or missing tensors")
+        verify_s = time.perf_counter() - t0
+        if not landed[0] < t_last_piece:
+            raise AssertionError(f"no tensor on the device before the last "
+                                 f"piece ({landed[0]} >= {t_last_piece})")
+
+        # The same tensors copied again from staging after the fact: what
+        # a download-then-copy loader pays on top of the download.
+        del tensors
+        staging = sink._staging
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = []
+        for spec in sink._specs:
+            out = torch.empty(spec.nbytes, dtype=torch.uint8, device=dev)
+            out.copy_(staging[spec.start:spec.end], non_blocking=True)
+            seq.append(out)
+        if on_card:
+            torch.cuda.synchronize()
+        seq_transfer_s = time.perf_counter() - t0
+        del seq, staging
+        copied = sum(spec.nbytes for spec in sink._specs)
+        tail = t_last_tensor - t_last_piece
+        parents = sorted({p.host.hostname
+                          for r in scheduler.storage.list_download()
+                          if r.host.hostname == "peer-hbm"
+                          for p in r.parents})
+        step = max(1, len(timeline) // 100)
+        log("hbm_fanout", device=str(dev), card=nvidia_smi() if on_card
+            else None, reduced=reduced, layers=layers, tensors=len(specs),
+            content_bytes=length, piece_size=piece_size,
+            piece_count=compute_piece_count(length, piece_size),
+            native_available=native.available(),
+            write_file_s=write_s, warm_download_s=warm_s,
+            t_last_piece_s=t_last_piece, t_last_tensor_s=t_last_tensor,
+            first_tensor_landed_s=landed[0],
+            last_tensor_landed_s=landed[-1],
+            tail_after_last_piece_s=tail,
+            device_tail_after_last_piece_s=landed[-1] - t_last_piece,
+            seq_transfer_s=seq_transfer_s,
+            sequential_baseline_s=t_last_piece + seq_transfer_s,
+            overlap_saving_s=t_last_piece + seq_transfer_s - t_last_tensor,
+            overlap_hidden_fraction=1.0 - max(tail, 0.0) / seq_transfer_s,
+            overlap_hidden_fraction_device=1.0 - max(
+                landed[-1] - t_last_piece, 0.0) / seq_transfer_s,
+            download_MBps=length / 1e6 / t_last_piece,
+            h2d_GBps=copied / 1e9 / seq_transfer_s,
+            overlapped_copy_event_GBps=copied / 1e9 / (
+                sum(sink.copy_ms.values()) / 1e3) if sink.copy_ms else None,
+            staging_alloc_s=sink.staging_seconds,
+            sink_write_s=sink.write_seconds,
+            sink_write_share=sink.write_seconds / t_last_piece,
+            peak_memory_gib=peak_gib, launches=launches,
+            hbm_peer_parents=parents, verify_s=verify_s,
+            timeline=timeline[::step], landed_s=landed,
+            seconds=time.perf_counter() - t_phase)
+        if any(launches.values()):
+            raise AssertionError(f"a kernel launched on the sink's path: "
+                                 f"{launches}")
+        return launches
+    finally:
+        for d in reversed(daemons):
+            d.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -4825,6 +5352,11 @@ def main() -> int:
     dp_launches = run_data_parallel(torch, mlp_x, mlp_y, {
         "evaluations": training_evals, "predicted": training_predicted})
 
+    # -- phase 17: BASELINE config #5, slice 14 -----------------------------
+    card0 = torch.device("cuda", 0)
+    run_hbm_sink_small(torch, card0)
+    fanout_launches = run_hbm_fanout(torch, counts, card0)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -4839,7 +5371,8 @@ def main() -> int:
                    "training": training_launches[row["name"]],
                    "federated": federated_launches[row["name"]],
                    "federated_config4": config4_launches[row["name"]],
-                   "data_parallel": dp_launches[row["name"]]}
+                   "data_parallel": dp_launches[row["name"]],
+                   "hbm_fanout": fanout_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -10,3 +10,7 @@ Every entry point takes ``device=None``, meaning ``torch.device("cuda")``,
 and fails when no card is present; pass ``device="cpu"`` to run the plain
 PyTorch versions of the kernels (the CPU tests do).
 """
+
+from dragonfly2_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,6 +1,8 @@
-"""Threaded HTTP service lifecycle — port of
-``dragonfly2_tpu/utils/httpserver.py``: one implementation of the
-ThreadingHTTPServer + daemon-thread start/stop plumbing.
+"""Shared threaded-HTTP-service lifecycle.
+
+One implementation of the ThreadingHTTPServer + daemon-thread start/stop/
+port plumbing used by the upload server, proxy, object gateway, and manager
+REST shell — shutdown ordering and join timeouts live here once.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ logger = logging.getLogger(__name__)
 
 class QuietThreadingHTTPServer(ThreadingHTTPServer):
     """ThreadingHTTPServer whose per-request errors go to the logger
-    instead of a raw stderr traceback: clients vanishing mid-request are
-    debug noise, not operator pages."""
+    instead of a raw stderr traceback. Clients vanishing mid-request
+    (resets, refused continuations — routine under churn and by DESIGN
+    under fault injection) are debug noise, not operator pages."""
 
     def handle_error(self, request, client_address):
         logger.debug("request from %s failed", client_address,
@@ -31,6 +34,10 @@ class ThreadedHTTPService:
         self._name = name
 
     @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    @property
     def address(self) -> str:
         host, port = self._server.server_address[:2]
         return f"{host}:{port}"
@@ -43,8 +50,10 @@ class ThreadedHTTPService:
         self._thread.start()
 
     def stop(self) -> None:
-        # shutdown() waits for serve_forever to exit: on a server that was
-        # never started it would block forever.
+        # shutdown() handshakes with serve_forever via an event that is
+        # only ever SET by serve_forever exiting — on a server that was
+        # never started it blocks forever (stdlib footgun). Only
+        # handshake when the serve thread actually ran.
         if self._thread is not None:
             self._server.shutdown()
         self._server.server_close()

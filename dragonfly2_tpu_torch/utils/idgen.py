@@ -1,38 +1,83 @@
-"""Deterministic IDs for tasks, peers, hosts and models — port copy of
-the parts of ``dragonfly2_tpu/utils/idgen.py`` that the record path and
-the training orchestrator use (reference: pkg/idgen/task_id.go:95-102,
-peer_id.go, host_id.go, model_id.go:32-38).
+"""Deterministic ID generation for tasks, peers, hosts, and models.
 
-IDs are SHA-256 digests of request identity, so every service derives
-the same ID independently. A model ID binds a trained model to its
-source scheduler host: the registry keeps one active version per
-(type, scheduler), and a host's retrained model replaces its own.
+Reference counterpart: pkg/idgen/ (task_id.go:37-102, peer_id.go,
+host_id.go, model_id.go). IDs are deterministic SHA-256 digests of request
+identity so that every service derives the same ID independently — this is
+what makes the consistent-hash scheduler affinity and piece reuse work.
 """
 
 from __future__ import annotations
 
+import os
 import uuid
 from typing import Iterable, Sequence
 from urllib.parse import parse_qsl, urlencode, urlsplit, urlunsplit
 
 from dragonfly2_tpu_torch.utils.digest import sha256_from_strings
 
+URL_FILTER_SEPARATOR = "&"
+
 
 def filter_query(url: str, filtered_query_params: Sequence[str] | None) -> str:
-    """Drop the named query parameters from ``url`` (pkg/net/url
-    FilterQuery). Surviving parameters are re-encoded in sorted key
-    order, as Go's ``url.Values.Encode()`` does: task IDs hash the
-    encoded URL, so key order must match across implementations."""
+    """Drop the named query parameters from ``url``.
+
+    Mirrors pkg/net/url FilterQuery: parameters whose *name* appears in
+    ``filtered_query_params`` are removed so that e.g. signed-URL tokens do
+    not fragment task identity. Surviving parameters are re-encoded in
+    sorted key order — Go's ``url.Values.Encode()`` sorts keys, and task IDs
+    hash the encoded URL, so key order must match for cross-implementation
+    ID stability.
+    """
     if not filtered_query_params:
         return url
     parts = urlsplit(url)
     if not parts.query:
         return url
     drop = set(filtered_query_params)
-    kept = [(k, v) for k, v in parse_qsl(parts.query, keep_blank_values=True)
-            if k not in drop]
-    kept.sort(key=lambda kv: kv[0])  # stable: same-key values keep order
+    kept = [(k, v) for k, v in parse_qsl(parts.query, keep_blank_values=True) if k not in drop]
+    kept.sort(key=lambda kv: kv[0])  # stable: same-key values keep appearance order
     return urlunsplit(parts._replace(query=urlencode(kept)))
+
+
+def task_id_v1(
+    url: str,
+    *,
+    digest: str = "",
+    tag: str = "",
+    application: str = "",
+    url_range: str = "",
+    filters: str = "",
+    ignore_range: bool = False,
+) -> str:
+    """V1 task ID (reference: pkg/idgen/task_id.go:37-83 taskIDV1).
+
+    ``filters`` is the raw '&'-separated filter string from request metadata.
+    The hash covers (filtered url, digest?, range?, tag?, application?) —
+    empty fields are omitted entirely, matching the reference's conditional
+    appends.
+    """
+    filter_list = filters.split(URL_FILTER_SEPARATOR) if filters.strip() else None
+    try:
+        u = filter_query(url, filter_list)
+    except ValueError:
+        u = ""
+    data = [u]
+    if digest:
+        data.append(digest)
+    if not ignore_range and url_range:
+        data.append(url_range)
+    if tag:
+        data.append(tag)
+    if application:
+        data.append(application)
+    return sha256_from_strings(*data)
+
+
+def parent_task_id_v1(url: str, **kwargs) -> str:
+    """Task ID ignoring the range field — identifies the whole-file parent
+    task for ranged requests (reference: task_id.go ParentTaskIDV1)."""
+    kwargs["ignore_range"] = True
+    return task_id_v1(url, **kwargs)
 
 
 def task_id_v2(
@@ -43,8 +88,8 @@ def task_id_v2(
     piece_length: int = 0,
     filtered_query_params: Iterable[str] | None = None,
 ) -> str:
-    """V2 task ID (task_id.go:95-102 TaskIDV2): always hashes all five
-    fields, the piece length stringified."""
+    """V2 task ID (reference: task_id.go:95-102 TaskIDV2) — always hashes all
+    five fields (piece length stringified), unlike v1's conditional appends."""
     try:
         u = filter_query(url, list(filtered_query_params or []))
     except ValueError:
@@ -52,12 +97,21 @@ def task_id_v2(
     return sha256_from_strings(u, digest, tag, application, str(piece_length))
 
 
+def peer_id_v1(ip: str) -> str:
+    """``<ip>-<pid>-<uuid4>`` (reference: peer_id.go PeerIDV1)."""
+    return f"{ip}-{os.getpid()}-{uuid.uuid4()}"
+
+
+def seed_peer_id_v1(ip: str) -> str:
+    return f"{peer_id_v1(ip)}_Seed"
+
+
 def peer_id_v2() -> str:
     return str(uuid.uuid4())
 
 
 def host_id_v1(hostname: str, port: int) -> str:
-    """``<hostname>-<port>`` (host_id.go HostIDV1)."""
+    """``<hostname>-<port>`` (reference: host_id.go HostIDV1)."""
     return f"{hostname}-{port}"
 
 
@@ -67,7 +121,7 @@ def host_id_v2(ip: str, hostname: str) -> str:
 
 def gnn_model_id_v1(ip: str, hostname: str) -> str:
     """Model IDs bind a trained model to its source scheduler host
-    (model_id.go:32-38)."""
+    (reference: pkg/idgen/model_id.go:32-38)."""
     return sha256_from_strings(ip, hostname, "GNN")
 
 
@@ -81,5 +135,5 @@ def gat_model_id_v1(ip: str, hostname: str) -> str:
 
 
 def cost_model_id_v1(ip: str, hostname: str) -> str:
-    """The learned piece-cost predictor."""
+    """Learned piece-cost predictor (replay plane, docs/REPLAY.md)."""
     return sha256_from_strings(ip, hostname, "COST")

@@ -533,7 +533,7 @@ def test_learned_cost_evaluator_matches_jax_in_f32(mlp, with_stats):
     assert port.scored_count == ref.scored_count == 40
     assert port_cs.version == ref_cs.version == "v1"
     snap = stats.snapshot()
-    assert snap == {k: getattr(jax_stats, k) for k in snap}
+    assert snap == jax_stats.snapshot()
     assert snap["bad_node_learned_bad"] > 0
     assert snap["bad_node_learned"] > snap["bad_node_learned_bad"]
 
@@ -555,7 +555,7 @@ def test_learned_cost_evaluator_guard_matches_jax(mlp):
     assert port.guard_trips == ref.guard_trips > 10
     assert port.fallback_count == ref.fallback_count == 10
     snap = stats.snapshot()
-    assert snap == {k: getattr(jax_stats, k) for k in snap}
+    assert snap == jax_stats.snapshot()
     assert snap["cost_guard_trips"] == port.guard_trips
 
 
