@@ -14,7 +14,9 @@ config #4) through the crash-safe coordinator to a gated global model,
 and train configs #1-#3 and the orchestrator data-parallel over
 ``torch.distributed`` ranks, and fan a Llama-3-8B safetensors shard
 through the P2P client and scheduler into device memory (BASELINE
-config #5), on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
+config #5), and train config #3 in ring mode with its rows sharded over
+ranks and run ring attention, the pipeline and the experts across
+ranks, on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
@@ -249,7 +251,29 @@ Phases (any failure exits nonzero, before the final line):
    host-to-device rates — plus the pinned staging allocation, the
    sink's write share, peak memory, ``native.available()``, the piece
    size and count and a timeline; fewer layers only if the disk is
-   short, and everything deleted after).
+   short, and everything deleted after);
+18. sequence, pipeline and expert parallelism, the slice 15 paths (each
+   over a process group; no kernel may launch on them): first the world
+   of one in this process over a one-rank NCCL group (config #3 in ring
+   mode through K1 with the same seed, cut to one epoch; the layouts
+   without an exchange), then PAR_WORLD gloo ranks spawned once on the
+   one card: ring_gat_ranks (config #3 in ring mode, rows padded to
+   20 480 and sharded 10 240 a rank, K/V blocks around the ring, the
+   embeddings all-gathered for the pair head, one epoch of 59 steps:
+   equal digests, the loss and F1 gaps to the world of one, the trained
+   weights' embeddings against blocks mode's, rank 0's artifact served
+   in a world of one through K1 and ``InferenceService``, every rank's
+   hops, gathers and staged bytes as predicted, step time, a hop's time
+   and peak memory), ring_attention ([8192, 8, 8] bf16 causal with the
+   last 5 % of keys masked: both worlds' outputs and gradients against
+   the f32 dense reference row by row, and the forward's peak memory
+   above its inputs at world 2 at most RING_ATT_MEMORY_SHARE of world
+   1's) and pipeline_moe (``pipeline_apply`` with 8 microbatches and
+   ``moe_apply`` at capacity factors 8 and 1.25 at width 128 over 20 480
+   rows: outputs and gradients against the sequential and dense
+   references, the drops as the reference counts them); then
+   parallel_nccl_cards (the same over NCCL with a rank a card where
+   there are several cards; logged as waiting on one).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -4472,6 +4496,704 @@ def dp_train(torch, phase: str, backend: str, world: int, tmp: str,
     return ranks
 
 
+# -- sequence, pipeline and expert parallelism, slice 15 ---------------------
+
+# The card every rank of these phases works on (rank r: cuda:(r % cards)
+# through init_multihost; a world of one: the current card).
+CARD = "cuda"
+# Ranks of the gloo world that shares the one card, and how long its
+# processes may take (graph build, one config #3 epoch, the two layouts).
+PAR_WORLD = 2
+PAR_TIMEOUT_S = 600
+# Ring attention at the Ulysses cell's widths (8 heads of 8, causal, bf16)
+# over T = 8192, with the last 5 % of keys masked out by kv_valid; one
+# world-of-one score tensor is [8, 8192, 8192] f32, 2.15 GB.
+RING_ATT_T, RING_ATT_HEADS, RING_ATT_DIM = 8192, 8, 8
+RING_ATT_MASKED = 0.05
+# Ring attention against plain f32 attention, row by row (k3_errors). The
+# JAX algebra rounds each score block to bf16 before its f32 softmax and
+# p to bf16 before P·V (K3 keeps f32 scores, hence K3_TOL is tighter),
+# and the backward's products take bf16 operands. Measured worst on an
+# H100 (world 1, PERF.md): out 0.045, gradients 0.063; a run that drops
+# one key in 512 or ignores kv_valid gives row errors of 1 and more
+# (tests/ring_attention_tolerance.py).
+RING_ATT_TOL = {"out": 0.1, "grad": 0.15}
+# A rank's score blocks are [T/d, T/d] a head: at d = 2 a quarter of the
+# world of one's, so the forward's peak above its inputs must stay under
+# this share of the world of one's (ring_attention.py:7-9's O((T/d)²)).
+RING_ATT_MEMORY_SHARE = 0.35
+# The pipeline and the experts at config #3's hidden width over its
+# padded rows, with the dry-run twin's tanh(x @ w) stage and expert; M
+# microbatches; capacity factors with nothing dropped and the Switch
+# default, the gates skewed toward expert 0 so that the default drops.
+PIPE_ROWS, PIPE_WIDTH, PIPE_MICRO = 20_480, 128, 8
+MOE_FACTORS = (8.0, 1.25)
+MOE_SKEW = 1.0
+# f32 products with TF32 off, against plain references on the card: each
+# tensor's max |got − ref| over its max |ref|.
+PAR_F32_TOL = 1e-4
+
+
+def ring_gat_config():
+    """Config #3 in ring mode cut to one epoch (59 steps at batch 8192),
+    as the data-parallel phase cut it, with no wall-clock cap."""
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
+
+    return GATTrainConfig(**dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS,
+                                 max_seconds=None, attention="ring"))
+
+
+def rel_err(got, ref) -> float:
+    """max |got − ref| over max |ref| (f32)."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def par_ring_gat(torch, graph, rank: int, world: int, counts,
+                 out_dir: str) -> dict:
+    """Config #3 in ring mode over the default group (``GATTrainer.fit``,
+    the body of ``train_gat``) with the launch and exchange counts set to
+    0 just before and read just after; then the trained model's
+    embeddings of every row (gathered from the ranks) and its scores of
+    seeded pairs. Rank 0 writes the artifact, the embeddings and the
+    scores to ``out_dir``."""
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.parallel.dryrun import state_digest
+    from dragonfly2_tpu_torch.parallel.mesh import (
+        EXCHANGES,
+        all_gather_rows,
+        ring_shift,
+    )
+    from dragonfly2_tpu_torch.parallel.multihost import agree
+    from dragonfly2_tpu_torch.train.checkpoint import gat_artifact_from_result
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+
+    cfg = ring_gat_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    EXCHANGES.reset()
+    t0 = time.perf_counter()
+    trainer = GATTrainer(graph, cfg)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, exchanges = counts.read(), EXCHANGES.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(result.step_losses)
+    chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    rows, n_loc = trainer.nbr.shape[0], trainer.g_nbr.shape[0]
+    # What the path must exchange: a hop of K and V a layer a ring step
+    # but the last, forward and backward, in train steps and eval
+    # chunks; the embedding table gathered a forward, scattered back a
+    # backward; under gloo each through pinned host memory both ways.
+    hops = cfg.layers * (world - 1) * (2 * steps + chunks)
+    kv_bytes = 2 * n_loc * cfg.hidden * 2                  # bf16 K and V
+    emb_bytes = n_loc * cfg.embed * 2
+    expected = dict.fromkeys(exchanges, 0)
+    if world > 1:
+        expected.update(ring_shift=hops, all_gather=steps + chunks,
+                        reduce_scatter=steps)
+        if dist.get_backend() == "gloo" and trainer.device.type != "cpu":
+            expected["staged_bytes"] = (
+                hops * 2 * kv_bytes
+                + (steps + chunks) * (1 + world) * emb_bytes
+                + steps * 2 * rows * cfg.embed * 4)
+    step_ms = trainer.batch / result.samples_per_sec * 1e3
+    digests = agree(state_digest(result.state_dict)).ravel().tolist()
+
+    pairs = np.random.default_rng(SEED + 7).integers(0, graph.n_nodes,
+                                                     (64, 2))
+    trainer.model.eval()
+    with torch.no_grad():
+        emb = trainer.model.node_embeddings(trainer.g_feat, trainer.g_nbr,
+                                            trainer.g_val)
+        if trainer.sharded:
+            emb = all_gather_rows(emb)
+        src, dst = torch.from_numpy(pairs.astype(np.int32)).to(CARD).T
+        scores = trainer.model.score_pairs(emb, src, dst).float()
+        # One hop of the trained K/V shapes, timed (ranks in step).
+        kv = torch.zeros(2, n_loc, cfg.hidden, dtype=torch.bfloat16,
+                         device=CARD)
+        hop_ms = (cuda_ms(torch, lambda: ring_shift((kv[0], kv[1])),
+                          iters=10, warmup=2) if world > 1 else 0.0)
+    if rank == 0:
+        torch.save({"artifact": gat_artifact_from_result(
+                        result, graph, f"smoke-ring-{world}"),
+                    "emb": emb.float().cpu(), "scores": scores.cpu(),
+                    "pairs": pairs},
+                   os.path.join(out_dir, f"ring_gat_world{world}.pt"))
+    return dict(seconds=seconds, steps=steps, eval_chunks=chunks,
+                batch=trainer.batch, rows=rows, rows_per_rank=n_loc,
+                sharded=trainer.sharded, history=result.history,
+                step_losses_first_last=[result.step_losses[0],
+                                        result.step_losses[-1]],
+                f1=result.f1, accuracy=result.accuracy, digests=digests,
+                launches=launches, exchanges=exchanges,
+                expected_exchanges=expected, step_ms=step_ms,
+                samples_per_sec_global=result.samples_per_sec,
+                hop_ms=hop_ms, hop_bytes=kv_bytes,
+                peak_memory_gib=peak_gib)
+
+
+def ring_att_inputs(torch):
+    """The ring-attention phase's seeded q, k, v and cotangent ([T, 8, 8]
+    bf16, made on the card) and its key-valid mask."""
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 5)
+    shape = (RING_ATT_T, RING_ATT_HEADS, RING_ATT_DIM)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=CARD).to(
+        torch.bfloat16) for _ in range(4))
+    valid = torch.arange(RING_ATT_T, device=CARD) < int(
+        RING_ATT_T * (1 - RING_ATT_MASKED))
+    return q, k, v, dout, valid
+
+
+def par_ring_attention(torch, rank: int, world: int, counts,
+                       out_dir: str) -> dict:
+    """``ring_attention`` on this rank's rows: the forward's peak memory
+    above its inputs under ``no_grad``; the forward and backward with the
+    launch and exchange counts set to 0 just before and read just after;
+    the forward and forward + backward times. Saves the rank's out and
+    gradients to ``out_dir``."""
+    from dragonfly2_tpu_torch.parallel import ring_attention
+    from dragonfly2_tpu_torch.parallel.mesh import EXCHANGES
+
+    full_q, full_k, full_v, full_dout, full_valid = ring_att_inputs(torch)
+    rows = slice(rank * RING_ATT_T // world, (rank + 1) * RING_ATT_T // world)
+    q, k, v = (x[rows].clone().requires_grad_()
+               for x in (full_q, full_k, full_v))
+    dout, valid = full_dout[rows].clone(), full_valid[rows].clone()
+    del full_q, full_k, full_v, full_dout, full_valid
+
+    def forward():
+        return ring_attention(q, k, v, causal=True, kv_valid=valid)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        forward()
+    torch.cuda.synchronize()
+    peak_above = torch.cuda.max_memory_allocated() - base
+    counts.reset()
+    EXCHANGES.reset()
+    out = forward()
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches, exchanges = counts.read(), EXCHANGES.read()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, forward, iters=5, warmup=1)
+
+    def fwd_bwd():
+        torch.autograd.grad(forward(), (q, k, v), dout)
+
+    fwd_bwd_ms = cuda_ms(torch, fwd_bwd, iters=3, warmup=1)
+    torch.save({"out": out.detach().cpu(), "dq": q.grad.cpu(),
+                "dk": k.grad.cpu(), "dv": v.grad.cpu()},
+               os.path.join(out_dir, f"ring_att_world{world}_rank{rank}.pt"))
+    return dict(shape=[RING_ATT_T, RING_ATT_HEADS, RING_ATT_DIM],
+                rows_per_rank=rows.stop - rows.start, launches=launches,
+                exchanges=exchanges, fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+                peak_above_inputs_gib=peak_above / 2**30)
+
+
+def tanh_stage(params, x):
+    """The dry-run twin's stage and expert."""
+    import torch
+
+    return torch.tanh(x @ params["w"])
+
+
+def pipe_moe_inputs(torch, world: int) -> dict:
+    """Seeded f32 inputs on the card: ``world`` stacked stage and expert
+    weights [world, 128, 128], rows [20480, 128], their cotangent, and
+    gate logits [20480, world] skewed toward expert 0."""
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=CARD)
+
+    scale = PIPE_WIDTH ** -0.5
+    gates = randn(PIPE_ROWS, world)
+    gates[:, 0] += MOE_SKEW
+    return {"stages": randn(world, PIPE_WIDTH, PIPE_WIDTH) * scale,
+            "experts": randn(world, PIPE_WIDTH, PIPE_WIDTH) * scale,
+            "x": randn(PIPE_ROWS, PIPE_WIDTH),
+            "dout": randn(PIPE_ROWS, PIPE_WIDTH), "gates": gates}
+
+
+def par_pipeline_moe(torch, rank: int, world: int, counts,
+                     out_dir: str) -> dict:
+    """``pipeline_apply`` (M microbatches, a stage a rank) and
+    ``moe_apply`` (an expert a rank, this rank's tokens) forward and
+    backward with the launch and exchange counts set to 0 just before
+    and read just after each, and their times. Saves what the rank holds
+    (outputs, its stage's and expert's weight gradients, x's and its
+    gates' gradients) to ``out_dir``."""
+    from dragonfly2_tpu_torch.parallel import moe_apply, pipeline_apply
+    from dragonfly2_tpu_torch.parallel.mesh import EXCHANGES
+
+    inputs = pipe_moe_inputs(torch, world)
+    report, saved = {}, {}
+    stages = {"w": inputs["stages"].clone().requires_grad_()}
+    x = inputs["x"].clone().requires_grad_()
+
+    def pipe():
+        return pipeline_apply(tanh_stage, stages, x, microbatches=PIPE_MICRO)
+
+    counts.reset()
+    EXCHANGES.reset()
+    out = pipe()
+    out.backward(inputs["dout"])
+    torch.cuda.synchronize()
+    report["pipeline"] = dict(
+        launches=counts.read(), exchanges=EXCHANGES.read(),
+        fwd_ms=cuda_ms(torch, pipe, iters=5, warmup=1),
+        fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            pipe(), (stages["w"], x), inputs["dout"]), iters=3, warmup=1))
+    saved["pipeline"] = {"out": out.detach().cpu(),
+                         "dw": stages["w"].grad[rank].cpu(),
+                         "dx": x.grad.cpu()}
+
+    tokens = slice(rank * PIPE_ROWS // world, (rank + 1) * PIPE_ROWS // world)
+    x_mine, dout_mine = inputs["x"][tokens], inputs["dout"][tokens]
+    for factor in MOE_FACTORS:
+        experts = {"w": inputs["experts"].clone().requires_grad_()}
+        gates = inputs["gates"][tokens].clone().requires_grad_()
+
+        def moe():
+            return moe_apply(tanh_stage, experts, x_mine, gates,
+                             capacity_factor=factor)
+
+        counts.reset()
+        EXCHANGES.reset()
+        out = moe()
+        out.backward(dout_mine)
+        torch.cuda.synchronize()
+        report[f"moe_{factor}"] = dict(
+            launches=counts.read(), exchanges=EXCHANGES.read(),
+            dropped=int((out == 0).all(-1).sum()),
+            fwd_ms=cuda_ms(torch, moe, iters=5, warmup=1),
+            fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                moe(), (experts["w"], gates), dout_mine), iters=3,
+                warmup=1))
+        saved[f"moe_{factor}"] = {"out": out.detach().cpu(),
+                                  "dw": experts["w"].grad[rank].cpu(),
+                                  "dgates": gates.grad.cpu()}
+    torch.save(saved, os.path.join(out_dir,
+                                   f"pipe_moe_world{world}_rank{rank}.pt"))
+    return report
+
+
+def par_phases(torch, graph, rank: int, world: int, out_dir: str) -> dict:
+    """The three paths on this rank, in one process: ring-mode config #3,
+    ring attention, the pipeline and the experts."""
+    counts, report = Counts(), {}
+    for name, run, args in (
+            ("ring_gat", par_ring_gat, (graph, rank, world)),
+            ("ring_attention", par_ring_attention, (rank, world)),
+            ("pipeline_moe", par_pipeline_moe, (rank, world))):
+        t0 = time.perf_counter()
+        report[name] = run(torch, *args, counts, out_dir)
+        report[f"{name}_seconds"] = time.perf_counter() - t0
+    return report
+
+
+def par_rank(rank: int, world: int, address: str, backend: str,
+             out_dir: str) -> None:
+    """One rank of the parallel phases (a spawned process): joins the
+    fleet with ``init_multihost`` (its device cuda:(rank % cards)), builds
+    config #3's graph and runs :func:`par_phases`. Writes
+    ``rank<rank>.json`` to ``out_dir`` (a traceback to
+    ``rank<rank>.err``)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.parallel.multihost import init_multihost
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        info = init_multihost(address, world, rank, backend=backend)
+        report = {"rank": rank, "backend": info.backend,
+                  "device": str(info.device),
+                  "start_seconds": time.perf_counter() - t0}
+        try:
+            t0 = time.perf_counter()
+            graph = dp_data("gat")
+            report["graph_seconds"] = time.perf_counter() - t0
+            report.update(par_phases(torch, graph, rank, world, out_dir))
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def par_world_one(torch, graph, out_dir: str) -> dict:
+    """:func:`par_phases` in this process in a one-rank NCCL group: ring
+    mode there is the world of one's K1 path, and the layouts make no
+    exchange."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{out_dir}/store1",
+                            world_size=1, rank=0)
+    try:
+        return par_phases(torch, graph, 0, 1, out_dir)
+    finally:
+        dist.destroy_process_group()
+
+
+def dense_attention(torch, q, k, v, causal: bool, valid):
+    """Plain softmax attention in f32 over [T, h, d], keys masked by
+    ``valid`` (and the causal triangle)."""
+    q, k, v = (x.float() for x in (q, k, v))
+    s = torch.einsum("nhd,mhd->hnm", q, k) * q.shape[-1] ** -0.5
+    t = q.shape[0]
+    mask = valid[None, None, :]
+    if causal:
+        mask = mask & torch.ones(t, t, dtype=torch.bool,
+                                 device=q.device).tril()[None]
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("hnm,mhd->nhd", p, v)
+
+
+def check_ring_attention(torch, world: int, out_dir: str) -> dict:
+    """The ranks' ring-attention shards put together, out and gradients,
+    against :func:`dense_attention` run in f32 on the same values on the
+    card, row by row (``k3_errors``, within RING_ATT_TOL)."""
+    q, k, v, dout, valid = ring_att_inputs(torch)
+    shards = [torch.load(os.path.join(
+        out_dir, f"ring_att_world{world}_rank{r}.pt")) for r in range(world)]
+    got = tuple(torch.cat([s[key] for s in shards]).to(CARD)
+                for key in ("out", "dq", "dk", "dv"))
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    ref_out = dense_attention(torch, *leaves, True, valid)
+    grads = torch.autograd.grad(ref_out, leaves, dout.float())
+    ref = (ref_out.detach(), *grads)
+    del leaves, ref_out, grads
+    errs = k3_errors(torch, got, ref)
+    if not k3_within(errs, RING_ATT_TOL):
+        raise AssertionError(f"ring_attention world {world} vs dense: "
+                             f"{errs} over {RING_ATT_TOL}")
+    return errs
+
+
+def pipe_moe_references(torch, world: int, factor: float) -> dict:
+    """Plain references on the card, f32: the stages applied one after
+    another and their gradients of (out · dout).sum(); each rank's
+    tokens through its top-1 expert, a token kept when fewer than the
+    capacity of that rank's tokens before it chose the same expert,
+    scaled by its gate, and the gradients of the same loss."""
+    inputs = pipe_moe_inputs(torch, world)
+    ref = {}
+    w = inputs["stages"].clone().requires_grad_()
+    x = inputs["x"].clone().requires_grad_()
+    y = x
+    for s in range(world):
+        y = torch.tanh(y @ w[s])
+    dw, dx = torch.autograd.grad(y, (w, x), inputs["dout"])
+    ref["pipeline"] = {"out": y.detach(), "dw": dw, "dx": dx}
+
+    w = inputs["experts"].clone().requires_grad_()
+    gates = inputs["gates"].clone().requires_grad_()
+    t_loc = PIPE_ROWS // world
+    capacity = max(int(np.ceil(t_loc / world * factor)), 1)
+    outs, n_kept = [], 0
+    for r in range(world):
+        mine = slice(r * t_loc, (r + 1) * t_loc)
+        g = gates[mine]
+        idx = g.argmax(-1)
+        prob = torch.softmax(g, -1).gather(-1, idx[:, None])[:, 0]
+        kept = torch.zeros(t_loc, dtype=torch.bool, device=CARD)
+        y = torch.zeros(t_loc, PIPE_WIDTH, device=CARD)
+        for e in range(world):
+            chosen = torch.nonzero(idx == e)[:, 0]
+            kept[chosen[:capacity]] = True
+            y = y.index_put((chosen,), torch.tanh(
+                inputs["x"][mine][chosen] @ w[e]))
+        outs.append(y * (prob * kept)[:, None])
+        n_kept += int(kept.sum())
+    out = torch.cat(outs)
+    dw, dgates = torch.autograd.grad(out, (w, gates), inputs["dout"])
+    ref["moe"] = {"out": out.detach(), "dw": dw, "dgates": dgates,
+                  "dropped": PIPE_ROWS - n_kept}
+    return ref
+
+
+def check_pipeline_moe(torch, world: int, out_dir: str) -> dict:
+    """Every rank's pipeline output and x's gradient, and its stage's
+    weight gradient, against the sequential reference; the experts'
+    outputs and gate gradients put together, and each rank's expert
+    gradient, against the dense reference, at each capacity factor.
+    Returns each tensor's error (:func:`rel_err`) and the drops."""
+    shards = [torch.load(os.path.join(
+        out_dir, f"pipe_moe_world{world}_rank{r}.pt")) for r in range(world)]
+    errs = {}
+    for factor in MOE_FACTORS:
+        ref = pipe_moe_references(torch, world, factor)
+        if "pipeline" not in errs:
+            pipe = ref["pipeline"]
+            errs["pipeline"] = {
+                key: max(rel_err(s["pipeline"][key].to(CARD),
+                                 pipe[key][r] if key == "dw" else pipe[key])
+                         for r, s in enumerate(shards))
+                for key in ("out", "dx", "dw")}
+        moe, key = ref["moe"], f"moe_{factor}"
+        errs[key] = {
+            name: rel_err(torch.cat([s[key][name] for s in shards]).to(CARD),
+                          moe[name]) for name in ("out", "dgates")}
+        errs[key]["dw"] = max(rel_err(s[key]["dw"].to(CARD), moe["dw"][r])
+                              for r, s in enumerate(shards))
+        errs[key]["dropped_reference"] = moe["dropped"]
+    bad = {name: e for name, e in errs.items()
+           if any(v > PAR_F32_TOL for n, v in e.items()
+                  if n != "dropped_reference")}
+    if bad:
+        raise AssertionError(f"pipeline_moe world {world}: {bad} over "
+                             f"{PAR_F32_TOL}")
+    return errs
+
+
+def expected_layout_exchanges(world: int) -> dict:
+    """What the pipeline and the experts must exchange in a world > 1, a
+    forward and a backward: M + S − 2 hops each way, the all-reduce of
+    the output and that of x's gradient; two all-to-alls forward and one
+    backward (the dispatch carries no gradient: x takes none)."""
+    return {"pipeline": {"ring_shift": 2 * (PIPE_MICRO + world - 2),
+                         "all_reduce": 2},
+            "moe": {"all_to_all": 3}}
+
+
+def par_failures(ranks: list, world: int) -> list:
+    """The checks that read only the ranks' reports: equal digests,
+    launches, exchange counts and staged bytes as predicted."""
+    failures = []
+    gat = [r["ring_gat"] for r in ranks]
+    if len({d for g in gat for d in g["digests"]}) != 1:
+        failures.append(f"ring_gat digests {gat[0]['digests']}")
+    expected = expected_layout_exchanges(world)
+    zero = dict.fromkeys(gat[0]["launches"], 0)
+    for r in ranks:
+        g = r["ring_gat"]
+        if world > 1 and (g["launches"] != zero
+                          or g["exchanges"] != g["expected_exchanges"]):
+            failures.append(f"ring_gat rank {r['rank']}: launches "
+                            f"{g['launches']}, exchanges {g['exchanges']} "
+                            f"!= {g['expected_exchanges']}")
+        att = r["ring_attention"]
+        hops = 2 * (world - 1)
+        if att["launches"] != zero or att["exchanges"]["ring_shift"] != hops:
+            failures.append(f"ring_attention rank {r['rank']}: launches "
+                            f"{att['launches']}, exchanges "
+                            f"{att['exchanges']}")
+        for name, rep in r["pipeline_moe"].items():
+            want = expected["pipeline" if name == "pipeline" else "moe"]
+            got = {k: v for k, v in rep["exchanges"].items()
+                   if v and k != "staged_bytes"}
+            if rep["launches"] != zero or got != want:
+                failures.append(f"{name} rank {r['rank']}: launches "
+                                f"{rep['launches']}, exchanges "
+                                f"{rep['exchanges']} != {want}")
+    return failures
+
+
+def run_parallel_world(torch, phase: str, backend: str, world: int,
+                       tmp: str, one: dict, graph) -> dict:
+    """``world`` ranks over ``backend`` spawned once (:func:`par_rank`),
+    checked against the world of one (``one``, run in this process):
+    ring_gat_ranks, ring_attention and pipeline_moe logged with ``phase``
+    as their prefix where it is not the one-card gloo run. Returns rank
+    0's launches a path."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+        _gat_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
+    from dragonfly2_tpu_torch.train.checkpoint import (
+        gat_state_dict_from_flax,
+        gat_from_tree,
+        load_artifact,
+    )
+
+    out_dir = os.path.join(tmp, f"{phase}-world{world}")
+    os.makedirs(out_dir)
+    parent_gib = release_card_memory(torch)
+    t0 = time.perf_counter()
+    address = f"localhost:{free_port()}"
+    join_processes(start_processes(
+        [(par_rank, (rank, world, address, backend, out_dir))
+         for rank in range(world)]), PAR_TIMEOUT_S, out_dir)
+    ranks = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    seconds = time.perf_counter() - t0
+    failures = par_failures(ranks, world)
+    label = f"{backend}, {world} ranks on " + (
+        "one card" if backend == "gloo" else f"{world} cards")
+    prefix = "" if phase == "parallel" else f"{phase}_"
+
+    # -- ring_gat_ranks: against the world of one, blocks mode, serving --
+    gat, ref = ranks[0]["ring_gat"], one["ring_gat"]
+    gaps = {"loss": abs(gat["history"][-1] - ref["history"][-1]),
+            "f1": abs(gat["f1"] - ref["f1"])}
+    tol = {"loss": DP_LOSS_TOL["gat"], "f1": DP_F1_TOL["gat"]}
+    if any(gaps[k] > tol[k] for k in gaps):
+        failures.append(f"ring_gat gaps {gaps} over {tol}")
+    saved = torch.load(os.path.join(out_dir, f"ring_gat_world{world}.pt"),
+                       weights_only=False)
+    tree, metadata = load_artifact(saved["artifact"])
+    params, feats, nbr, val, _ = gat_from_tree(tree)
+    blocks = GraphTransformer(
+        in_features=feats.shape[1], **GAT_CFG | {"attention": "blocks"})
+    blocks.load_state_dict(gat_state_dict_from_flax(params))
+    with torch.no_grad():
+        blocks_emb = blocks.to(CARD).node_embeddings(*(
+            torch.from_numpy(a).to(CARD) for a in (feats, nbr, val))).float()
+    emb_err = float((blocks_emb - saved["emb"].to(CARD)).abs().max())
+    counts = Counts()
+    counts.reset()
+    t_load = time.perf_counter()
+    scorer = _gat_scorer_from_artifact(saved["artifact"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_load
+    service = InferenceService(micro_batch=False)
+    service.install_scorer("gat", scorer, version=f"ring-{world}")
+    pairs = saved["pairs"]
+    served = np.concatenate([service.ModelInfer(
+        ModelInferRequest("gat", pairs[i:i + 16]), CallContext()).outputs
+        for i in range(0, len(pairs), 16)])
+    serve_launches = counts.read()
+    served_err = float(np.abs(served - saved["scores"].numpy()).max())
+    if (emb_err > MODE_TOL or served_err > MODE_TOL
+            or not np.isfinite(served).all()
+            or serve_launches["graph_flash_attention"] != GAT_CFG["layers"]):
+        failures.append(f"ring_gat: blocks embeddings {emb_err}, served "
+                        f"{served_err} (tol {MODE_TOL}), serve launches "
+                        f"{serve_launches}")
+    del blocks, scorer, service
+    log(f"{prefix}ring_gat_ranks", label=label, seconds=seconds, world=world,
+        parent_reserved_gib=parent_gib,
+        start_seconds=[r["start_seconds"] for r in ranks],
+        graph_seconds=[r["graph_seconds"] for r in ranks],
+        phase_seconds=[{k: v for k, v in r.items() if k.endswith("_seconds")}
+                       for r in ranks],
+        world_one_phase_seconds={k: v for k, v in one.items()
+                                 if k.endswith("_seconds")},
+        ranks=[r["ring_gat"] for r in ranks], world_one=ref, gaps=gaps,
+        tol=tol, blocks_embeddings_err=emb_err, served_err=served_err,
+        serve_load_seconds=load_s, serve_launches=serve_launches,
+        artifact_attention=metadata.config["attention"], mode_tol=MODE_TOL)
+
+    # -- ring_attention: shards against the dense reference; memory ------
+    errs = {"world1": one.get("ring_attention_errs")
+            or check_ring_attention(torch, 1, one["out_dir"])}
+    one["ring_attention_errs"] = errs["world1"]
+    errs[f"world{world}"] = check_ring_attention(torch, world, out_dir)
+    att = [r["ring_attention"] for r in ranks]
+    share = (max(a["peak_above_inputs_gib"] for a in att)
+             / one["ring_attention"]["peak_above_inputs_gib"])
+    if share > RING_ATT_MEMORY_SHARE:
+        failures.append(f"ring_attention: peak share {share} over "
+                        f"{RING_ATT_MEMORY_SHARE}")
+    log(f"{prefix}ring_attention", label=label, world=world,
+        world_one=one["ring_attention"], ranks=att, errors=errs,
+        tol=RING_ATT_TOL, memory_share=share,
+        memory_share_max=RING_ATT_MEMORY_SHARE,
+        masked_keys=int(RING_ATT_T * RING_ATT_MASKED), causal=True,
+        dtype="bf16")
+
+    # -- pipeline_moe: against the sequential and dense references -------
+    errs = {"world1": one.get("pipeline_moe_errs")
+            or check_pipeline_moe(torch, 1, one["out_dir"])}
+    one["pipeline_moe_errs"] = errs["world1"]
+    errs[f"world{world}"] = check_pipeline_moe(torch, world, out_dir)
+    drops = [sum(r["pipeline_moe"][f"moe_{f}"]["dropped"] for r in ranks)
+             for f in MOE_FACTORS]
+    want_drops = [errs[f"world{world}"][f"moe_{f}"]["dropped_reference"]
+                  for f in MOE_FACTORS]
+    if drops != want_drops or drops[0] != 0 or drops[1] == 0:
+        failures.append(f"moe drops {drops} (reference {want_drops}) at "
+                        f"factors {MOE_FACTORS}")
+    log(f"{prefix}pipeline_moe", label=label, world=world,
+        rows=PIPE_ROWS, width=PIPE_WIDTH, microbatches=PIPE_MICRO,
+        capacity_factors=list(MOE_FACTORS), drops=drops,
+        world_one=one["pipeline_moe"],
+        ranks=[r["pipeline_moe"] for r in ranks], errors=errs,
+        tol=PAR_F32_TOL)
+    if failures:
+        raise AssertionError(f"{phase}: {failures}")
+    return {"ring_gat_ranks": gat["launches"],
+            "ring_attention": ranks[0]["ring_attention"]["launches"],
+            "pipeline_moe": {
+                name: sum(rep["launches"][name]
+                          for rep in ranks[0]["pipeline_moe"].values())
+                for name in gat["launches"]}}
+
+
+def run_parallel(torch, graph) -> dict:
+    """Sequence, pipeline and expert parallelism, slice 15's paths.
+
+    The world of one first, in this process over a one-rank NCCL group
+    (ring mode's K1 path with the same seed; the layouts without an
+    exchange), then PAR_WORLD gloo ranks spawned once on the one card
+    (:func:`run_parallel_world`): ring_gat_ranks (config #3 in ring mode,
+    rows sharded, K/V around the ring; digests equal, loss and F1 gaps to
+    the world of one, the trained weights' embeddings against blocks
+    mode's, rank 0's artifact served in a world of one through K1, hops
+    and staged bytes as predicted), ring_attention (shards against the
+    f32 dense reference, row by row; the forward's peak memory share) and
+    pipeline_moe (against the sequential and dense references; drops as
+    the reference counts them). parallel_nccl_cards: the same over NCCL
+    with a rank a card where the machine has several cards; with one it
+    is logged as waiting. Every path must launch no kernel. Returns rank
+    0's launches a path of the gloo run."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke-par-")
+    try:
+        one_dir = os.path.join(tmp, "world1")
+        os.makedirs(one_dir)
+        release_card_memory(torch)
+        t0 = time.perf_counter()
+        one = par_world_one(torch, graph, one_dir)
+        one["out_dir"] = one_dir
+        one["seconds"] = time.perf_counter() - t0
+        ring = one["ring_gat"]
+        expected = dict.fromkeys(ring["launches"], 0)
+        expected.update(
+            graph_flash_attention=TRAIN_CFG["layers"] * (
+                ring["steps"] + ring["eval_chunks"]),
+            graph_flash_attention_backward=TRAIN_CFG["layers"]
+            * ring["steps"])
+        if ring["launches"] != expected or ring["sharded"]:
+            raise AssertionError(f"ring world of one: launches "
+                                 f"{ring['launches']} != {expected}")
+        launches = run_parallel_world(torch, "parallel", "gloo", PAR_WORLD,
+                                      tmp, one, graph)
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            run_parallel_world(torch, "parallel_nccl_cards", "nccl", cards,
+                               tmp, one, graph)
+        else:
+            log("parallel_nccl_cards", cards=cards)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 # -- BASELINE config #5, slice 14: the P2P mesh into the device sink ---------
 
 class OriginServer:
@@ -5357,6 +6079,9 @@ def main() -> int:
     run_hbm_sink_small(torch, card0)
     fanout_launches = run_hbm_fanout(torch, counts, card0)
 
+    # -- phase 18: sequence, pipeline and expert parallelism, slice 15 ------
+    par_launches = run_parallel(torch, graph)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -5372,7 +6097,9 @@ def main() -> int:
                    "federated": federated_launches[row["name"]],
                    "federated_config4": config4_launches[row["name"]],
                    "data_parallel": dp_launches[row["name"]],
-                   "hbm_fanout": fanout_launches[row["name"]]}
+                   "hbm_fanout": fanout_launches[row["name"]],
+                   **{path: par[row["name"]]
+                      for path, par in par_launches.items()}}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

@@ -59,6 +59,7 @@ from dragonfly2_tpu_torch.inference.scorer import (
 )
 from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
 from dragonfly2_tpu_torch.models.mlp import FEATURE_DIM, MLPBandwidthPredictor
+from dragonfly2_tpu_torch.parallel.mesh import LOCAL
 from dragonfly2_tpu_torch.rpc.health import NOT_SERVING, SERVING
 from dragonfly2_tpu_torch.train.checkpoint import (
     gat_from_tree,
@@ -934,6 +935,7 @@ def _gat_scorer_from_artifact(artifact: bytes,
         attention=str(cfg.get("attention", "gather")),
         chunk=int(cfg.get("chunk", 1024)),
         dtype=torch.bfloat16,
+        group=LOCAL,
     )
     model.load_state_dict(gat_state_dict_from_flax(params))
     return GATParentScorer(model, node_features, neighbors, neighbor_vals,

@@ -1,5 +1,5 @@
 """GraphTransformer — port of ``dragonfly2_tpu/models/graph_transformer.py``
-(BASELINE config #3) for one device.
+(BASELINE config #3).
 
 Every host embedding is refined by multi-head attention restricted to its
 probe neighbors, with the measured RTT added as an attention bias. The
@@ -15,11 +15,14 @@ Attention modes, all computing the same function:
 - ``"blocks"`` and ``"flash"``: ``graph_flash_attention`` (K1), the
   forward and backward kernels on the card (the plain key-block online
   softmax and its plain backward on the CPU).
-- ``"ring"``: in a world of one (no ``torch.distributed`` group, or one
-  of size 1) the blocks math with the key block ``_divisor_block(N,
-  chunk)``, the JAX package's fallback without a mesh — K1 on the card.
-  Row-sharded K/V across several processes is not ported yet (ROADMAP.md
-  Queue 1, parallel set): a larger world raises.
+- ``"ring"``: in a world of one (``group`` of size 1, or none) the
+  blocks math with the key block ``_divisor_block(N, chunk)``, the JAX
+  package's fallback without a mesh — K1 on the card. In a larger
+  ``torch.distributed`` group the rows are sharded over the ranks:
+  each rank passes its row shard of the node features and neighbor
+  lists (``nbr`` holding global ids), its K/V blocks travel around the
+  ring (:func:`ring_graph_attention`), and ``forward`` all-gathers the
+  embeddings for the pair head.
 
 Parameters keep flax's names (``Dense_i``, ``LayerNorm_i``,
 ``input_proj``...) so a flax tree maps onto the state dict key for key
@@ -46,7 +49,11 @@ from dragonfly2_tpu_torch.ops.table_gather import (  # noqa: F401 (re-export)
     build_inverse_index,
     neighbor_gather,
 )
-from dragonfly2_tpu_torch.parallel.mesh import group_size_rank
+from dragonfly2_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    group_size_rank,
+    ring_shift,
+)
 
 NEG_INF = -1e9
 # Neighbor-list pad sentinel: never inside [0, N) for any padded N, so a
@@ -181,6 +188,94 @@ def gather_graph_attention(q, k, v, nbr, val, inv=None):
     return torch.einsum("nhk,nkhd->nhd", p, vg)
 
 
+def _block_bias(nbr, val, start: int, block: int):
+    """[rows, block] (bias, mask) for key columns [start, start + block),
+    scattered from the neighbor lists. The scatter-add is exact because
+    ``build_neighbor_lists`` dedups (row, col) pairs; an out-of-range slot
+    (PAD_ID among them) adds 0 to a clamped column and sets no mask."""
+    in_range = (nbr >= start) & (nbr < start + block)
+    col = (nbr - start).clamp(0, block - 1).long()
+    rows = torch.arange(nbr.shape[0], device=nbr.device)[:, None].expand_as(
+        col)
+    base = val.new_zeros(nbr.shape[0], block)
+    bias = base.index_put((rows, col), torch.where(in_range, val, 0.0),
+                          accumulate=True)
+    hits = base.index_put((rows, col), in_range.to(val.dtype),
+                          accumulate=True)
+    return bias, hits > 0
+
+
+def _ring_sub_block(q, kj, vj, nbr, val, start: int, m, l, acc):
+    """One ``block``-column sub-block of a visiting K/V block folded into
+    the online softmax's (m, l, acc)."""
+    block = kj.shape[0]
+    bias, mask = _block_bias(nbr, val, start, block)
+    s = torch.einsum("nhd,bhd->nhb", q, kj).float() * (
+        1.0 / math.sqrt(q.shape[-1]))
+    s = s + bias[:, None, :]
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    # the mask multiplication guards fully masked rows: exp(NEG_INF −
+    # NEG_INF) = 1 would otherwise pollute l
+    p = torch.exp(s - m_new[..., None]) * mask[:, None, :]
+    fold = torch.exp(m - m_new)
+    l = l * fold + p.sum(-1)
+    acc = acc * fold[..., None] + torch.einsum(
+        "nhb,bhd->nhd", p.to(q.dtype), vj).float()
+    return m_new, l, acc
+
+
+def ring_graph_attention(q, k, v, nbr, val, chunk: int, group=None):
+    """Neighbor-masked attention with the rows sharded over ``group``'s
+    ranks and each rank's K/V block travelling around the ring
+    (:func:`~dragonfly2_tpu_torch.parallel.mesh.ring_shift`, one hop of
+    K and V together a step, none after the last): no rank holds K/V of
+    more than its own rows plus one visiting block.
+
+    q/k/v: this rank's rows ``[n, heads, head_dim]``; nbr/val: its rows
+    of the neighbor lists ``[n, K]``, ids global. Each visiting block is
+    scanned in ``min(chunk, n)``-column sub-blocks (``n`` must divide
+    into them), its bias and mask scattered at the block's global offset
+    (``(rank − step) % world`` · n). The JAX function's algebra; the
+    products are ``torch.einsum``. Each sub-block body is checkpointed
+    (recomputed in the backward), which keeps the residents at one
+    (m, l, acc) carry a sub-block; the hops stay outside the
+    checkpoints, since a checkpointed collective would run again in the
+    backward, where the ranks' hops would no longer pair up."""
+    from torch.utils.checkpoint import checkpoint
+
+    world, rank = group_size_rank(group)
+    n_loc = q.shape[0]
+    block = min(chunk, n_loc)
+    if n_loc % block:
+        raise ValueError(f"a rank's {n_loc} rows do not split into "
+                         f"{block}-row key blocks")
+    m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
+                   device=q.device)                          # [n, heads]
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    kb, vb = k, v
+    for step in range(world):
+        base = ((rank - step) % world) * n_loc               # block owner
+        for j in range(0, n_loc, block):
+            args = (q, kb[j:j + block], vb[j:j + block], nbr, val, base + j,
+                    m, l, acc)
+            m, l, acc = (checkpoint(_ring_sub_block, *args,
+                                    use_reentrant=False)
+                         if remat else _ring_sub_block(*args))
+        if step < world - 1:
+            kb, vb = ring_shift((kb, vb), group)
+    return (acc / torch.clamp_min(l, 1e-20)[..., None]).to(q.dtype)
+
+
+def _shards_rows(attention: str, group) -> bool:
+    """Ring mode in a group of more than one rank: each rank holds its
+    rows."""
+    return attention == "ring" and group_size_rank(group)[0] > 1
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense`` twin on one device (the JAX package's ``TPDense``
     without tensor parallelism): f32 ``weight [out, in]`` and ``bias``,
@@ -231,12 +326,14 @@ class GraphAttentionBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, chunk: int = 1024,
                  attention: str = "gather",
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, group=None):
         super().__init__()
         if attention not in ATTENTION_MODES:
             raise ValueError(f"unknown attention mode {attention!r}")
         self.hidden, self.heads = hidden, heads
         self.chunk, self.attention = chunk, attention
+        self.group = group
+        self.sharded = _shards_rows(attention, group)
         self.LayerNorm_0 = LayerNorm(hidden, dtype)
         self.Dense_0 = Dense(hidden, hidden, dtype, generator)
         self.Dense_1 = Dense(hidden, hidden, dtype, generator)
@@ -258,13 +355,11 @@ class GraphAttentionBlock(nn.Module):
         n = q.shape[0]
         if self.attention == "gather":
             out = gather_graph_attention(q, k, v, nbr, val, inv)
+        elif self.sharded:
+            # Rows sharded over the ranks; K/V blocks hop around the ring.
+            out = ring_graph_attention(q, k, v, nbr, val, self.chunk,
+                                       self.group)
         else:
-            if self.attention == "ring" and group_size_rank()[0] > 1:
-                raise NotImplementedError(
-                    "attention='ring' across several processes (K/V rows "
-                    "sharded around the ring) comes with the parallel set "
-                    "(ROADMAP.md Queue 1 item 8b); in a world of one it is "
-                    "the blocks math")
             # The CPU's key block; the kernel takes none.
             block = (_divisor_block(n, self.chunk) if self.attention == "ring"
                      else _flash_block(n, self.chunk))
@@ -277,18 +372,26 @@ class GraphAttentionBlock(nn.Module):
 
 class GraphTransformer(nn.Module):
     """L attention blocks over the full topology + an edge-scoring head.
-    ``forward`` returns per-edge logits for (src, dst) index tensors."""
+    ``forward`` returns per-edge logits for (src, dst) index tensors.
+
+    ``group``: the ``torch.distributed`` group whose ranks share the rows
+    in ring mode (``None``: the default group when one is initialized;
+    ``parallel.mesh.LOCAL``: this process alone, as serving passes). In
+    other modes, and in a world of one, every call sees the whole graph.
+    """
 
     def __init__(self, in_features: int = NODE_FEATURE_DIM, hidden: int = 128,
                  embed: int = 64, layers: int = 2, heads: int = 4,
                  chunk: int = 1024, attention: str = "gather",
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, group=None):
         super().__init__()
+        self.group = group
+        self.sharded = _shards_rows(attention, group)
         self.input_proj = Dense(in_features, hidden, dtype, generator)
         self.blocks = nn.ModuleList(
             GraphAttentionBlock(hidden, heads, chunk, attention, dtype,
-                                generator)
+                                generator, group)
             for _ in range(layers))
         self.final_norm = LayerNorm(hidden, dtype)
         self.embed_proj = Dense(hidden, embed, dtype, generator)
@@ -298,7 +401,8 @@ class GraphTransformer(nn.Module):
     def node_embeddings(self, node_features, nbr, val, inv=None):
         """[N, F] → [N, E]; run once at model load for serving. ``inv``
         (training; required under autograd on the card in every mode but
-        gather) = :func:`build_inverse_index` of ``nbr``."""
+        gather and sharded ring) = :func:`build_inverse_index` of
+        ``nbr``. Sharded ring mode takes and returns this rank's rows."""
         h = self.input_proj(node_features)
         for block in self.blocks:
             h = block(h, nbr, val, inv)
@@ -313,4 +417,8 @@ class GraphTransformer(nn.Module):
 
     def forward(self, node_features, nbr, val, edge_src, edge_dst, inv=None):
         emb = self.node_embeddings(node_features, nbr, val, inv)
+        if self.sharded:
+            # One all-gather of the (small) embedding table a forward; the
+            # pair gathers then stay local.
+            emb = all_gather_rows(emb, self.group)
         return self.score_pairs(emb, edge_src, edge_dst)

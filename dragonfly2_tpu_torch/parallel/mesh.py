@@ -1,5 +1,6 @@
 """The process group that stands in for a JAX mesh axis — port of the
-data-parallel half of ``dragonfly2_tpu/parallel/mesh.py``.
+one-axis half of ``dragonfly2_tpu/parallel/mesh.py``: the data axis, and
+the exchanges that ``shard_map`` bodies make over an axis.
 
 PyTorch runs one process per device, so where the JAX package names a
 mesh axis the port takes a ``torch.distributed`` process group; no mesh
@@ -10,6 +11,19 @@ the mesh's ``data`` axis and let XLA insert the gradient ``psum``
 rounded to a multiple of the world, this rank's rows of it, the initial
 parameters broadcast from rank 0, and one all-reduce a step of every
 gradient packed into one flat buffer.
+
+The exchanges (:func:`ring_shift`, :func:`all_gather_rows`,
+:func:`all_to_all`, :func:`replicated_input`) are the collectives of the
+JAX package's ``shard_map`` bodies — ``lax.ppermute`` around the ring,
+the row all-gather of a sharded table, ``lax.all_to_all`` tiled over dim
+0, the transpose of a replicated input — each a
+``torch.autograd.Function`` whose backward is the collective's transpose.
+NCCL carries device tensors directly. gloo takes CPU tensors only in its
+point-to-point and all-to-all, so under gloo every exchange of device
+tensors goes through pinned host memory (its all-reduce too, on one
+path): chosen by the group's backend, counted in :data:`EXCHANGES`. Every exchange moves bytes (a ``uint8``
+view), so no backend's dtype support matters, and sums run in f32. The
+compute never leaves the device.
 
 ``group=None`` means the default process group when one is initialized,
 and a world of one otherwise. :data:`LOCAL` means this process alone
@@ -131,3 +145,248 @@ def _unpack(flat: torch.Tensor, tensors) -> None:
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+# -- the exchanges of one mesh axis ------------------------------------------
+
+
+class Exchanges:
+    """How many exchanges of each kind this process issued, and the bytes
+    that gloo's took through pinned host memory (both ways). The
+    exchanges of a world of one issue no collective and count nothing."""
+
+    KINDS = ("ring_shift", "all_gather", "reduce_scatter", "all_to_all",
+             "all_reduce")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.counts = dict.fromkeys(self.KINDS, 0)
+        self.staged_bytes = 0
+
+    def read(self) -> dict:
+        return dict(self.counts, staged_bytes=self.staged_bytes)
+
+
+#: The process's exchange counts (``chip_smoke.py`` reads them).
+EXCHANGES = Exchanges()
+
+
+def _peer(group, rank: int) -> int:
+    """The global rank of ``group``'s rank ``rank``."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(-1).view(torch.uint8)
+
+
+def _from_bytes(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return flat.view(like.dtype).view(like.shape)
+
+
+class _Transport:
+    """Where one exchange's buffers live: the device under NCCL or when
+    the tensors are on the CPU; pinned host memory for device tensors
+    under gloo (its point-to-point and all-to-all take CPU tensors only).
+    """
+
+    def __init__(self, group, device: torch.device):
+        self.device = device
+        self.staged = (device.type != "cpu"
+                       and dist.get_backend(group) == "gloo")
+
+    def out(self, flat: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return flat
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat)
+        EXCHANGES.staged_bytes += host.numel() * host.element_size()
+        return host
+
+    def empty(self, numel: int, dtype) -> torch.Tensor:
+        if self.staged:
+            return torch.empty(numel, dtype=dtype, pin_memory=True)
+        return torch.empty(numel, dtype=dtype, device=self.device)
+
+    def back(self, flat: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return flat
+        EXCHANGES.staged_bytes += flat.numel() * flat.element_size()
+        return flat.to(self.device)
+
+
+def _hop(tensors, group, offset: int) -> list:
+    """Send ``tensors`` (packed into one byte buffer) to the rank
+    ``offset`` ahead and receive the same shapes from the rank
+    ``offset`` behind: one send and one receive a hop."""
+    world, rank = group_size_rank(group)
+    flat = torch.cat([_as_bytes(t) for t in tensors])
+    transport = _Transport(group, flat.device)
+    send = transport.out(flat)
+    recv = transport.empty(send.numel(), send.dtype)
+    ops = [dist.P2POp(dist.isend, send, _peer(group, (rank + offset) % world),
+                      group),
+           dist.P2POp(dist.irecv, recv, _peer(group, (rank - offset) % world),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    recv = transport.back(recv)
+    EXCHANGES.counts["ring_shift"] += 1
+    out, start = [], 0
+    for t in tensors:
+        size = t.numel() * t.element_size()
+        out.append(_from_bytes(recv[start:start + size], t))
+        start += size
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """``lax.ppermute`` with ``perm = [(i, (i + 1) % d)]`` over several
+    tensors in one hop; the backward sends the floating gradients back
+    one rank (the inverse permutation)."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.floating = [t.is_floating_point() for t in tensors]
+        ctx.dtypes = [t.dtype for t in tensors]
+        ctx.shapes = [t.shape for t in tensors]
+        ctx.device = tensors[0].device
+        out = _hop(tensors, group, 1)
+        ctx.mark_non_differentiable(
+            *[o for o, f in zip(out, ctx.floating) if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sent = [torch.zeros(shape, dtype=dtype, device=ctx.device)
+                if g is None else g
+                for g, f, dtype, shape in zip(grads, ctx.floating,
+                                              ctx.dtypes, ctx.shapes) if f]
+        back = iter(_hop(sent, ctx.group, -1))
+        return (None, *[next(back) if f else None for f in ctx.floating])
+
+
+def ring_shift(x, group=None):
+    """This rank's tensor(s) to the next rank of ``group``, the previous
+    rank's to this one (JAX's ``ppermute`` one step around the ring).
+    ``x`` is a tensor or a sequence of tensors, which share one hop;
+    returns the same structure. In a world of one: ``x``, and no
+    collective."""
+    single = isinstance(x, torch.Tensor)
+    tensors = (x,) if single else tuple(x)
+    if group_size_rank(group)[0] == 1:
+        return x
+    out = _RingShift.apply(group, *tensors)
+    return out[0] if single else out
+
+
+def _all_gather_bytes(x, group, world: int) -> torch.Tensor:
+    flat = _as_bytes(x)
+    transport = _Transport(group, flat.device)
+    send = transport.out(flat)
+    recv = transport.empty(world * send.numel(), send.dtype)
+    dist.all_gather(list(recv.chunk(world)), send, group=group)
+    return _from_bytes(transport.back(recv),
+                       x.new_empty((world * x.shape[0], *x.shape[1:])))
+
+
+def _sum_f32(x, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in f32 (a new tensor, on x's device)."""
+    total = x.float().contiguous().clone()
+    transport = _Transport(group, total.device)
+    buf = transport.out(total.view(-1))
+    dist.all_reduce(buf, group=group)
+    return transport.back(buf).view(total.shape)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Row shards → the whole table on every rank; the backward is the
+    SUMMING reduce-scatter: each rank's rows get every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, world, rank):
+        ctx.group, ctx.world, ctx.rank = group, world, rank
+        EXCHANGES.counts["all_gather"] += 1
+        return _all_gather_bytes(x, group, world)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = grad.shape[0] // ctx.world
+        EXCHANGES.counts["reduce_scatter"] += 1
+        total = _sum_f32(grad, ctx.group)
+        mine = total[ctx.rank * rows:(ctx.rank + 1) * rows]
+        return mine.to(grad.dtype), None, None, None
+
+
+def all_gather_rows(x, group=None):
+    """Every rank's row shard ``[n, ...]`` stacked in rank order →
+    ``[world · n, ...]`` on every rank (JAX's reshard of a row-sharded
+    array to replicated). The gradient of a rank's shard is the sum of
+    every rank's gradient of its rows. In a world of one: ``x``."""
+    world, rank = group_size_rank(group)
+    if world == 1:
+        return x
+    return _AllGatherRows.apply(x, group, world, rank)
+
+
+def _all_to_all(x, group) -> torch.Tensor:
+    flat = _as_bytes(x)
+    transport = _Transport(group, flat.device)
+    send = transport.out(flat)
+    recv = transport.empty(send.numel(), send.dtype)
+    dist.all_to_all_single(recv, send, group=group)
+    EXCHANGES.counts["all_to_all"] += 1
+    return _from_bytes(transport.back(recv), x)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def all_to_all(x, group=None):
+    """JAX's ``lax.all_to_all(x, split_axis=0, concat_axis=0,
+    tiled=True)``: dim 0 (a multiple of the world) splits into one block
+    a rank, block ``i`` goes to rank ``i``, and the blocks received stack
+    in rank order. Its own inverse, so its backward is itself. In a world
+    of one: ``x``."""
+    world, _ = group_size_rank(group)
+    if world == 1:
+        return x
+    if x.shape[0] % world:
+        raise ValueError(f"dim 0 ({x.shape[0]}) must split over the "
+                         f"{world} ranks")
+    return _AllToAll.apply(x, group)
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    """An input that every rank holds alike but only some ranks consume:
+    its gradient is the sum of the ranks' cotangents (JAX's transpose of
+    a replicated ``shard_map`` input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        EXCHANGES.counts["all_reduce"] += 1
+        return _sum_f32(grad, ctx.group).to(grad.dtype), None
+
+
+def replicated_input(x, group=None):
+    """``x`` unchanged; its gradient summed over ``group``. In a world of
+    one, or when ``x`` takes no gradient: ``x``."""
+    if group_size_rank(group)[0] == 1 or not x.requires_grad:
+        return x
+    return _ReplicatedInput.apply(x, group)

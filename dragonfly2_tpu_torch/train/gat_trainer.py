@@ -5,22 +5,28 @@ Every mode trains on the card. The inverse index of the neighbor lists
 (``build_inverse_index``) is built once per graph and placed on the
 device once: in gather mode the neighbor gather's backward (the
 ``table_scatter_add`` kernel) walks it, in blocks, flash and ring mode
-the backward of ``graph_flash_attention`` (K1) does.
+in a world of one the backward of ``graph_flash_attention`` (K1) does.
 
-Data parallelism over ``group`` (``parallel/mesh.py``) in gather,
-blocks and flash mode: the global edge batch is rounded to a multiple of
-the world and each rank takes its contiguous share of it (the same
-epoch order on every rank, from ``config.seed``); every rank runs the
-full-graph embedding pass on the whole graph, then scores its edges; one
-all-reduce a step averages the gradients and the loss. The JAX trainer
-shards the node rows over its ``data`` axis instead, replicates the edge
-batch and all-gathers the embedding table; replicated rows compute the
-same gradients, and gloo, which lets ranks share one card, has no
-all-gather of CUDA tensors. So the port's edge batch must divide by the
+Data parallelism over ``group`` (``parallel/mesh.py``): the global edge
+batch is rounded to a multiple of the world and each rank takes its
+contiguous share of it (the same epoch order on every rank, from
+``config.seed``); one all-reduce a step averages the gradients and the
+loss. In gather, blocks and flash mode every rank runs the full-graph
+embedding pass on the whole graph, then scores its edges. The JAX
+trainer shards the node rows over its ``data`` axis instead, replicates
+the edge batch and all-gathers the embedding table; replicated rows
+compute the same gradients. So the port's edge batch must divide by the
 world, where the JAX trainer's need not, and rows pad as in a world of
-one. Row sharding comes with ring mode across ranks, which still refuses
-a world larger than one, as does tensor parallelism (ROADMAP.md Queue 1
-item 8b).
+one. Ring mode in a world larger than one shards the rows as JAX does:
+they pad to a multiple of ``world · chunk`` once a rank's share exceeds
+one chunk (else of ``world``), each rank holds its contiguous rows of
+the features and neighbor lists, K/V blocks travel around the ring
+(``models/graph_transformer.ring_graph_attention``), the embeddings are
+all-gathered for the pair head (the all-gather's backward sums every
+rank's gradient of a rank's rows; the all-reduce then divides by the
+world once), and the result carries the whole padded graph, so its
+artifact serves in a world of one. Tensor parallelism is not ported
+(ROADMAP.md Queue 1 item 8b).
 
 The loop is the JAX trainer's: the attention structure is built from
 TRAIN edges only (an eval edge's RTT, a function of its label, never
@@ -49,9 +55,9 @@ from dragonfly2_tpu_torch.models.graph_transformer import (
     pad_multiple,
 )
 from dragonfly2_tpu_torch.parallel.mesh import (
+    LOCAL,
     DataParallel,
     global_batch,
-    group_size_rank,
 )
 from dragonfly2_tpu_torch.train.metrics import (
     confusion,
@@ -83,7 +89,8 @@ class GATTrainConfig:
     # (best-K by RTT bias; self always survives).
     chunk: int = 1024
     neighbor_cap: int = 128
-    # "gather" | "blocks" | "flash" | "ring" (a world of one).
+    # "gather" | "blocks" | "flash" | "ring" (rows sharded over the
+    # ranks; K/V blocks travel around the ring).
     attention: str = "gather"
     # Steps per budget tick, as the JAX trainer's steps per dispatch.
     steps_per_call: int = 1
@@ -111,12 +118,13 @@ class GATTrainResult:
 
     @property
     def model(self) -> GraphTransformer:
-        """A bf16 GraphTransformer on the CPU holding the trained weights."""
+        """A bf16 GraphTransformer on the CPU holding the trained weights,
+        over the whole graph in this process alone."""
         cfg = self.config
         model = GraphTransformer(
             in_features=self.node_features.shape[1], hidden=cfg.hidden,
             embed=cfg.embed, layers=cfg.layers, heads=cfg.heads,
-            chunk=cfg.chunk, attention=cfg.attention)
+            chunk=cfg.chunk, attention=cfg.attention, group=LOCAL)
         model.load_state_dict(self.state_dict)
         return model
 
@@ -128,11 +136,6 @@ class GATTrainer:
 
     def __init__(self, graph: Graph, config: GATTrainConfig = GATTrainConfig(),
                  device=None, init_state: dict | None = None, group=None):
-        # Ring mode shards rows across ranks, which is not ported.
-        if config.attention == "ring" and group_size_rank(group)[0] > 1:
-            raise NotImplementedError(
-                "ring mode trains on one device; ring attention across "
-                "ranks is not ported yet")
         self.device = default_device(device)
         self.config = config
         self.dp = DataParallel(group)
@@ -144,13 +147,18 @@ class GATTrainer:
             graph.n_nodes, graph.edge_src[self.train_ids],
             graph.edge_dst[self.train_ids], graph.edge_rtt_ns[self.train_ids],
             cap=config.neighbor_cap)
-        # Rows pad as the JAX trainer's on one device: blocks mode to
-        # whole key blocks, ring mode to whole chunks once the rows exceed
-        # one, gather and flash mode not at all.
+        # Rows pad as the JAX trainer's: blocks mode to whole key blocks
+        # (of the whole graph, which every rank holds), ring mode to whole
+        # chunks a rank once a rank's rows exceed one (else to the world),
+        # gather and flash mode not at all.
+        world = self.dp.world
+        self.sharded = config.attention == "ring" and world > 1
         if config.attention == "blocks":
             multiple = pad_multiple(1, config.chunk, graph.n_nodes)
-        elif config.attention == "ring" and graph.n_nodes > config.chunk:
-            multiple = config.chunk
+        elif config.attention == "ring":
+            per_rank = -(-graph.n_nodes // world)
+            multiple = (world * config.chunk if per_rank > config.chunk
+                        else world)
         else:
             multiple = 1
         self.node_features, self.nbr, self.val, self.n_real = pad_graph_sparse(
@@ -161,7 +169,8 @@ class GATTrainer:
         self.model = GraphTransformer(
             in_features=self.node_features.shape[1], hidden=config.hidden,
             embed=config.embed, layers=config.layers, heads=config.heads,
-            chunk=config.chunk, attention=config.attention, generator=gen)
+            chunk=config.chunk, attention=config.attention, generator=gen,
+            group=group)
         if init_state is not None:
             self.model.load_state_dict(init_state)
         self.model.to(self.device)
@@ -180,13 +189,18 @@ class GATTrainer:
         self.warmup_steps = min(100, self.total_steps // 10 + 1)
         self.step_count = 0
 
-        # Graph tensors, the inverse index and the edge arrays go to the
-        # device once; a step sends only its edge ids.
+        # Graph tensors (a rank's rows when ring mode shards them), the
+        # inverse index (which the sharded ring does not walk) and the
+        # edge arrays go to the device once; a step sends only its edge
+        # ids.
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
             self.device)
+        rows = (self.dp.rows(len(self.nbr)) if self.sharded
+                else slice(None))
         self.g_feat, self.g_nbr, self.g_val = (
-            put(a) for a in (self.node_features, self.nbr, self.val))
-        self.g_inv = put(build_inverse_index(self.nbr))
+            put(a[rows]) for a in (self.node_features, self.nbr, self.val))
+        self.g_inv = (None if self.sharded
+                      else put(build_inverse_index(self.nbr)))
         self.g_src = put(graph.edge_src.astype(np.int32))
         self.g_dst = put(graph.edge_dst.astype(np.int32))
         self.g_y = put(graph.edge_labels(config.rtt_threshold_ns).astype(

@@ -40,7 +40,9 @@ step's generator and keeps its rows, as the JAX trainer's ``put_batch``
 places them. One all-reduce a step averages the gradients and the loss;
 the initial parameters are rank 0's; eval chunks split the same way and
 the confusion counts are summed over the group. Pipeline and expert
-parallelism are not ported (ROADMAP.md, Queue 1 item 8b).
+parallelism are layouts of their own (``parallel/pipeline.py``,
+``parallel/moe.py``), which this trainer, like the JAX package's, does
+not use.
 """
 
 from __future__ import annotations

@@ -20,8 +20,10 @@ rounded to a multiple of the world as the JAX trainer rounds it, each
 rank steps on its contiguous share, and one all-reduce a step averages
 the gradients and the loss. The initial parameters are rank 0's. Eval
 sums are taken over each rank's share of every chunk and summed over
-the group. Tensor, pipeline and expert parallelism are not ported
-(ROADMAP.md, Queue 1 item 8b).
+the group. Tensor parallelism is not ported (ROADMAP.md, Queue 1 item
+8b). Pipeline and expert parallelism are layouts of their own
+(``parallel/pipeline.py``, ``parallel/moe.py``), which this trainer,
+like the JAX package's, does not use.
 """
 
 from __future__ import annotations

@@ -25,7 +25,9 @@ Tolerances.
   the means), so losses agree to LOSS_WORLD and parameters to
   PARAM_WORLD (absolute; measured worst 7.2e-7 on the GraphTransformer),
   eval F1 to F1_WORLD (one edge of the 214 moves it by ~0.005) and MAE
-  relatively to 1e-4. In bf16 the shares' gradients round to bf16
+  relatively to 1e-4. Ring mode's ranks run another algorithm than the
+  world of one's (the ring's einsums against K1's plain twin) and are
+  held to the same limits (measured worst parameter gap 6.3e-7). In bf16 the shares' gradients round to bf16
   before the all-reduce adds them, and AdamW's first steps turn the
   2⁻⁸ rounding of a near-zero gradient into whole learning-rate steps
   (measured 1.5e-2 apart on the GraphTransformer): bf16 runs are held
@@ -101,6 +103,12 @@ CASES = {
     "gat_blocks": ("gat", dict(hidden=16, embed=8, layers=2, heads=2,
                                edge_batch_size=888, epochs=2,
                                learning_rate=1e-2, attention="blocks")),
+    # Rows sharded over the ranks, K/V around the ring: 24 rows a rank
+    # of 2 over 8-row chunks (48 rows), 12 a rank of 4 (padded to 64);
+    # the world of one trains through K1's plain twin.
+    "gat_ring": ("gat", dict(hidden=16, embed=8, layers=2, heads=2,
+                             edge_batch_size=888, epochs=2,
+                             learning_rate=1e-2, attention="ring", chunk=8)),
 }
 CASE_IDS = [f"{name}-{world}" for name in CASES for world in WORLDS]
 LOSS_JAX = {"gnn": 1e-2, "mlp": 1e-2, "cost": 1e-2, "gat": 5e-2}

@@ -107,6 +107,10 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.trainer.federation",
         "dragonfly2_tpu_torch.parallel.multihost",
         "dragonfly2_tpu_torch.parallel.dryrun",
+        # slice 15: the layouts over one process-group axis
+        "dragonfly2_tpu_torch.parallel.ring_attention",
+        "dragonfly2_tpu_torch.parallel.pipeline",
+        "dragonfly2_tpu_torch.parallel.moe",
         # slice 14: the P2P client, the in-process scheduler, the sink
         "dragonfly2_tpu_torch.version",
         "dragonfly2_tpu_torch.native",

@@ -19,11 +19,17 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from jax.sharding import Mesh
+
 from dragonfly2_tpu.models.graph_transformer import GraphTransformer as JaxGT
 from dragonfly2_tpu.models.graph_transformer import (
     build_inverse_index as jax_build_inverse_index,
 )
+from dragonfly2_tpu.models.graph_transformer import (
+    ring_graph_attention as jax_ring_graph_attention,
+)
 from dragonfly2_tpu.models.mlp import MLPBandwidthPredictor as JaxMLP
+from dragonfly2_tpu.parallel.mesh import mesh_context
 from dragonfly2_tpu_torch.data import SyntheticCluster
 from dragonfly2_tpu_torch.models.graph_transformer import (
     PAD_ID,
@@ -162,13 +168,54 @@ def test_state_dict_round_trips(graph):
         assert torch.equal(back[key], value)
 
 
-def test_ring_mode_names_its_roadmap_item(tmp_path):
-    """Ring mode in a world of two (gloo, one process a rank) raises on
-    every rank, naming its ROADMAP item: row-sharded K/V is not ported."""
-    errors = spawn_worlds({2: {"ring": dict(ring_model=True)}},
-                          str(tmp_path))[2]["ring"]["error"]
-    assert len(errors) == 2
-    assert all("ROADMAP" in str(e) for e in errors), errors
+def _ring_inputs(graph):
+    """q/k/v [N, 4, 8] f32 from a seed over the test graph's rows."""
+    feats = graph[0]
+    rng = np.random.default_rng(5)
+    return [rng.standard_normal((feats.shape[0], 4, 8)).astype(np.float32)
+            for _ in range(3)]
+
+
+def test_ring_mode_names_its_roadmap_item(graph, tmp_path):
+    """Ring mode across ranks (ROADMAP.md Queue 1 item 8b, this half
+    ported): in worlds of two and four gloo ranks, each holding its rows,
+    ``ring_graph_attention`` equals JAX's on a data mesh of as many
+    devices — output and the gradients of the global (out²).sum() — and
+    a ring-mode GraphTransformer's embeddings of each rank's rows equal
+    the flax model's over the whole graph (f32)."""
+    feats, nbr, val, _, _ = graph
+    q, k, v = _ring_inputs(graph)
+    jm = JaxGT(hidden=32, embed=16, layers=2, heads=4, chunk=CHUNK,
+               attention="ring", dtype=jnp.float32)
+    params = jm.init(jax.random.key(1), feats, nbr, val,
+                     np.zeros(2, np.int32), np.zeros(2, np.int32))
+    ref_emb = np.asarray(jm.apply(params, feats, nbr, val,
+                                  method=JaxGT.node_embeddings))
+    state = {key: t.numpy() for key, t in
+             gat_state_dict_from_flax(jax.device_get(params)).items()}
+    case = dict(call="run_ring_graph", module="torch_parallel_worker",
+                q=q, k=k, v=v, nbr=nbr, val=val, feats=feats, chunk=CHUNK,
+                hidden=32, embed=16, layers=2, heads=4, state=state)
+    runs = spawn_worlds({2: {"ring": case}, 4: {"ring": case}},
+                        str(tmp_path), timeout_s=120.0)
+    for world in (2, 4):
+        got = {key: np.concatenate(shards)
+               for key, shards in runs[world]["ring"].items()}
+        mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+
+        def attend(q, k, v):
+            return jax_ring_graph_attention(q, k, v, nbr, val, CHUNK)
+
+        with mesh_context(mesh):
+            ref = np.asarray(jax.jit(attend)(q, k, v))
+            grads = jax.jit(jax.grad(lambda *a: (attend(*a) ** 2).sum(),
+                                     argnums=(0, 1, 2)))(q, k, v)
+        np.testing.assert_allclose(got["out"], ref, rtol=1e-5, atol=1e-5)
+        for key, g in zip(("dq", "dk", "dv"), grads):
+            np.testing.assert_allclose(got[key], np.asarray(g), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{world} {key}")
+        np.testing.assert_allclose(got["emb"], ref_emb, rtol=F32_TOL,
+                                   atol=F32_TOL)
 
 
 def test_seeded_init_is_deterministic():

@@ -100,12 +100,15 @@ def test_sync_and_agree(fleets, mode):
 
 def test_dryrun_twin_at_world_two(fleets):
     """One tiny data-parallel epoch of GraphSAGE, the MLP and the
-    GraphTransformer (gather and blocks): the ranks agreed on their
-    digests (the dryrun raises otherwise) and report the same losses."""
+    GraphTransformer (gather, blocks and ring): the ranks agreed on their
+    digests (the dryrun raises otherwise) and report the same losses;
+    ring attention, the pipeline and the experts report the same finite
+    global losses."""
     first, second = fleets["env"]
     names = sorted(k for k in first if k.startswith("loss/"))
-    assert names == ["loss/gat_blocks", "loss/gat_gather",
-                     "loss/graphsage", "loss/mlp"]
+    assert names == ["loss/gat_blocks", "loss/gat_gather", "loss/gat_ring",
+                     "loss/graphsage", "loss/mlp", "loss/moe",
+                     "loss/pipeline", "loss/ring_attention"]
     for name in names:
         assert np.isfinite(first[name]) and first[name] == second[name]
 

@@ -49,7 +49,6 @@ from dragonfly2_tpu_torch.inference.sidecar import (
     ModelInferRequest,
     _gat_scorer_from_artifact,
 )
-from dragonfly2_tpu_torch.models import graph_transformer
 from dragonfly2_tpu_torch.train import gat_trainer, metrics
 from dragonfly2_tpu_torch.train.checkpoint import (
     ModelMetadata,
@@ -62,6 +61,7 @@ from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig, train_gat
 from dragonfly2_tpu_torch.train.schedule import warmup_cosine_lr
 from dragonfly2_tpu_torch.train.split import edge_split
 from dragonfly2_tpu_torch.train.step_budget import StepBudget
+from tests.torch_dist_worker import spawn_worlds
 
 LR_TOL = 1e-6
 ADAMW_TOL = 1e-6
@@ -75,6 +75,8 @@ SCORE_TOL = 6e-2
 # with 0.
 CFG = dict(hidden=16, embed=8, layers=2, heads=2, epochs=3,
            edge_batch_size=64, learning_rate=3e-3, eval_fraction=0.15)
+# Ring mode across two ranks: 48 rows, 24 a rank, over 16-row chunks.
+RING_WORLD = dict(attention="ring", chunk=16)
 
 
 @pytest.fixture(scope="module")
@@ -329,29 +331,73 @@ def test_trained_model_serves_through_artifact(trajectories, graphs):
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-def test_ring_mode_refused(graphs, monkeypatch):
-    """Ring mode trains in a world of one (the trajectory test below); in
-    a larger world (here a process group of two, as group_size_rank would
-    report it) the first step refuses: row-sharded K/V is not ported."""
-    _, tg = graphs
-    monkeypatch.setattr(graph_transformer, "group_size_rank",
-                        lambda group=None: (2, 0))
-    with pytest.raises(NotImplementedError, match="parallel set"):
-        train_gat(tg, GATTrainConfig(**CFG, attention="ring"), device="cpu")
+def test_ring_mode_refused(graphs, tmp_path):
+    """Ring mode across ranks is ported: trained on two gloo ranks (rows
+    sharded, K/V around the ring), rank 0's result written as an artifact
+    loads in this process, a world of one, and its scores match the JAX
+    scorer's on the artifact's params and graph."""
+    jg, tg = graphs
+    case = {"call": "run_ring_artifact",
+            "config": dict(CFG, epochs=1, **RING_WORLD)}
+    got = spawn_worlds({2: {"ring": case}}, str(tmp_path),
+                       timeout_s=120.0)[2]["ring"]
+    assert got["artifact"][1].size == 0
+    artifact = got["artifact"][0].tobytes()
+    tree, metadata = load_artifact(artifact)
+    assert metadata.config["attention"] == "ring"
+    scorer = _gat_scorer_from_artifact(artifact, device="cpu")
+    cfg = {k: metadata.config[k] for k in ("hidden", "embed", "layers",
+                                           "heads", "attention", "chunk")}
+    want = jax_scorer.GATParentScorer(
+        JaxGT(**cfg), {"params": tree["params"]}, tree["node_features"],
+        tree["neighbors"], tree["neighbor_vals"], node_ids=jg.node_ids)
+    pairs = np.random.default_rng(3).integers(0, tg.n_nodes, (40, 2))
+    np.testing.assert_allclose(scorer.score(pairs), want.score(pairs),
+                               rtol=SCORE_TOL, atol=SCORE_TOL)
+
+
+class _RankOfTwo:
+    """``DataParallel`` as rank ``rank`` of a world of two sees it, without
+    a process group (the constructor's collective, the broadcast, is a
+    no-op)."""
+
+    def __init__(self, rank):
+        self.world, self.rank = 2, rank
+
+    def rows(self, n):
+        return slice(self.rank * n // 2, (self.rank + 1) * n // 2)
+
+    def broadcast_(self, module):
+        pass
 
 
 @pytest.mark.parametrize("attention", ["ring"])
 def test_train_gat_refuses_a_larger_world(graphs, monkeypatch, attention):
-    """Ring attention across ranks is not ported: inside a
-    torch.distributed world of two, train_gat in ring mode raises before
-    it trains. (Gather, blocks and flash mode train data-parallel:
+    """Ring mode in a world of two pads the rows as the JAX trainer does on
+    a two-device mesh (a rank's 24 rows exceed the 16-row chunk, so to a
+    multiple of 2 · 16) and places each rank's half of the features and
+    neighbor lists, global ids kept, without the inverse index the
+    world-of-one kernel needs. (Training across ranks:
     tests/test_torch_data_parallel.py.)"""
-    _, tg = graphs
-    monkeypatch.setattr(gat_trainer, "group_size_rank",
-                        lambda group=None: (2, 0))
-    with pytest.raises(NotImplementedError, match="one device"):
-        train_gat(tg, GATTrainConfig(**CFG, attention=attention),
-                  device="cpu")
+    jg, tg = graphs
+    cfg = dict(CFG, epochs=0, **RING_WORLD)
+    assert cfg["attention"] == attention
+    ref = jax_gat_trainer.train_gat(jg, jax_gat_trainer.GATTrainConfig(**cfg),
+                                    data_parallel_mesh(jax.devices()[:2]))
+    halves = []
+    for rank in range(2):
+        monkeypatch.setattr(gat_trainer, "DataParallel",
+                            lambda group, rank=rank: _RankOfTwo(rank))
+        trainer = gat_trainer.GATTrainer(tg, GATTrainConfig(**cfg), "cpu")
+        np.testing.assert_array_equal(trainer.node_features,
+                                      ref.node_features)
+        np.testing.assert_array_equal(trainer.nbr, ref.neighbors)
+        np.testing.assert_array_equal(trainer.val, ref.neighbor_vals)
+        assert trainer.n_real == ref.n_real_nodes
+        assert trainer.g_inv is None
+        halves.append(trainer.g_nbr.numpy())
+    assert ref.node_features.shape[0] == 64
+    np.testing.assert_array_equal(np.concatenate(halves), ref.neighbors)
 
 
 def test_blocks_mode_trains_on_cpu(graphs):

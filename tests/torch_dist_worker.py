@@ -1,7 +1,8 @@
 """Multi-process runs of the port on the CPU (gloo): Ulysses attention,
-ring-mode GraphTransformer's refusal, and any function of
-``tests/torch_dp_worker.py`` (the data-parallel trainers, ``sync`` and
-``agree``, the dryrun twin).
+and any function of ``tests/torch_dp_worker.py`` (the data-parallel
+trainers, ``sync`` and ``agree``, the dryrun twin) or of
+``tests/torch_parallel_worker.py`` (ring attention, the pipeline, the
+experts, ring-mode graph attention).
 
 :func:`spawn_worlds` starts one process per rank for each world size, all
 at once, each joining its world's process group through a ``file://``
@@ -24,35 +25,17 @@ import numpy as np
 PG_TIMEOUT_S = 60
 
 
-def _ring_model_error() -> str:
-    """What a ring-mode GraphTransformer raises on a tiny graph, or ""."""
-    import torch
-
-    from dragonfly2_tpu_torch.models.graph_transformer import (
-        GraphTransformer,
-    )
-
-    model = GraphTransformer(in_features=4, hidden=32, embed=16, layers=1,
-                             heads=4, attention="ring")
-    nbr = torch.arange(8, dtype=torch.int32)[:, None]
-    try:
-        model.node_embeddings(torch.zeros(8, 4), nbr, torch.zeros(8, 1))
-    except NotImplementedError as exc:
-        return str(exc)
-    return ""
-
-
 def _run_case(case: dict, rank: int, world: int) -> dict:
     import torch
 
     from dragonfly2_tpu_torch.parallel import ulysses_attention
 
     if "call" in case:
-        import torch_dp_worker
+        import importlib
 
-        return getattr(torch_dp_worker, case["call"])(case, rank, world)
-    if case.get("ring_model"):
-        return {"error": np.array(_ring_model_error())}
+        module = importlib.import_module(
+            str(case.get("module", "torch_dp_worker")))
+        return getattr(module, case["call"])(case, rank, world)
 
     t = case["q"].shape[0]
     rows = slice(rank * t // world, (rank + 1) * t // world)
@@ -106,9 +89,8 @@ def spawn_worlds(worlds: dict, tmp_dir: str, timeout_s: float = 90.0):
     """Run ``{world size: {case name: case}}`` with one process per rank,
     every world at once. A case holds global q/k/v [T, H, D] f32 arrays,
     ``causal``, and optionally ``chunk``, ``grad`` and ``expect_error``;
-    or ``ring_model``, which runs a ring-mode GraphTransformer and returns
-    what it raised under ``error``; or ``call``, the name of a function
-    of ``torch_dp_worker`` that takes (case, rank, world) and returns
+    or ``call``, the name of a function of ``module`` (default
+    ``torch_dp_worker``) that takes (case, rank, world) and returns
     ``{key: array}``.
     Returns ``{world: {case name: {key: per-rank arrays, rank order}}}``.
     Raises when a rank fails or the whole run outlasts ``timeout_s``

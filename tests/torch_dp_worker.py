@@ -141,6 +141,23 @@ def _train(case: dict) -> dict:
     return out
 
 
+def run_ring_artifact(case: dict, rank: int, world: int) -> dict:
+    """``train_gat`` in ring mode with ``case["config"]`` over the world's
+    default group; rank 0's result as a port artifact's bytes (uint8),
+    the other ranks' empty."""
+    from dragonfly2_tpu_torch.train.checkpoint import gat_artifact_from_result
+    from dragonfly2_tpu_torch.train.gat_trainer import (
+        GATTrainConfig,
+        train_gat,
+    )
+
+    tg = graph()
+    result = train_gat(tg, GATTrainConfig(**case["config"]), "cpu")
+    data = (gat_artifact_from_result(result, tg, "ring-world") if rank == 0
+            else b"")
+    return {"artifact": np.frombuffer(data, np.uint8)}
+
+
 def run_budget(case: dict, rank: int, world: int) -> dict:
     """The MLP with a wall-clock budget on rank 1 alone, spent at the
     first step (0 s): every rank must stop where rank 1 stops."""
