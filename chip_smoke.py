@@ -16,7 +16,9 @@ and train configs #1-#3 and the orchestrator data-parallel over
 through the P2P client and scheduler into device memory (BASELINE
 config #5), and train config #3 in ring mode with its rows sharded over
 ranks and run ring attention, the pipeline and the experts across
-ranks, on one NVIDIA H100 through ``dragonfly2_tpu_torch``, with the
+ranks, and train config #3 tensor-parallel on (data, model) grids of
+ranks and place a safetensors tensor split across ranks, on one NVIDIA
+H100 through ``dragonfly2_tpu_torch``, with the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with one CUDA card:
@@ -273,7 +275,29 @@ Phases (any failure exits nonzero, before the final line):
    rows: outputs and gradients against the sequential and dense
    references, the drops as the reference counts them); then
    parallel_nccl_cards (the same over NCCL with a rank a card where
-   there are several cards; logged as waiting on one).
+   there are several cards; logged as waiting on one);
+19. tensor parallelism, the slice 16 path (the JAX mesh's model axis):
+   tp_world_one (config #3 in blocks and in gather mode on a one-rank
+   NCCL group, one epoch, the reference runs), then tp_grid: gloo ranks
+   spawned on the one card as a 1 x 2 and then a 2 x 2 ``(data,
+   model)`` grid (``multihost_grid``), each training config #3 in blocks
+   mode (K1 forward and backward on a rank's 2-head share, its query
+   rows against every row's K/V) and in gather mode (K2a and K2b on
+   256-byte [k|v] rows), cut to one epoch: the grid laid out as JAX's
+   mesh, equal digests of the replicated parameters and of the gathered
+   state, the loss gap to the world of one within TP_LOSS_TOL (F1
+   logged), every rank's launches, exchanges and staged bytes as
+   predicted, its parameter and optimizer bytes below the replicated
+   ones, step time, samples/s and peak memory, and rank 0's artifact
+   served in a world of one against the ranks' scores; tp_kernels (the
+   four kernels at the path's new shapes — K1 with 10 240 query rows
+   against 20 480 key rows at 2 heads of 32, K2a and K2b at 256-byte
+   rows — against their plain twins, timed beside their library calls
+   and bounds); tp_nccl_cards (the 2 x 2 grid over NCCL with a rank a
+   card where there are 4 cards; logged as waiting with fewer); and
+   hbm_sink_sharded (``HBMSink(shard_for=...)`` on a 2-way split: each
+   rank's block bit-equal to the file's rows, its bytes alone on the
+   card).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -469,13 +493,19 @@ LIFECYCLE_UNAVAILABLE_NTH = 97
 # epoch's loss below 0.8 (the MLP, as MLP_EPOCHS), on this data
 # (tests/training_epochs_quality.py: GraphSAGE and the MLP on the CPU and
 # the card, the GraphTransformer on the card only, its CPU twins being
-# too slow for a search). The data is small against the published
-# batches: 6 GraphSAGE steps an epoch, 13 GraphTransformer steps, and one
-# MLP step (its batch clamps to the ~4 500-row train split).
+# too slow for a search). The GraphTransformer's also holds with its rows
+# sharded over the dp_train phase's 2 ranks: where the run leaves the
+# majority plateau is chaotic in bf16 (a world of one stays on a second
+# plateau at seed 1 after 32 epochs, the 2 ranks at seed 0 after 16),
+# and of 16, 24, 32, 40 and 48 epochs, 40 is the fewest after which
+# seeds 0-2 left it in both (tests/gat_rows_epochs_quality.py, PERF.md).
+# The data is small against the published batches: 6 GraphSAGE steps an
+# epoch, 13 GraphTransformer steps, and one MLP step (its batch clamps to
+# the ~4 500-row train split).
 TRAINING_HOSTS, TRAINING_TOPOLOGY, TRAINING_DOWNLOADS = 2000, 20_000, 2_000
 TRAINING_SEGMENTS = 2
 TRAINING_GNN_EPOCHS = 16
-TRAINING_GAT_EPOCHS = 16
+TRAINING_GAT_EPOCHS = 40
 TRAINING_MLP_EPOCHS = 4
 TRAINING_GNN_CFG = dict(hidden=128, embed=64, fanouts=(10, 5),
                         batch_size=8192, device_sample=True,
@@ -4106,7 +4136,7 @@ def dp_fit(kind: str, config, data, group):
         # One K2a a forward on each rank, over its share of the rows.
         expected["table_gather"] = steps + chunks
     elif config.attention == "blocks":
-        # Every rank runs the whole graph's embedding pass.
+        # Every rank runs the embedding pass of its rows.
         expected["graph_flash_attention"] = config.layers * (steps + chunks)
         expected["graph_flash_attention_backward"] = config.layers * steps
     else:
@@ -5194,6 +5224,523 @@ def run_parallel(torch, graph) -> dict:
     return launches
 
 
+# -- tensor parallelism, slice 16 --------------------------------------------
+
+# Config #3 on (data, model) grids of gloo ranks sharing the one card,
+# (world, model axis): 1 x 2, then 2 x 2. Each trains in blocks mode (K1
+# forward and backward on a rank's head share, 2 heads of 32, its query
+# rows against every row's K/V) and in gather mode (K2a and K2b on the
+# share's 256-byte [k|v] rows), cut to one epoch (59 steps at batch
+# 8192) as ring_gat_ranks is, with no wall-clock cap.
+TP_GRIDS = ((2, 2), (4, 2))
+TP_MODES = ("blocks", "gather")
+# A grid's last epoch loss against the world of one's on the same seed
+# and batches (the CPU tests hold the same runs at test size to 2e-3).
+TP_LOSS_TOL = 5e-3
+TP_TIMEOUT_S = 600
+# Seeded pairs the ranks score on the grid and the served artifact
+# scores in a world of one.
+TP_PAIRS = 64
+
+
+def tp_config(mode: str):
+    """Config #3 in ``mode`` cut to one epoch, no wall-clock cap."""
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
+
+    return GATTrainConfig(**dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS,
+                                 max_seconds=None, attention=mode))
+
+
+def tp_expected_exchanges(cfg, n_data: int, n_model: int, steps: int,
+                          chunks: int, rows: int, sharded_numel: int,
+                          staged: bool) -> dict:
+    """What one rank of an ``n_data x n_model`` grid must exchange in a
+    fit of ``steps`` steps and ``chunks`` eval chunks over ``rows``
+    padded rows. Model axis: a layer's two g all-reduces a forward and
+    two f all-reduces a backward of its [rows / n_data, hidden] f32
+    activations, and the one all-gather of the sharded parameters at the
+    end. Data axis: a layer's [k|v] all-gather of the head share (bf16)
+    and the embedding table's a forward, each summed back in f32 a
+    backward. Under gloo, device tensors go through pinned host memory
+    both ways: an all-reduce stages its f32 buffer out and back, an
+    all-gather its shard out and the world's back."""
+    from dragonfly2_tpu_torch.parallel.mesh import Exchanges
+
+    layers, hidden, embed = cfg.layers, cfg.hidden, cfg.embed
+    n_loc = rows // n_data
+    fwd = steps + chunks
+    out = dict.fromkeys(Exchanges.KINDS, 0)
+    staged_bytes = 0
+    if n_model > 1:
+        out["all_reduce"] = 2 * layers * fwd + 2 * layers * steps
+        out["all_gather"] += 1
+        staged_bytes += out["all_reduce"] * 2 * n_loc * hidden * 4
+        staged_bytes += (1 + n_model) * sharded_numel * 4
+    if n_data > 1:
+        out["all_gather"] += (layers + 1) * fwd
+        out["reduce_scatter"] = (layers + 1) * steps
+        kv = n_loc * 2 * (hidden // n_model) * 2
+        staged_bytes += fwd * (1 + n_data) * (layers * kv + n_loc * embed * 2)
+        staged_bytes += steps * 2 * rows * 4 * (
+            layers * 2 * (hidden // n_model) + embed)
+    return dict(out, staged_bytes=staged_bytes if staged else 0)
+
+
+def tp_fit(torch, graph, mode: str, grid, rank: int, tag: str,
+           out_dir: str) -> dict:
+    """Config #3 in ``mode`` on ``grid`` (``GATTrainer.fit``, the body of
+    ``train_gat``) with the launch and exchange counts set to 0 just
+    before and read just after; then the rank's parameter and optimizer
+    bytes against the replicated model's, the digests of the replicated
+    parameters and of the gathered whole state agreed across the ranks,
+    the model's scores of seeded pairs on the grid, and one model-axis
+    all-reduce of a layer's activations, timed. Rank 0 saves the
+    artifact and the scores to ``out_dir``."""
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.parallel.dryrun import state_digest
+    from dragonfly2_tpu_torch.parallel.mesh import (
+        EXCHANGES,
+        all_gather_rows,
+        reduce_from_model,
+    )
+    from dragonfly2_tpu_torch.parallel.multihost import agree
+    from dragonfly2_tpu_torch.train.checkpoint import gat_artifact_from_result
+    from dragonfly2_tpu_torch.train.gat_trainer import GATTrainer
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+
+    cfg = tp_config(mode)
+    counts = Counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    EXCHANGES.reset()
+    t0 = time.perf_counter()
+    trainer = GATTrainer(graph, cfg, grid=grid)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, exchanges = counts.read(), EXCHANGES.read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(result.step_losses)
+    chunks = len(list(padded_chunks(trainer.eval_ids, trainer.batch)))
+    expected = dict.fromkeys(launches, 0)
+    fwd, bwd = ((("graph_flash_attention", "graph_flash_attention_backward"))
+                if mode == "blocks" else ("table_gather", "table_scatter_add"))
+    expected[fwd] = cfg.layers * (steps + chunks)
+    expected[bwd] = cfg.layers * steps
+
+    state = trainer.model.state_dict()
+    sharded = sorted(k for k in state
+                     if state[k].shape != result.state_dict[k].shape)
+    param_bytes = nbytes(*trainer.model.parameters())
+    whole_bytes = nbytes(*result.state_dict.values())
+    moments = [t for st in trainer.optimizer.state.values()
+               for name, t in st.items() if name != "step"]
+    staged = (dist.get_backend() == "gloo"
+              and trainer.device.type != "cpu")
+    expected_exchanges = tp_expected_exchanges(
+        cfg, grid.n_data, grid.n_model, steps, chunks, len(trainer.nbr),
+        sum(state[k].numel() for k in sharded), staged)
+    digests = agree(np.concatenate([
+        state_digest({k: v for k, v in state.items() if k not in sharded}),
+        state_digest(result.state_dict)])).tolist()
+
+    pairs = np.random.default_rng(SEED + 11).integers(0, graph.n_nodes,
+                                                      (TP_PAIRS, 2))
+    trainer.model.eval()
+    with torch.no_grad():
+        emb = trainer.model.node_embeddings(trainer.g_feat, trainer.g_nbr,
+                                            trainer.g_val)
+        if trainer.sharded:
+            emb = all_gather_rows(emb, grid.data)
+        src, dst = torch.from_numpy(pairs.astype(np.int32)).to(
+            trainer.device).T
+        scores = trainer.model.score_pairs(emb, src, dst).float().cpu()
+        # One model-axis all-reduce of a layer's f32 activations, timed
+        # (ranks in step).
+        act = torch.zeros(len(trainer.nbr) // grid.n_data, cfg.hidden,
+                          device=trainer.device)
+        allreduce_ms = (cuda_ms(torch, lambda: reduce_from_model(
+            act, grid.model), iters=10, warmup=2)
+            if grid.n_model > 1 else 0.0)
+    if rank == 0:
+        torch.save({"artifact": gat_artifact_from_result(
+                        result, graph, f"smoke-tp-{tag}-{mode}"),
+                    "scores": scores, "pairs": pairs},
+                   os.path.join(out_dir, f"tp_{tag}_{mode}.pt"))
+    return dict(seconds=seconds, steps=steps, eval_chunks=chunks,
+                batch=trainer.batch, rows=len(trainer.nbr),
+                rows_per_rank=int(trainer.g_nbr.shape[0]),
+                history=result.history,
+                step_losses_first_last=[result.step_losses[0],
+                                        result.step_losses[-1]],
+                f1=result.f1, accuracy=result.accuracy,
+                step_ms=trainer.batch / result.samples_per_sec * 1e3,
+                samples_per_sec_global=result.samples_per_sec,
+                model_allreduce_ms=allreduce_ms,
+                model_allreduce_bytes=nbytes(act),
+                peak_memory_gib=peak_gib, param_bytes=param_bytes,
+                replicated_param_bytes=whole_bytes,
+                optimizer_bytes=nbytes(*moments),
+                replicated_optimizer_bytes=2 * whole_bytes,
+                sharded_tensors=len(sharded),
+                replicated_and_whole_digests=digests,
+                launches=launches, expected_launches=expected,
+                exchanges=exchanges, expected_exchanges=expected_exchanges)
+
+
+def tp_rank(rank: int, world: int, model_parallel: int, address: str,
+            backend: str, out_dir: str) -> None:
+    """One rank of the tp_grid phase (a spawned process): joins the fleet
+    with ``init_multihost`` (its device cuda:(rank % cards)), builds
+    config #3's graph and the ``(world / model_parallel x
+    model_parallel)`` grid (``multihost_grid``) and runs :func:`tp_fit`
+    in every mode. Writes ``rank<rank>.json`` to ``out_dir`` (a
+    traceback to ``rank<rank>.err``)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.parallel.multihost import (
+        init_multihost,
+        multihost_grid,
+    )
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        info = init_multihost(address, world, rank, backend=backend)
+        report = {"rank": rank, "backend": info.backend,
+                  "device": str(info.device),
+                  "start_seconds": time.perf_counter() - t0}
+        try:
+            t0 = time.perf_counter()
+            graph = dp_data("gat")
+            report["graph_seconds"] = time.perf_counter() - t0
+            grid = multihost_grid(model_parallel)
+            report["grid"] = [grid.data_rank, grid.model_rank, grid.n_data,
+                              grid.n_model]
+            for mode in TP_MODES:
+                report[mode] = tp_fit(torch, graph, mode, grid, rank,
+                                      f"world{world}", out_dir)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def tp_world_one(torch, graph, out_dir: str) -> dict:
+    """:func:`tp_fit` in every mode in this process on a one-rank NCCL
+    group: the reference runs, with the same seed and batches, and no
+    exchange."""
+    import torch.distributed as dist
+
+    from dragonfly2_tpu_torch.parallel.mesh import grid_groups
+
+    dist.init_process_group("nccl", init_method=f"file://{out_dir}/store1",
+                            world_size=1, rank=0)
+    try:
+        grid = grid_groups(1)
+        return {mode: tp_fit(torch, graph, mode, grid, 0, "world1", out_dir)
+                for mode in TP_MODES}
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp_world(torch, phase: str, backend: str, world: int,
+                 model_parallel: int, tmp: str, one: dict) -> dict:
+    """``world`` ranks over ``backend`` as a ``(world / model_parallel x
+    model_parallel)`` grid, spawned once (:func:`tp_rank`), checked
+    against the world of one (``one``): the grid as JAX lays out its
+    mesh; in every mode equal digests of the replicated parameters and
+    of the gathered state on every rank, the loss gap to the world of
+    one within TP_LOSS_TOL (the F1 gap logged), each rank's launches and
+    exchanges as predicted, its parameter bytes below the replicated
+    ones, and rank 0's artifact served in a world of one through
+    ``InferenceService``, its scores against the ranks'. Returns rank
+    0's launches, summed over the modes."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+        _gat_scorer_from_artifact,
+    )
+
+    out_dir = os.path.join(tmp, f"{phase}-world{world}")
+    os.makedirs(out_dir)
+    parent_gib = release_card_memory(torch)
+    t0 = time.perf_counter()
+    address = f"localhost:{free_port()}"
+    join_processes(start_processes(
+        [(tp_rank, (rank, world, model_parallel, address, backend, out_dir))
+         for rank in range(world)]), TP_TIMEOUT_S, out_dir)
+    ranks = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    seconds = time.perf_counter() - t0
+    n_data = world // model_parallel
+    failures = [f"rank {r['rank']} grid {r['grid']}" for r in ranks
+                if r["grid"] != [r["rank"] // model_parallel,
+                                 r["rank"] % model_parallel, n_data,
+                                 model_parallel]]
+    label = f"{backend}, {world} ranks on " + (
+        "one card" if backend == "gloo" else f"{world} cards")
+    launches = dict.fromkeys(ranks[0][TP_MODES[0]]["launches"], 0)
+    modes = {}
+    for mode in TP_MODES:
+        per_rank, ref = [r[mode] for r in ranks], one[mode]
+        for row, n in per_rank[0]["launches"].items():
+            launches[row] += n
+        for i in range(2):
+            if len({r["replicated_and_whole_digests"][k][i]
+                    for r in per_rank for k in range(world)}) != 1:
+                failures.append(f"{mode}: digests "
+                                f"{per_rank[0]['replicated_and_whole_digests']}")
+        for r in per_rank:
+            if (r["launches"] != r["expected_launches"]
+                    or r["exchanges"] != r["expected_exchanges"]
+                    or not r["param_bytes"] < r["replicated_param_bytes"]
+                    or not r["optimizer_bytes"]
+                    < r["replicated_optimizer_bytes"]):
+                failures.append(
+                    f"{mode}: launches {r['launches']} (want "
+                    f"{r['expected_launches']}), exchanges {r['exchanges']} "
+                    f"(want {r['expected_exchanges']}), bytes "
+                    f"{r['param_bytes']} of {r['replicated_param_bytes']}")
+        gaps = {"loss": abs(per_rank[0]["history"][-1] - ref["history"][-1]),
+                "f1": abs(per_rank[0]["f1"] - ref["f1"])}
+        if not gaps["loss"] <= TP_LOSS_TOL:
+            failures.append(f"{mode}: loss gap {gaps['loss']} over "
+                            f"{TP_LOSS_TOL}")
+
+        # Rank 0's artifact in a world of one, against the ranks' scores.
+        saved = torch.load(os.path.join(
+            out_dir, f"tp_world{world}_{mode}.pt"), weights_only=False)
+        counts = Counts()
+        counts.reset()
+        t_load = time.perf_counter()
+        scorer = _gat_scorer_from_artifact(saved["artifact"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t_load
+        service = InferenceService(micro_batch=False)
+        service.install_scorer("gat", scorer, version=f"tp-{world}-{mode}")
+        pairs = saved["pairs"]
+        served = np.concatenate([service.ModelInfer(
+            ModelInferRequest("gat", pairs[i:i + 16]), CallContext()).outputs
+            for i in range(0, len(pairs), 16)])
+        serve_launches = counts.read()
+        served_err = float(np.abs(served - saved["scores"].numpy()).max())
+        fwd = ("graph_flash_attention" if mode == "blocks"
+               else "table_gather")
+        if (served_err > MODE_TOL or not np.isfinite(served).all()
+                or serve_launches[fwd] != TRAIN_CFG["layers"]):
+            failures.append(f"{mode}: served {served_err} (tol {MODE_TOL}), "
+                            f"serve launches {serve_launches}")
+        del scorer, service
+        modes[mode] = dict(ranks=per_rank, world_one=ref, gaps=gaps,
+                           served_err=served_err, serve_load_seconds=load_s,
+                           serve_launches=serve_launches)
+    log(phase, label=label, seconds=seconds, world=world,
+        grid=[n_data, model_parallel], parent_reserved_gib=parent_gib,
+        start_seconds=[r["start_seconds"] for r in ranks],
+        graph_seconds=[r["graph_seconds"] for r in ranks], modes=modes,
+        tol={"loss": TP_LOSS_TOL, "served": MODE_TOL})
+    if failures:
+        raise AssertionError(f"{phase} world {world}: {failures}")
+    return launches
+
+
+def tp_kernel_inputs(torch, graph, mode: str, n_data: int, model_parallel):
+    """The kernels' inputs on data rank 0 of an ``n_data x
+    model_parallel`` grid at config #3 (the trainer's padding, its rows
+    of the neighbor lists, their inverse index over every row) and
+    seeded random activations of the rank's head share: q, k, v for
+    blocks mode, the [k|v] table and its cotangent for gather mode."""
+    from dragonfly2_tpu_torch.models.graph_transformer import (
+        build_inverse_index,
+        build_neighbor_lists,
+        pad_graph_sparse,
+        pad_multiple,
+    )
+
+    nbr, val = build_neighbor_lists(graph.n_nodes, graph.edge_src,
+                                    graph.edge_dst, graph.edge_rtt_ns,
+                                    cap=NEIGHBOR_CAP)
+    multiple = (pad_multiple(n_data, GAT_CFG["chunk"], graph.n_nodes)
+                if mode == "blocks" else n_data)
+    _, nbr, val, _ = pad_graph_sparse(graph.node_features, nbr, val,
+                                      multiple)
+    rows, n_loc = len(nbr), len(nbr) // n_data
+    inv = torch.from_numpy(build_inverse_index(nbr[:n_loc], rows)).cuda()
+    nbr, val = (torch.from_numpy(a[:n_loc]).cuda() for a in (nbr, val))
+    heads = GAT_CFG["heads"] // model_parallel
+    head_dim = GAT_CFG["hidden"] // GAT_CFG["heads"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    if mode == "blocks":
+        return (randn(n_loc, heads, head_dim), randn(rows, heads, head_dim),
+                randn(rows, heads, head_dim), nbr, val, inv)
+    width = 2 * heads * head_dim
+    idx = torch.where(nbr >= rows, 0, nbr).reshape(-1)
+    return randn(rows, width), idx, randn(idx.shape[0], width), inv, rows
+
+
+def run_tp_kernels(torch, graph, rows: list) -> None:
+    """tp_kernels: the four kernels of the tensor-parallel path at its new
+    shapes on data rank 0 of the 2 x 2 grid — K1 forward and backward at
+    a 2-head share of 32 ([20 480 / 2 query rows, 2, 32] bf16 against
+    20 480 key rows) and K2a and K2b on the share's 256-byte [k|v] rows
+    (a rank's 10 000 rows x 64 slots into the 20 000-row table) — each
+    against its plain twin with the existing phases' tolerances, timed
+    beside the plain twin, its library call (SDPA over the dense [n_q,
+    n_k] bf16 mask; ``index_select``; ``index_add_`` into f32 zeros)
+    and its bound. Their figures ride on the kernels line's rows under
+    ``at_tensor_parallel``."""
+    from dragonfly2_tpu_torch.models.graph_transformer import _flash_block
+
+    n_data, model_parallel = TP_GRIDS[-1][0] // TP_GRIDS[-1][1], \
+        TP_GRIDS[-1][1]
+    q, k, v, nbr, val, inv = tp_kernel_inputs(torch, graph, "blocks", n_data,
+                                              model_parallel)
+    got = {"graph_flash_attention": check_graph_flash(
+        torch, q, k, v, nbr, val, _flash_block(k.shape[0], GAT_CFG["chunk"])),
+        "graph_flash_attention_backward": check_k1_backward(
+            torch, q, k, v, nbr, val, inv)}
+    shapes = {"graph_flash_attention": {"q": list(q.shape),
+                                        "k": list(k.shape),
+                                        "nbr": list(nbr.shape)}}
+    shapes["graph_flash_attention_backward"] = dict(
+        shapes["graph_flash_attention"], inv=list(inv.shape))
+    del q, k, v, nbr, val, inv
+    table, idx, ct, inv, n_rows = tp_kernel_inputs(torch, graph, "gather",
+                                                   n_data, model_parallel)
+    got["table_gather"] = check_table_gather(torch, table, idx)
+    got["table_scatter_add"] = check_table_scatter_add(torch, ct, idx, inv,
+                                                       n_rows)
+    shapes["table_gather"] = {"table": list(table.shape),
+                              "idx": list(idx.shape)}
+    shapes["table_scatter_add"] = {"ct": list(ct.shape),
+                                   "inv": list(inv.shape), "rows": n_rows}
+    del table, idx, ct, inv
+    for row in rows:
+        if row["name"] in got:
+            row["at_tensor_parallel"] = {
+                key: got[row["name"]][key] for key in
+                ("source", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err")} | {
+                "shape": shapes[row["name"]]}
+    log("tp_kernels", grid=[n_data, model_parallel], kernels={
+        name: row["at_tensor_parallel"] for name, row in
+        ((r["name"], r) for r in rows) if name in got})
+
+
+def run_hbm_sink_sharded(torch, dev) -> None:
+    """hbm_sink_sharded: a small safetensors file through two sinks onto
+    ``dev``, the sinks of ranks 0 and 1 of a 2-way split
+    (``HBMSink(shard_for=...)``, pieces in reversed order): each holds
+    its block of the split tensor's rows bit-equal to the file's, with
+    the block's bytes on the device, and every other tensor whole; a
+    world that does not divide the rows is refused."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.client.hbm_sink import HBMSink, write_safetensors
+
+    sources = sink_test_tensors(torch)
+    split = "embed.weight"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.safetensors")
+        write_safetensors(path, sources)
+        with open(path, "rb") as f:
+            raw = f.read()
+    offsets = list(range(0, len(raw), 4096))[::-1]
+    report = {}
+    whole = sources[split]
+    for rank in range(2):
+        sink = HBMSink(len(raw), device=dev, shard_for=lambda name, r=rank: (
+            (2, r) if name == split else None))
+        for off in offsets:
+            sink.write(off, raw[off:off + 4096])
+        block = whole.chunk(2)[rank]
+        seconds = sink_case(torch, dev, sink, dict(sources, **{split: block}))
+        placed = sink.wait()[split]
+        device_bytes = placed.untyped_storage().nbytes()
+        if device_bytes != nbytes(block):
+            raise AssertionError(f"rank {rank}: {device_bytes} device bytes "
+                                 f"for a {nbytes(block)}-byte block")
+        report[f"rank{rank}"] = dict(shape=list(placed.shape),
+                                     device_bytes=device_bytes,
+                                     whole_bytes=nbytes(whole),
+                                     copy_seconds=seconds)
+    sink = HBMSink(len(raw), device=dev, shard_for=lambda name: (
+        (3, 0) if name == split else None))
+    sink.write(0, raw)
+    try:
+        sink.wait(timeout=30)
+    except RuntimeError as exc:
+        report["uneven_split"] = str(exc)
+    else:
+        raise AssertionError("a 3-way split of 256 rows was placed")
+    finally:
+        sink.close()
+    log("hbm_sink_sharded", split=split, world=2, **report)
+
+
+def run_tensor_parallel(torch, graph, rows: list) -> dict:
+    """Tensor parallelism, slice 16's path (the JAX mesh's model axis).
+
+    tp_world_one: config #3 in blocks and gather mode on a one-rank NCCL
+    group in this process, the reference runs. tp_grid: TP_GRIDS' worlds
+    of gloo ranks spawned on the one card, one after the other
+    (:func:`run_tp_world`), logged as ``tp_grid``. tp_kernels: the path's
+    kernels at its new shapes (:func:`run_tp_kernels`). tp_nccl_cards:
+    the 2 x 2 grid over NCCL with a rank a card where the machine has at
+    least 4 cards; with fewer it is logged as waiting. Returns rank 0's
+    launches of the 2 x 2 gloo grid, summed over the modes."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke-tp-")
+    try:
+        one_dir = os.path.join(tmp, "world1")
+        os.makedirs(one_dir)
+        release_card_memory(torch)
+        t0 = time.perf_counter()
+        one = tp_world_one(torch, graph, one_dir)
+        failures = [f"{mode}: launches {r['launches']} != "
+                    f"{r['expected_launches']}, exchanges {r['exchanges']}"
+                    for mode, r in one.items()
+                    if r["launches"] != r["expected_launches"]
+                    or r["exchanges"] != r["expected_exchanges"]]
+        log("tp_world_one", seconds=time.perf_counter() - t0, modes=one)
+        if failures:
+            raise AssertionError(f"tp_world_one: {failures}")
+        for world, model_parallel in TP_GRIDS:
+            launches = run_tp_world(torch, "tp_grid", "gloo", world,
+                                    model_parallel, tmp, one)
+        run_tp_kernels(torch, graph, rows)
+        cards = torch.cuda.device_count()
+        world, model_parallel = TP_GRIDS[-1]
+        if cards >= world:
+            run_tp_world(torch, "tp_nccl_cards", "nccl", world,
+                         model_parallel, tmp, one)
+        else:
+            log("tp_nccl_cards", cards=cards)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 # -- BASELINE config #5, slice 14: the P2P mesh into the device sink ---------
 
 class OriginServer:
@@ -6082,6 +6629,10 @@ def main() -> int:
     # -- phase 18: sequence, pipeline and expert parallelism, slice 15 ------
     par_launches = run_parallel(torch, graph)
 
+    # -- phase 19: tensor parallelism, slice 16 -----------------------------
+    tp_launches = run_tensor_parallel(torch, graph, rows)
+    run_hbm_sink_sharded(torch, card0)
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -6099,7 +6650,8 @@ def main() -> int:
                    "data_parallel": dp_launches[row["name"]],
                    "hbm_fanout": fanout_launches[row["name"]],
                    **{path: par[row["name"]]
-                      for path, par in par_launches.items()}}
+                      for path, par in par_launches.items()},
+                   "tensor_parallel": tp_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

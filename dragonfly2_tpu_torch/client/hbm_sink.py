@@ -188,8 +188,13 @@ class HBMSink:
     ``device`` is where tensors land: ``None`` means ``cuda``, and a CUDA
     device on a machine without one raises (the sink never falls back to
     the CPU; pass ``device="cpu"`` for the host). ``device_for(name)``
-    overrides the placement per tensor. A tensor split across cards is
-    not supported.
+    overrides the placement per tensor. ``shard_for(name)`` splits a
+    tensor across ranks, each rank running its own sink: it returns
+    ``(world, rank)``, and this sink copies only block ``rank`` of the
+    tensor's dim 0 cut into ``world`` equal blocks (the JAX package's
+    ``PartitionSpec("data")`` over a ``world``-device axis), so its
+    device holds 1/world of the tensor; a row count the world does not
+    divide is refused. ``None`` keeps the whole tensor.
 
     Timings for whoever measures the sink: ``staging_seconds`` (the
     staging allocation, pinned on a CUDA device), ``write_seconds`` (the
@@ -202,10 +207,13 @@ class HBMSink:
 
     def __init__(self, content_length: int, device=None,
                  device_for: Optional[Callable[[str], object]] = None,
-                 transfer_workers: int = 2):
+                 transfer_workers: int = 2,
+                 shard_for: Optional[Callable[[str], Optional[
+                     Tuple[int, int]]]] = None):
         self.content_length = content_length
         self._device = default_device(device)
         self._device_for = device_for
+        self._shard_for = shard_for
         # Host staging area: the buffer every copy DMAs from. Pinned for
         # a CUDA device, so the copies run asynchronously on the workers'
         # streams; one contiguous allocation keeps each copy a slice.
@@ -284,6 +292,22 @@ class HBMSink:
             return self._device
         return default_device(self._device_for(name))
 
+    def _span(self, spec: TensorSpec) -> Tuple[int, int, Tuple[int, ...]]:
+        """(start, end, shape) of what this sink places of ``spec``: the
+        whole tensor, or its ``shard_for`` block of rows."""
+        shard = (None if self._shard_for is None
+                 else self._shard_for(spec.name))
+        if shard is None:
+            return spec.start, spec.end, spec.shape
+        world, rank = shard
+        rows = spec.shape[0] if spec.shape else 0
+        if not spec.shape or rows % world or not 0 <= rank < world:
+            raise ValueError(f"cannot place block {rank} of {world} of "
+                             f"dim 0 of shape {spec.shape}")
+        block = spec.nbytes // world
+        start = spec.start + rank * block
+        return start, start + block, (rows // world, *spec.shape[1:])
+
     def _transfer_loop(self) -> None:
         streams: Dict[torch.device, object] = {}
         while True:
@@ -292,12 +316,13 @@ class HBMSink:
                 return
             try:
                 dev = self._placement(spec.name)
-                src = self._staging[spec.start:spec.end]
+                start, end, shape = self._span(spec)
+                src = self._staging[start:end]
                 if dev.type == "cuda":
                     out, event, ms = self._copy_to_card(src, dev, streams)
                 else:
                     out, event, ms = src.to(dev, copy=True), None, None
-                arr = out.view(_dtype(spec.dtype)).reshape(spec.shape)
+                arr = out.view(_dtype(spec.dtype)).reshape(shape)
                 with self._lock:
                     self._arrays[spec.name] = arr
                     self.landed[spec.name] = time.perf_counter()
@@ -376,6 +401,8 @@ class HBMSink:
 
 def download_to_hbm(daemon, url: str, *, device=None,
                     device_for: Optional[Callable[[str], object]] = None,
+                    shard_for: Optional[Callable[[str], Optional[
+                        Tuple[int, int]]]] = None,
                     timeout: float = 300.0,
                     on_sink: Optional[Callable[[HBMSink], None]] = None,
                     **download_kwargs) -> Dict[str, torch.Tensor]:
@@ -385,15 +412,17 @@ def download_to_hbm(daemon, url: str, *, device=None,
     tensors whose spans complete are copied while the rest of the file
     is still downloading. Content length may be unknown at start (pieces
     buffer as metadata until the length is learned, then flush). Returns
-    name → ``torch.Tensor`` on ``device`` (``None`` means ``cuda``).
-    ``on_sink`` is called with the sink as soon as it exists, before any
+    name → ``torch.Tensor`` on ``device`` (``None`` means ``cuda``);
+    ``device_for`` and ``shard_for`` place tensors as :class:`HBMSink`
+    does. ``on_sink`` is called with the sink as soon as it exists, before any
     piece is written to it, for callers that watch its progress.
     """
     lock = threading.Lock()
     state: dict = {"sink": None, "backlog": []}
 
     def new_sink(length: int) -> HBMSink:
-        sink = HBMSink(length, device=device, device_for=device_for)
+        sink = HBMSink(length, device=device, device_for=device_for,
+                       shard_for=shard_for)
         if on_sink is not None:
             on_sink(sink)
         return sink

@@ -15,24 +15,44 @@ Attention modes, all computing the same function:
 - ``"blocks"`` and ``"flash"``: ``graph_flash_attention`` (K1), the
   forward and backward kernels on the card (the plain key-block online
   softmax and its plain backward on the CPU).
-- ``"ring"``: in a world of one (``group`` of size 1, or none) the
-  blocks math with the key block ``_divisor_block(N, chunk)``, the JAX
-  package's fallback without a mesh — K1 on the card. In a larger
-  ``torch.distributed`` group the rows are sharded over the ranks:
-  each rank passes its row shard of the node features and neighbor
-  lists (``nbr`` holding global ids), its K/V blocks travel around the
-  ring (:func:`ring_graph_attention`), and ``forward`` all-gathers the
-  embeddings for the pair head.
+- ``"ring"``: in a world of one the blocks math with the key block
+  ``_divisor_block(N, chunk)``, the JAX package's fallback without a
+  mesh — K1 on the card. With rows sharded (below) each rank's K/V
+  blocks travel around the ring (:func:`ring_graph_attention`) instead
+  of being all-gathered.
+
+Placement over a ``(data, model)`` :class:`~dragonfly2_tpu_torch.parallel.mesh.Grid`
+of ``torch.distributed`` ranks (``grid=``; ``group=`` alone is a grid
+whose every rank is on the data axis), as the JAX package's trainer
+places the model on its mesh:
+
+- rows over ``data``: once the data axis has more than one rank, each
+  rank passes its contiguous row shard of the node features and
+  neighbor lists (``nbr`` holding global ids). Its queries stay local;
+  in gather, blocks and flash mode the ``[k|v]`` of its head share is
+  all-gathered over ``data`` (``all_gather_rows``, JAX's ``replicate``)
+  before the attention, whose backward leaves each rank a partial dK/dV
+  of every row that ``all_gather_rows``'s backward sums over ``data``
+  in f32 (the partials come out of K2b and K1 rounded to the compute
+  dtype). ``forward`` all-gathers the embeddings for the pair head.
+- weights over ``model`` (Megatron, JAX's ``TPDense`` under
+  ``tp_state_shardings``): each block runs ``heads / n_model`` heads;
+  its q/k/v and MLP-up projections (``Dense_0, 1, 2, 4``) are column
+  splits, its out and MLP-down projections (``Dense_3, 5``) row splits,
+  one :func:`~dragonfly2_tpu_torch.parallel.mesh.copy_to_model` before
+  each group of column splits and one
+  :func:`~dragonfly2_tpu_torch.parallel.mesh.reduce_from_model` in each
+  row split. Everything else replicates. Ring mode takes no model axis.
 
 Parameters keep flax's names (``Dense_i``, ``LayerNorm_i``,
 ``input_proj``...) so a flax tree maps onto the state dict key for key
 (``train/checkpoint.py``); computation follows flax: f32 params cast to
 the compute dtype (bf16 by default), LayerNorm statistics in f32 with
 eps 1e-6, tanh GELU, an f32 output head. Training passes ``inv`` =
-:func:`build_inverse_index` of the neighbor lists down to the attention:
-the gather's backward (gather mode) and K1's (the other modes) sum each
-key row's gradient over the positions ``inv`` lists
-(``train/gat_trainer.py``).
+:func:`build_inverse_index` of the (rank's) neighbor lists over every
+key row down to the attention: the gather's backward (gather mode) and
+K1's (the other modes) sum each key row's gradient over the positions
+``inv`` lists (``train/gat_trainer.py``).
 """
 
 from __future__ import annotations
@@ -50,8 +70,11 @@ from dragonfly2_tpu_torch.ops.table_gather import (  # noqa: F401 (re-export)
     neighbor_gather,
 )
 from dragonfly2_tpu_torch.parallel.mesh import (
+    Grid,
     all_gather_rows,
+    copy_to_model,
     group_size_rank,
+    reduce_from_model,
     ring_shift,
 )
 
@@ -62,6 +85,9 @@ PAD_ID = np.int32(2**30)
 
 NODE_FEATURE_DIM = 8
 ATTENTION_MODES = ("gather", "blocks", "flash", "ring")
+# Megatron's split of a block's Dense layers over the model axis (JAX
+# ``tp_state_shardings``): column splits, then row splits.
+COLUMN, ROW = (0, 1, 2, 4), (3, 5)
 
 
 def build_neighbor_lists(
@@ -167,18 +193,21 @@ def _flash_block(n: int, chunk: int) -> int:
     return min(chunk, ((n + 127) // 128) * 128)
 
 
-def gather_graph_attention(q, k, v, nbr, val, inv=None):
-    """Neighbor-gather attention: each row attends to exactly its ≤K
-    listed neighbors. q/k/v [N, heads, d]; nbr/val [N, K]; ``inv``
-    optional, see :func:`build_inverse_index`. One differentiable gather
-    of the concatenated [k|v] table (``neighbor_gather``); PAD slots
-    gather row 0 and are masked out of the softmax, so they carry zero
-    cotangent and ``inv`` may leave them out."""
+def kv_gather_attention(q, kv, nbr, val, inv=None):
+    """Neighbor-gather attention (the JAX package's
+    ``gather_graph_attention``) on the concatenated ``kv`` table: each
+    row attends to exactly its ≤K listed neighbors. q [Nq, heads, d], kv
+    [Nk, heads, 2·d] (each head's k, then its v); nbr/val [Nq, K] with
+    ids in kv's rows; ``inv`` optional, see :func:`build_inverse_index`.
+    One differentiable gather of the table's rows (``neighbor_gather``);
+    PAD slots gather row 0 and are masked out of the softmax, so they
+    carry zero cotangent and ``inv`` may leave them out."""
     n, heads, head_dim = q.shape
+    n_k = kv.shape[0]
     scale = 1.0 / math.sqrt(head_dim)
-    pad = nbr >= n                     # PAD_ID (and nothing else) is ≥ N
+    pad = nbr >= n_k                   # PAD_ID (and nothing else) is ≥ Nk
     idx = torch.where(pad, 0, nbr).to(torch.int32)
-    kv = torch.cat([k, v], dim=-1).reshape(n, 2 * heads * head_dim)
+    kv = kv.reshape(n_k, 2 * heads * head_dim)
     kvg = neighbor_gather(kv, idx, inv).reshape(n, -1, heads, 2 * head_dim)
     kg, vg = kvg[..., :head_dim], kvg[..., head_dim:]
     s = torch.einsum("nhd,nkhd->nhk", q, kg).float() * scale
@@ -270,10 +299,26 @@ def ring_graph_attention(q, k, v, nbr, val, chunk: int, group=None):
     return (acc / torch.clamp_min(l, 1e-20)[..., None]).to(q.dtype)
 
 
-def _shards_rows(attention: str, group) -> bool:
-    """Ring mode in a group of more than one rank: each rank holds its
-    rows."""
-    return attention == "ring" and group_size_rank(group)[0] > 1
+def check_tensor_parallel(attention: str, hidden: int, heads: int,
+                          n_model: int) -> None:
+    """The JAX trainer's refusals for a model axis above 1: ring mode
+    (it shards rows only), and heads or 2·hidden that the axis does not
+    divide."""
+    if n_model == 1:
+        return
+    if attention == "ring":
+        raise ValueError("ring attention shards rows only; use "
+                         "attention='gather' or 'blocks' with a model axis")
+    if heads % n_model or (2 * hidden) % n_model:
+        raise ValueError(f"heads ({heads}) and 2*hidden ({2 * hidden}) must "
+                         f"be divisible by the model axis ({n_model})")
+
+
+def shard(n: int, parts: int, index: int) -> slice:
+    """Part ``index`` of ``n`` split into ``parts`` equal contiguous
+    parts."""
+    size = n // parts
+    return slice(index * size, (index + 1) * size)
 
 
 class Dense(nn.Module):
@@ -299,6 +344,53 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
+class TPDense(Dense):
+    """The JAX package's ``TPDense``: :class:`Dense` (its names, and its
+    init drawn whole from ``generator``) split over ``grid``'s model axis
+    as Megatron splits it, holding only this rank's slice.
+
+    - no split, or a model axis of one: :class:`Dense`;
+    - ``"column"``: ``weight[out_shard, :]`` and ``bias[out_shard]``, a
+      plain product whose output features are this rank's shard. The
+      caller passes the input through ``copy_to_model`` once for all the
+      column splits that read it (Megatron's f before a fused QKV);
+    - ``"row"``: ``weight[:, in_shard]`` and the whole bias: the product
+      of this rank's input features without bias, summed over the model
+      axis (``reduce_from_model``, Megatron's g), then the bias — JAX's
+      ``y + bias`` after the reduce. The operands are cast to ``dtype``
+      as everywhere, but the partial products, their sum and the bias
+      stay f32 until one rounding to ``dtype``, as the one product of
+      :class:`Dense` keeps them: a rounded partial would add a rounding
+      a rank.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None,
+                 grid: Grid | None = None, split: str | None = None):
+        super().__init__(in_features, out_features, dtype, generator)
+        if split not in (None, "column", "row"):
+            raise ValueError(f"unknown split {split!r}")
+        self.split = split if grid is not None and grid.n_model > 1 else None
+        self.group = grid.model if self.split else None
+        if self.split == "column":
+            rows = shard(out_features, grid.n_model, grid.model_rank)
+            self.weight = nn.Parameter(self.weight.detach()[rows].clone())
+            self.bias = nn.Parameter(self.bias.detach()[rows].clone())
+        elif self.split == "row":
+            cols = shard(in_features, grid.n_model, grid.model_rank)
+            self.weight = nn.Parameter(
+                self.weight.detach()[:, cols].contiguous())
+
+    def forward(self, x):
+        if self.split != "row":
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype).float(),
+                     self.weight.to(self.dtype).float())
+        y = reduce_from_model(y, self.group) + self.bias.to(self.dtype)
+        return y.to(self.dtype)
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` twin: statistics in f32 (E[x²] − E[x]²,
     clipped at 0), eps 1e-6, output in ``dtype``."""
@@ -321,51 +413,72 @@ class LayerNorm(nn.Module):
 
 class GraphAttentionBlock(nn.Module):
     """Pre-LN multi-head neighbor-masked attention + MLP, residual
-    throughout. Submodule names are flax's."""
+    throughout. Submodule names are flax's. Over ``grid`` (the module
+    docstring): rows over its data axis, the Dense layers split over its
+    model axis."""
 
     def __init__(self, hidden: int, heads: int, chunk: int = 1024,
                  attention: str = "gather",
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None, group=None):
+                 generator: torch.Generator | None = None,
+                 grid: Grid | None = None):
         super().__init__()
         if attention not in ATTENTION_MODES:
             raise ValueError(f"unknown attention mode {attention!r}")
+        grid = Grid.of() if grid is None else grid
+        check_tensor_parallel(attention, hidden, heads, grid.n_model)
         self.hidden, self.heads = hidden, heads
         self.chunk, self.attention = chunk, attention
-        self.group = group
-        self.sharded = _shards_rows(attention, group)
+        self.grid = grid
+        self.sharded = grid.n_data > 1
+
+        def dense(i, n_in, n_out):
+            return TPDense(n_in, n_out, dtype, generator, grid,
+                           "column" if i in COLUMN else "row")
+
         self.LayerNorm_0 = LayerNorm(hidden, dtype)
-        self.Dense_0 = Dense(hidden, hidden, dtype, generator)
-        self.Dense_1 = Dense(hidden, hidden, dtype, generator)
-        self.Dense_2 = Dense(hidden, hidden, dtype, generator)
-        self.Dense_3 = Dense(hidden, hidden, dtype, generator)
+        self.Dense_0 = dense(0, hidden, hidden)
+        self.Dense_1 = dense(1, hidden, hidden)
+        self.Dense_2 = dense(2, hidden, hidden)
+        self.Dense_3 = dense(3, hidden, hidden)
         self.LayerNorm_1 = LayerNorm(hidden, dtype)
-        self.Dense_4 = Dense(hidden, 2 * hidden, dtype, generator)
-        self.Dense_5 = Dense(2 * hidden, hidden, dtype, generator)
+        self.Dense_4 = dense(4, hidden, 2 * hidden)
+        self.Dense_5 = dense(5, 2 * hidden, hidden)
 
     def forward(self, h, nbr, val, inv=None):
         head_dim = self.hidden // self.heads
-        x = self.LayerNorm_0(h)
+        heads = self.heads // self.grid.n_model      # this rank's share
+        x = copy_to_model(self.LayerNorm_0(h), self.grid.model)
 
-        def split(t):  # [N, H] -> [N, heads, head_dim]
-            return t.reshape(-1, self.heads, head_dim)
+        def split(t):  # [N, H / n_model] -> [N, heads, head_dim]
+            return t.reshape(-1, heads, head_dim)
 
         q, k, v = (split(dense(x)) for dense in
                    (self.Dense_0, self.Dense_1, self.Dense_2))
-        n = q.shape[0]
-        if self.attention == "gather":
-            out = gather_graph_attention(q, k, v, nbr, val, inv)
-        elif self.sharded:
-            # Rows sharded over the ranks; K/V blocks hop around the ring.
+        if self.attention == "ring" and self.sharded:
+            # K/V blocks hop around the ring instead of being gathered.
             out = ring_graph_attention(q, k, v, nbr, val, self.chunk,
-                                       self.group)
+                                       self.grid.data)
+        elif self.attention == "gather":
+            kv = torch.cat([k, v], dim=-1)
+            if self.sharded:
+                # This rank's queries against every row's K/V.
+                kv = all_gather_rows(kv, self.grid.data)
+            out = kv_gather_attention(q, kv, nbr, val, inv)
         else:
+            if self.sharded:
+                kv = all_gather_rows(torch.cat([k, v], dim=-1),
+                                     self.grid.data)
+                k, v = (kv[..., :head_dim].contiguous(),
+                        kv[..., head_dim:].contiguous())
             # The CPU's key block; the kernel takes none.
-            block = (_divisor_block(n, self.chunk) if self.attention == "ring"
-                     else _flash_block(n, self.chunk))
+            n_k = k.shape[0]
+            block = (_divisor_block(n_k, self.chunk)
+                     if self.attention == "ring"
+                     else _flash_block(n_k, self.chunk))
             out = graph_flash_attention(q, k, v, nbr, val, block, inv=inv)
-        h = h + self.Dense_3(out.reshape(-1, self.hidden))
-        y = self.LayerNorm_1(h)
+        h = h + self.Dense_3(out.reshape(-1, heads * head_dim))
+        y = copy_to_model(self.LayerNorm_1(h), self.grid.model)
         y = F.gelu(self.Dense_4(y), approximate="tanh")
         return h + self.Dense_5(y)
 
@@ -374,24 +487,26 @@ class GraphTransformer(nn.Module):
     """L attention blocks over the full topology + an edge-scoring head.
     ``forward`` returns per-edge logits for (src, dst) index tensors.
 
-    ``group``: the ``torch.distributed`` group whose ranks share the rows
-    in ring mode (``None``: the default group when one is initialized;
-    ``parallel.mesh.LOCAL``: this process alone, as serving passes). In
-    other modes, and in a world of one, every call sees the whole graph.
+    ``grid``: the ``(data, model)`` grid of ranks the model is placed on
+    (the module docstring). Without one, ``group`` is the data axis
+    (``None``: the default group when one is initialized;
+    ``parallel.mesh.LOCAL``: this process alone, as serving passes): in
+    a world of one every call sees the whole graph.
     """
 
     def __init__(self, in_features: int = NODE_FEATURE_DIM, hidden: int = 128,
                  embed: int = 64, layers: int = 2, heads: int = 4,
                  chunk: int = 1024, attention: str = "gather",
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None, group=None):
+                 generator: torch.Generator | None = None, group=None,
+                 grid: Grid | None = None):
         super().__init__()
-        self.group = group
-        self.sharded = _shards_rows(attention, group)
+        self.grid = Grid.of(group) if grid is None else grid
+        self.sharded = self.grid.n_data > 1
         self.input_proj = Dense(in_features, hidden, dtype, generator)
         self.blocks = nn.ModuleList(
             GraphAttentionBlock(hidden, heads, chunk, attention, dtype,
-                                generator, group)
+                                generator, self.grid)
             for _ in range(layers))
         self.final_norm = LayerNorm(hidden, dtype)
         self.embed_proj = Dense(hidden, embed, dtype, generator)
@@ -402,7 +517,8 @@ class GraphTransformer(nn.Module):
         """[N, F] → [N, E]; run once at model load for serving. ``inv``
         (training; required under autograd on the card in every mode but
         gather and sharded ring) = :func:`build_inverse_index` of
-        ``nbr``. Sharded ring mode takes and returns this rank's rows."""
+        ``nbr`` over every key row. With rows sharded it takes and
+        returns this rank's rows."""
         h = self.input_proj(node_features)
         for block in self.blocks:
             h = block(h, nbr, val, inv)
@@ -420,5 +536,5 @@ class GraphTransformer(nn.Module):
         if self.sharded:
             # One all-gather of the (small) embedding table a forward; the
             # pair gathers then stay local.
-            emb = all_gather_rows(emb, self.group)
+            emb = all_gather_rows(emb, self.grid.data)
         return self.score_pairs(emb, edge_src, edge_dst)

@@ -159,6 +159,17 @@ def graph_flash_attention_backward_plain(q, k, v, nbr, val, lse, dout, inv):
             dv.to(q.dtype), dval)
 
 
+def check_graph_flash_heads(heads: int, head_dim: int, kw: int = 1) -> None:
+    """Raise unless the K1 kernels take ``heads`` heads of ``head_dim``
+    and ``kw`` slots a row: heads dividing 32, heads · head_dim in
+    :data:`ROW_WIDTHS`, K ≤ :data:`MAX_SLOTS`."""
+    if (heads < 1 or 32 % heads or heads * head_dim not in ROW_WIDTHS
+            or kw > MAX_SLOTS):
+        raise ValueError(f"kernel takes heads dividing 32, heads * head_dim "
+                         f"in {ROW_WIDTHS} and K <= {MAX_SLOTS}, got heads "
+                         f"{heads}, head_dim {head_dim}, K {kw}")
+
+
 def check_graph_flash_inputs(q, k, v, nbr, val) -> None:
     """Raise unless q/k/v/nbr/val are what the K1 kernels take, on any
     device: q [Nq, h, d] and k/v [Nk, h, d] of one dtype (bf16 or f32),
@@ -184,11 +195,7 @@ def check_graph_flash_inputs(q, k, v, nbr, val) -> None:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, nbr "
                          f"{tuple(nbr.shape)}, val {tuple(val.shape)}")
-    if (heads < 1 or 32 % heads or heads * d not in ROW_WIDTHS
-            or kw > MAX_SLOTS):
-        raise ValueError(f"kernel takes heads dividing 32, heads * head_dim "
-                         f"in {ROW_WIDTHS} and K <= {MAX_SLOTS}, got heads "
-                         f"{heads}, head_dim {d}, K {kw}")
+    check_graph_flash_heads(heads, d, kw)
     if not all(t.is_contiguous() for t in (q, k, v, nbr, val)):
         raise ValueError("q, k, v, nbr and val must be contiguous")
     vec_bytes = heads * d // 32 * q.element_size()

@@ -1,17 +1,21 @@
 """Parallelism across processes (``torch.distributed``): the data axis of
-the trainers, joining a fleet, and the layouts over one process-group
-axis — Ulysses and ring sequence parallelism, the GPipe pipeline and
-Switch experts. Tensor parallelism is not ported (ROADMAP.md Queue 1
-item 8b)."""
+the trainers, the ``(data, model)`` grid of tensor parallelism and its
+Megatron exchanges, joining a fleet, and the layouts over one
+process-group axis — Ulysses and ring sequence parallelism, the GPipe
+pipeline and Switch experts."""
 
 from dragonfly2_tpu_torch.parallel.mesh import (
     EXCHANGES,
     LOCAL,
     DataParallel,
+    Grid,
     all_gather_rows,
     all_to_all,
+    copy_to_model,
     global_batch,
+    grid_groups,
     group_size_rank,
+    reduce_from_model,
     ring_shift,
 )
 from dragonfly2_tpu_torch.parallel.moe import moe_apply
@@ -19,6 +23,7 @@ from dragonfly2_tpu_torch.parallel.multihost import (
     agree,
     init_multihost,
     maybe_init_multihost,
+    multihost_grid,
     sync,
 )
 from dragonfly2_tpu_torch.parallel.pipeline import (
@@ -28,8 +33,9 @@ from dragonfly2_tpu_torch.parallel.pipeline import (
 from dragonfly2_tpu_torch.parallel.ring_attention import ring_attention
 from dragonfly2_tpu_torch.parallel.ulysses import ulysses_attention
 
-__all__ = ["DataParallel", "EXCHANGES", "LOCAL", "agree", "all_gather_rows",
-           "all_to_all", "global_batch", "group_size_rank", "init_multihost",
-           "maybe_init_multihost", "moe_apply", "pipeline_apply",
-           "ring_attention", "ring_shift", "stack_stage_params", "sync",
-           "ulysses_attention"]
+__all__ = ["DataParallel", "EXCHANGES", "Grid", "LOCAL", "agree",
+           "all_gather_rows", "all_to_all", "copy_to_model", "global_batch",
+           "grid_groups", "group_size_rank", "init_multihost",
+           "maybe_init_multihost", "moe_apply", "multihost_grid",
+           "pipeline_apply", "reduce_from_model", "ring_attention",
+           "ring_shift", "stack_stage_params", "sync", "ulysses_attention"]

@@ -10,9 +10,11 @@ shards the rows); every rank must end with the same parameters, which
 :func:`agree` checks through a digest. Then ring attention, the
 pipeline and the experts each take a forward and a gradient at the JAX
 twin's shapes, every rank holding its shard, stage or expert, and their
-losses and gradients must be finite. The JAX twin's tensor-parallel
-step has no counterpart: tensor parallelism is not ported (ROADMAP.md
-Queue 1 item 8b).
+losses and gradients must be finite. In an even world of two or more
+the GraphTransformer also trains one epoch tensor-parallel on an
+``(n/2 × 2)`` grid (the JAX twin's Megatron step): a rank's parameter
+bytes must come out below the replicated model's, and the gathered
+parameters agree across every rank.
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ def dryrun_data_parallel(group=None, device=None) -> dict:
     (``None``: the card) and return ``{name: mean loss of the epoch}``.
     Raises when a run did not take exactly one epoch or when the ranks'
     parameters differ."""
+    from dragonfly2_tpu_torch.parallel.mesh import grid_groups
     from dragonfly2_tpu_torch.train.checkpoint import mlp_state_dict_from_flax
     from dragonfly2_tpu_torch.train.gat_trainer import (
         GATTrainConfig,
+        GATTrainer,
         train_gat,
     )
     from dragonfly2_tpu_torch.train.gnn_trainer import (
@@ -79,6 +83,22 @@ def dryrun_data_parallel(group=None, device=None) -> dict:
             edge_batch_size=2 * world, eval_fraction=0.25, attention=mode,
             chunk=4 if mode == "ring" else 1024), device, group=group)
         states[f"gat_{mode}"] = (gat.history, gat.state_dict)
+    if world >= 2 and world % 2 == 0:
+        # Tensor parallelism: the attention block's Dense layers split
+        # over a model axis of 2, the rows over the data axis.
+        trainer = GATTrainer(graph, GATTrainConfig(
+            hidden=8, embed=4, layers=1, heads=2, epochs=1,
+            edge_batch_size=2 * world, eval_fraction=0.25), device,
+            grid=grid_groups(2, group))
+        gat = trainer.fit()
+        states["gat_tp"] = (gat.history, gat.state_dict)
+        mine = sum(p.numel() * p.element_size()
+                   for p in trainer.model.parameters())
+        whole = sum(t.numel() * t.element_size()
+                    for t in gat.state_dict.values())
+        if not mine < whole:
+            raise AssertionError(f"gat_tp: a rank holds {mine} parameter "
+                                 f"bytes of {whole}")
     losses = {}
     for name, (history, state) in states.items():
         if len(history) != 1:

@@ -1,10 +1,13 @@
-"""The process group that stands in for a JAX mesh axis — port of the
-one-axis half of ``dragonfly2_tpu/parallel/mesh.py``: the data axis, and
-the exchanges that ``shard_map`` bodies make over an axis.
+"""The process groups that stand in for a JAX mesh — port of
+``dragonfly2_tpu/parallel/mesh.py``: the data axis, the ``(data, model)``
+grid, and the exchanges that ``shard_map`` bodies and tensor-parallel
+layers make over an axis.
 
 PyTorch runs one process per device, so where the JAX package names a
-mesh axis the port takes a ``torch.distributed`` process group; no mesh
-object is needed. The JAX trainers jit a step with the batch sharded over
+mesh axis the port takes a ``torch.distributed`` process group, and
+where it builds a ``(data, model)`` mesh the port builds a :class:`Grid`:
+a group for each axis that a rank belongs to (:func:`grid_groups`). The
+JAX trainers jit a step with the batch sharded over
 the mesh's ``data`` axis and let XLA insert the gradient ``psum``
 (``MeshContext.batch_sharding``, ``data_parallel_mesh``).
 :class:`DataParallel` is that axis spelled out: the global batch
@@ -16,7 +19,8 @@ The exchanges (:func:`ring_shift`, :func:`all_gather_rows`,
 :func:`all_to_all`, :func:`replicated_input`) are the collectives of the
 JAX package's ``shard_map`` bodies — ``lax.ppermute`` around the ring,
 the row all-gather of a sharded table, ``lax.all_to_all`` tiled over dim
-0, the transpose of a replicated input — each a
+0, the transpose of a replicated input — and Megatron's two exchanges over
+the model axis (:func:`copy_to_model`, :func:`reduce_from_model`), each a
 ``torch.autograd.Function`` whose backward is the collective's transpose.
 NCCL carries device tensors directly. gloo takes CPU tensors only in its
 point-to-point and all-to-all, so under gloo every exchange of device
@@ -33,6 +37,8 @@ group does not turn it into a collective.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -390,3 +396,98 @@ def replicated_input(x, group=None):
     if group_size_rank(group)[0] == 1 or not x.requires_grad:
         return x
     return _ReplicatedInput.apply(x, group)
+
+
+def copy_to_model(x, group=None):
+    """Megatron's f, before the column splits of a tensor-parallel layer:
+    ``x`` unchanged forward; its gradient, each rank's partial from its
+    own columns, summed over the model axis ``group`` backward (the
+    transpose of a replicated input, :func:`replicated_input`)."""
+    return replicated_input(x, group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the ranks' partial sums added (an f32 all-reduce)
+    forward; the gradient, which every rank holds alike, unchanged
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        EXCHANGES.counts["all_reduce"] += 1
+        return _sum_f32(x, group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_from_model(x, group=None):
+    """Megatron's g, after the row split of a tensor-parallel layer:
+    ``x`` summed over the model axis ``group`` in f32 and cast back; its
+    gradient passes unchanged. In a world of one: ``x``."""
+    if group_size_rank(group)[0] == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)
+
+
+# -- the (data, model) grid --------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place on a ``(data, model)`` grid of ranks and the two
+    groups it belongs to: ``data``, the ranks that share its model index
+    (they hold the same weight shards and different node rows), and
+    ``model``, the ranks that share its data index (they hold the same
+    rows and split the weights). Either is :data:`LOCAL` where its axis
+    has one rank; ``data`` may also be ``None`` (the default group, or a
+    world of one), as ``group=`` is elsewhere."""
+
+    data: object
+    model: object
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+
+    @classmethod
+    def of(cls, group=None) -> "Grid":
+        """The grid of a plain data-parallel ``group``: every rank on the
+        data axis, a model axis of one."""
+        world, rank = group_size_rank(group)
+        return cls(group, LOCAL, world, 1, rank, 0)
+
+
+def grid_groups(model_parallel: int, group=None) -> Grid:
+    """The ``(data, model)`` grid over ``group``'s ranks (the default
+    group when ``None``), laid out as ``jax.make_mesh((n // mp, mp),
+    ("data", "model"))``: rank ``r`` sits at data index ``r // mp`` and
+    model index ``r % mp``, so that rank ``i`` holds what JAX device
+    ``i`` holds. Every rank of the default group must call it alike: it
+    creates a group for each row and each column of the grid
+    (``dist.new_group``, which is collective over the default group).
+    With ``model_parallel == 1``, and in a world of one, it creates none:
+    the grid is :meth:`Grid.of` ``group``."""
+    world, rank = group_size_rank(group)
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel ({model_parallel}) must divide "
+                         f"the world ({world})")
+    if model_parallel == 1:
+        return Grid.of(group)
+    n_data = world // model_parallel
+    ranks = (list(range(world)) if group is None
+             else dist.get_process_group_ranks(group))
+    data = model = LOCAL
+    # new_group is collective over the whole world: every rank creates
+    # every group, in one order, and keeps those it belongs to.
+    if n_data > 1:
+        for m in range(model_parallel):
+            g = dist.new_group(ranks[m::model_parallel])
+            if m == rank % model_parallel:
+                data = g
+    for d in range(n_data):
+        g = dist.new_group(ranks[d * model_parallel:(d + 1) * model_parallel])
+        if d == rank // model_parallel:
+            model = g
+    return Grid(data, model, n_data, model_parallel,
+                rank // model_parallel, rank % model_parallel)

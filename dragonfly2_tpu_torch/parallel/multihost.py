@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dragonfly2_tpu_torch.parallel.mesh import LOCAL
+from dragonfly2_tpu_torch.parallel.mesh import LOCAL, Grid, grid_groups
 
 
 @dataclass(frozen=True)
@@ -106,6 +106,16 @@ def maybe_init_multihost(coordinator: str = "", num_processes: int = 0,
     init_multihost(coordinator or None, num_processes or None,
                    process_id if process_id >= 0 else None, backend=backend)
     return dist.group.WORLD
+
+
+def multihost_grid(model_parallel: int = 1) -> Grid:
+    """The ``(data, model)`` grid over every process of the default group
+    that :func:`init_multihost` joined — the counterpart of the JAX
+    package's ``multihost_mesh(model_parallel)``, with its axis layout
+    (``parallel/mesh.grid_groups``). Every process calls it alike."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("multihost_grid needs init_multihost first")
+    return grid_groups(model_parallel)
 
 
 def _collective_device(group=None) -> torch.device:

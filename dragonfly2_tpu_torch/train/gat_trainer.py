@@ -1,32 +1,37 @@
-"""Data-parallel full-graph GraphTransformer training (BASELINE config
-#3) — port of ``dragonfly2_tpu/train/gat_trainer.py``.
+"""Full-graph GraphTransformer training (BASELINE config #3), data- and
+tensor-parallel — port of ``dragonfly2_tpu/train/gat_trainer.py``.
 
 Every mode trains on the card. The inverse index of the neighbor lists
 (``build_inverse_index``) is built once per graph and placed on the
 device once: in gather mode the neighbor gather's backward (the
-``table_scatter_add`` kernel) walks it, in blocks, flash and ring mode
-in a world of one the backward of ``graph_flash_attention`` (K1) does.
+``table_scatter_add`` kernel) walks it, in blocks and flash mode, and in
+ring mode on a data axis of one, the backward of
+``graph_flash_attention`` (K1) does.
 
-Data parallelism over ``group`` (``parallel/mesh.py``): the global edge
-batch is rounded to a multiple of the world and each rank takes its
-contiguous share of it (the same epoch order on every rank, from
-``config.seed``); one all-reduce a step averages the gradients and the
-loss. In gather, blocks and flash mode every rank runs the full-graph
-embedding pass on the whole graph, then scores its edges. The JAX
-trainer shards the node rows over its ``data`` axis instead, replicates
-the edge batch and all-gathers the embedding table; replicated rows
-compute the same gradients. So the port's edge batch must divide by the
-world, where the JAX trainer's need not, and rows pad as in a world of
-one. Ring mode in a world larger than one shards the rows as JAX does:
-they pad to a multiple of ``world · chunk`` once a rank's share exceeds
-one chunk (else of ``world``), each rank holds its contiguous rows of
-the features and neighbor lists, K/V blocks travel around the ring
-(``models/graph_transformer.ring_graph_attention``), the embeddings are
-all-gathered for the pair head (the all-gather's backward sums every
-rank's gradient of a rank's rows; the all-reduce then divides by the
-world once), and the result carries the whole padded graph, so its
-artifact serves in a world of one. Tensor parallelism is not ported
-(ROADMAP.md Queue 1 item 8b).
+Placement over a ``(data, model)`` grid of ranks (``grid=``, from
+``parallel/mesh.grid_groups``; ``group=`` alone is a grid whose every
+rank is on the data axis), as the JAX trainer places its state on its
+mesh:
+
+- the node rows shard over ``data`` in every mode, as JAX's
+  ``shard_spec("data")``: they pad to a multiple of ``n_data`` (gather
+  and flash mode), of ``lcm(n_data, chunk)`` once the graph exceeds one
+  key block (blocks mode) or of ``n_data · chunk`` once a rank's rows
+  exceed one chunk (ring mode), and each rank places only its rows of
+  the features and neighbor lists, with the inverse index of its rows
+  over every key row. The model all-gathers K/V (or, in ring mode,
+  passes K/V blocks around the ring) and the embedding table
+  (``models/graph_transformer.py``). The global edge batch is rounded to
+  a multiple of ``n_data`` and each data rank scores its contiguous
+  share of it (the same epoch order on every rank, from ``config.seed``);
+  the all-gathers' backwards sum every rank's gradient of a rank's rows,
+  and one all-reduce a step over ``data`` then averages the gradients
+  and the loss.
+- the attention blocks' Dense layers split over ``model`` as
+  ``tp_state_shardings`` splits them (:func:`tp_shard_state`), with the
+  JAX trainer's refusals; AdamW is elementwise, so its moments over a
+  shard are JAX's sharded moments. The result carries the whole state
+  (:func:`tp_gather_state`), so its artifact serves in a world of one.
 
 The loop is the JAX trainer's: the attention structure is built from
 TRAIN edges only (an eval edge's RTT, a function of its label, never
@@ -39,6 +44,7 @@ not depend on it.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,15 +54,22 @@ import torch.nn.functional as F
 from dragonfly2_tpu_torch.data.features import Graph
 from dragonfly2_tpu_torch.device import default_device
 from dragonfly2_tpu_torch.models.graph_transformer import (
+    COLUMN,
+    ROW,
     GraphTransformer,
     build_inverse_index,
     build_neighbor_lists,
+    check_tensor_parallel,
     pad_graph_sparse,
     pad_multiple,
+    shard,
 )
+from dragonfly2_tpu_torch.ops.flash_attention import check_graph_flash_heads
 from dragonfly2_tpu_torch.parallel.mesh import (
     LOCAL,
     DataParallel,
+    Grid,
+    all_gather_rows,
     global_batch,
 )
 from dragonfly2_tpu_torch.train.metrics import (
@@ -129,16 +142,93 @@ class GATTrainResult:
         return model
 
 
+_TP_KEY = re.compile(r"blocks\.\d+\.Dense_(\d)\.(weight|bias)")
+
+
+def _tp_dim(key: str) -> int | None:
+    """The dim along which ``tp_state_shardings`` shards a state-dict key
+    over ``model`` — 0 for column kernels and biases (their output
+    features; torch's kernels are ``[out, in]``), 1 for row kernels
+    (their input features) — or None for what replicates."""
+    match = _TP_KEY.fullmatch(key)
+    if match is None:
+        return None
+    index, leaf = int(match.group(1)), match.group(2)
+    if index in COLUMN:
+        return 0
+    if index in ROW and leaf == "weight":
+        return 1
+    return None
+
+
+def tp_shard_state(state_dict: dict, grid: Grid) -> dict:
+    """This rank's slices of a whole GraphTransformer state dict under
+    the Megatron placement (the JAX trainer's ``tp_state_shardings``):
+    what a rank of ``grid`` loads. Shards are contiguous copies; what
+    replicates is passed through."""
+    if grid.n_model == 1:
+        return dict(state_dict)
+    out = {}
+    for key, value in state_dict.items():
+        dim = _tp_dim(key)
+        if dim is not None:
+            part = shard(value.shape[dim], grid.n_model, grid.model_rank)
+            value = value.narrow(dim, part.start,
+                                 part.stop - part.start).contiguous()
+        out[key] = value
+    return out
+
+
+@torch.no_grad()
+def tp_gather_state(module: torch.nn.Module, grid: Grid) -> dict:
+    """The whole state dict of a model placed on ``grid``, on the CPU:
+    the shards all-gathered over ``model`` in one exchange of one flat
+    f32 buffer (the inverse of :func:`tp_shard_state`). Every rank of
+    the model axis calls it alike."""
+    state = module.state_dict()
+    sharded = ([k for k in state if _tp_dim(k) is not None]
+               if grid.n_model > 1 else [])
+    whole = {k: v.detach().cpu().clone() for k, v in state.items()}
+    if not sharded:
+        return whole
+    flat = torch.cat([state[k].reshape(-1).float() for k in sharded])
+    parts = all_gather_rows(flat[None], grid.model).cpu()
+    offset = 0
+    for key in sharded:
+        size = state[key].numel()
+        pieces = [p[offset:offset + size].view(state[key].shape)
+                  for p in parts]
+        whole[key] = torch.cat(pieces, dim=_tp_dim(key)).to(
+            state[key].dtype)
+        offset += size
+    return whole
+
+
 class GATTrainer:
     """One training run: the graph, model and optimizer on ``device``,
-    data-parallel over ``group``. :meth:`fit` is the whole run;
-    :meth:`step` is one optimizer step."""
+    placed on ``grid`` (or data-parallel over ``group``). :meth:`fit` is
+    the whole run; :meth:`step` is one optimizer step."""
 
     def __init__(self, graph: Graph, config: GATTrainConfig = GATTrainConfig(),
-                 device=None, init_state: dict | None = None, group=None):
+                 device=None, init_state: dict | None = None, group=None,
+                 grid: Grid | None = None):
         self.device = default_device(device)
         self.config = config
-        self.dp = DataParallel(group)
+        self.grid = Grid.of(group) if grid is None else grid
+        n_model = self.grid.n_model
+        check_tensor_parallel(config.attention, config.hidden, config.heads,
+                              n_model)
+        if n_model > 1 and config.attention in ("blocks", "flash") and (
+                self.device.type == "cuda"):
+            # K1 runs a rank's head share; refuse one it does not take
+            # before anything is placed.
+            check_graph_flash_heads(config.heads // n_model,
+                                    config.hidden // config.heads)
+        self.dp = DataParallel(self.grid.data)
+        # The model axis agrees on when a budget stops (its ranks' steps
+        # pair up in every exchange of a layer).
+        self.mp = DataParallel(self.grid.model)
+        n_data = self.dp.world
         # Pair-level split: every sighting of an eval (src, dst) pair
         # stays out of training AND out of the attention bias.
         self.train_ids, self.eval_ids = edge_split(
@@ -147,22 +237,20 @@ class GATTrainer:
             graph.n_nodes, graph.edge_src[self.train_ids],
             graph.edge_dst[self.train_ids], graph.edge_rtt_ns[self.train_ids],
             cap=config.neighbor_cap)
-        # Rows pad as the JAX trainer's: blocks mode to whole key blocks
-        # (of the whole graph, which every rank holds), ring mode to whole
-        # chunks a rank once a rank's rows exceed one (else to the world),
-        # gather and flash mode not at all.
-        world = self.dp.world
-        self.sharded = config.attention == "ring" and world > 1
+        # Rows pad as the JAX trainer's: to whole key blocks in blocks
+        # mode, to whole chunks a rank in ring mode once a rank's rows
+        # exceed one, else to the data axis.
         if config.attention == "blocks":
-            multiple = pad_multiple(1, config.chunk, graph.n_nodes)
+            multiple = pad_multiple(n_data, config.chunk, graph.n_nodes)
         elif config.attention == "ring":
-            per_rank = -(-graph.n_nodes // world)
-            multiple = (world * config.chunk if per_rank > config.chunk
-                        else world)
+            per_rank = -(-graph.n_nodes // n_data)
+            multiple = (n_data * config.chunk if per_rank > config.chunk
+                        else n_data)
         else:
-            multiple = 1
+            multiple = n_data
         self.node_features, self.nbr, self.val, self.n_real = pad_graph_sparse(
             graph.node_features, nbr, val, multiple)
+        self.sharded = n_data > 1
 
         gen = (None if init_state is not None
                else torch.Generator().manual_seed(config.seed))
@@ -170,9 +258,9 @@ class GATTrainer:
             in_features=self.node_features.shape[1], hidden=config.hidden,
             embed=config.embed, layers=config.layers, heads=config.heads,
             chunk=config.chunk, attention=config.attention, generator=gen,
-            group=group)
+            grid=self.grid)
         if init_state is not None:
-            self.model.load_state_dict(init_state)
+            self.model.load_state_dict(tp_shard_state(init_state, self.grid))
         self.model.to(self.device)
         self.dp.broadcast_(self.model)
         self.optimizer = torch.optim.AdamW(
@@ -189,18 +277,18 @@ class GATTrainer:
         self.warmup_steps = min(100, self.total_steps // 10 + 1)
         self.step_count = 0
 
-        # Graph tensors (a rank's rows when ring mode shards them), the
-        # inverse index (which the sharded ring does not walk) and the
-        # edge arrays go to the device once; a step sends only its edge
-        # ids.
+        # This rank's rows of the graph tensors, the inverse index of its
+        # rows over every key row (which the sharded ring does not walk)
+        # and the edge arrays go to the device once; a step sends only
+        # its edge ids.
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
             self.device)
-        rows = (self.dp.rows(len(self.nbr)) if self.sharded
-                else slice(None))
+        rows = self.dp.rows(len(self.nbr))
         self.g_feat, self.g_nbr, self.g_val = (
             put(a[rows]) for a in (self.node_features, self.nbr, self.val))
-        self.g_inv = (None if self.sharded
-                      else put(build_inverse_index(self.nbr)))
+        self.g_inv = (None if self.sharded and config.attention == "ring"
+                      else put(build_inverse_index(self.nbr[rows],
+                                                   len(self.nbr))))
         self.g_src = put(graph.edge_src.astype(np.int32))
         self.g_dst = put(graph.edge_dst.astype(np.int32))
         self.g_y = put(graph.edge_labels(config.rtt_threshold_ns).astype(
@@ -272,8 +360,9 @@ class GATTrainer:
                     break
                 for ids_1 in ids.reshape(gk, batch):
                     losses.append(self.step(ids_1))
-                if self.dp.any(budget.tick(gk * batch, losses[-1]),
-                               self.device):
+                if self.mp.any(self.dp.any(
+                        budget.tick(gk * batch, losses[-1]), self.device),
+                        self.device):
                     stop = True
                     break
             if losses:
@@ -286,8 +375,7 @@ class GATTrainer:
         budget.finish()
         metrics = self.evaluate()
         return GATTrainResult(
-            state_dict={name: t.detach().cpu().clone()
-                        for name, t in self.model.state_dict().items()},
+            state_dict=tp_gather_state(self.model, self.grid),
             config=config,
             node_features=self.node_features,
             neighbors=self.nbr,
@@ -305,9 +393,10 @@ class GATTrainer:
 
 def train_gat(graph: Graph, config: GATTrainConfig = GATTrainConfig(),
               device=None, init_state: dict | None = None,
-              group=None) -> GATTrainResult:
+              group=None, grid: Grid | None = None) -> GATTrainResult:
     """Train a GraphTransformer on ``graph``. ``device=None`` means the
-    card; ``init_state`` is a GraphTransformer state dict to start from
-    (else a seeded init); ``group`` is the data-parallel process group
-    (``parallel/mesh.py``), every rank passing the same graph."""
-    return GATTrainer(graph, config, device, init_state, group).fit()
+    card; ``init_state`` is a whole GraphTransformer state dict to start
+    from (else a seeded init); ``grid`` is the ``(data, model)`` grid of
+    ranks (``parallel/mesh.grid_groups``), or ``group`` the data-parallel
+    process group, every rank passing the same graph."""
+    return GATTrainer(graph, config, device, init_state, group, grid).fit()

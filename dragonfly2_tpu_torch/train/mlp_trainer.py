@@ -20,10 +20,10 @@ rounded to a multiple of the world as the JAX trainer rounds it, each
 rank steps on its contiguous share, and one all-reduce a step averages
 the gradients and the loss. The initial parameters are rank 0's. Eval
 sums are taken over each rank's share of every chunk and summed over
-the group. Tensor parallelism is not ported (ROADMAP.md, Queue 1 item
-8b). Pipeline and expert parallelism are layouts of their own
-(``parallel/pipeline.py``, ``parallel/moe.py``), which this trainer,
-like the JAX package's, does not use.
+the group. Tensor parallelism (the ``(data, model)`` grid,
+``parallel/mesh.grid_groups``), pipeline and expert parallelism are
+layouts of their own, which this trainer, like the JAX package's, does
+not use: the GraphTransformer's trainer takes the grid.
 """
 
 from __future__ import annotations

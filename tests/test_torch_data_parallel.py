@@ -25,7 +25,10 @@ Tolerances.
   the means), so losses agree to LOSS_WORLD and parameters to
   PARAM_WORLD (absolute; measured worst 7.2e-7 on the GraphTransformer),
   eval F1 to F1_WORLD (one edge of the 214 moves it by ~0.005) and MAE
-  relatively to 1e-4. Ring mode's ranks run another algorithm than the
+  relatively to 1e-4. The GraphTransformer's ranks hold their rows of
+  the graph in every mode, as the JAX trainer shards them over its data
+  axis (each rank's queries against the all-gathered K/V, whose
+  gradients the ranks then sum). Ring mode's ranks run another algorithm than the
   world of one's (the ring's einsums against K1's plain twin) and are
   held to the same limits (measured worst parameter gap 6.3e-7). In bf16 the shares' gradients round to bf16
   before the all-reduce adds them, and AdamW's first steps turn the

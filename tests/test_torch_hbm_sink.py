@@ -281,6 +281,58 @@ class TestSinkAgainstJax:
         sink.close()
 
 
+    def test_sharded_placement_on_mesh(self, tmp_path):
+        """``shard_for`` splits dim 0 as the JAX sink's ``sharding_for``
+        does with ``PartitionSpec("data")`` (``tests/test_hbm_sink.py``'s
+        ``test_sharded_placement_on_mesh``, on a 2-device mesh): the sinks
+        of ranks 0 and 1 each hold the JAX array's shard on device 0 and
+        1, bit for bit, and half the tensor's bytes; every other tensor
+        lands whole in both."""
+        import jax
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        from dragonfly2_tpu.parallel import data_parallel_mesh
+
+        mesh = data_parallel_mesh(devices=jax.devices()[:2])
+        sharding = NamedSharding(mesh.mesh, PartitionSpec("data"))
+        replicated = NamedSharding(mesh.mesh, PartitionSpec())
+        tensors = make_tensors(seed=3)
+        raw = write_file(tmp_path, tensors)
+        offsets = list(range(0, len(raw), 4096))
+        jax_sink = jsink.HBMSink(len(raw), sharding_for=lambda name: (
+            sharding if name == "embed.weight" else replicated))
+        feed(jax_sink, raw, offsets, 4096)
+        embed = jax_sink.wait(timeout=60)["embed.weight"]
+        shards = {s.device: np.asarray(s.data)
+                  for s in embed.addressable_shards}
+        whole = tensors["embed.weight"]
+        for rank, device in enumerate(mesh.mesh.devices.flat):
+            sink = psink.HBMSink(
+                len(raw), device="cpu", shard_for=lambda name, rank=rank: (
+                    (2, rank) if name == "embed.weight" else None))
+            feed(sink, raw, offsets, 4096)
+            got = sink.wait(timeout=60)
+            block = got.pop("embed.weight")
+            assert tensor_bytes(block) == shards[device].tobytes()
+            assert tuple(block.shape) == shards[device].shape
+            assert block.numel() * block.element_size() == whole.nbytes // 2
+            assert_same(got, {k: v for k, v in tensors.items()
+                              if k != "embed.weight"})
+
+    @pytest.mark.parametrize("shard", [(3, 0), (2, 2)])
+    def test_sharded_placement_refuses_an_uneven_split(self, tmp_path,
+                                                       shard):
+        """A world that does not divide the rows, or a rank outside it,
+        makes ``wait`` raise with the tensor's name."""
+        raw = write_file(tmp_path, make_tensors())
+        sink = psink.HBMSink(len(raw), device="cpu", shard_for=lambda n: (
+            shard if n == "embed.weight" else None))
+        sink.write(0, raw)
+        with pytest.raises(RuntimeError, match="embed.weight"):
+            sink.wait(timeout=30)
+        sink.close()
+
+
 class TestDevice:
     @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
     def test_cuda_without_a_card_raises(self, device):

@@ -100,15 +100,17 @@ def test_sync_and_agree(fleets, mode):
 
 def test_dryrun_twin_at_world_two(fleets):
     """One tiny data-parallel epoch of GraphSAGE, the MLP and the
-    GraphTransformer (gather, blocks and ring): the ranks agreed on their
-    digests (the dryrun raises otherwise) and report the same losses;
-    ring attention, the pipeline and the experts report the same finite
-    global losses."""
+    GraphTransformer (gather, blocks and ring), and one tensor-parallel
+    epoch of the GraphTransformer on a 1 × 2 grid, whose rank must hold
+    fewer parameter bytes than the replicated model: the ranks agreed on
+    their digests (the dryrun raises otherwise, or on the bytes) and
+    report the same losses; ring attention, the pipeline and the experts
+    report the same finite global losses."""
     first, second = fleets["env"]
     names = sorted(k for k in first if k.startswith("loss/"))
     assert names == ["loss/gat_blocks", "loss/gat_gather", "loss/gat_ring",
-                     "loss/graphsage", "loss/mlp", "loss/moe",
-                     "loss/pipeline", "loss/ring_attention"]
+                     "loss/gat_tp", "loss/graphsage", "loss/mlp",
+                     "loss/moe", "loss/pipeline", "loss/ring_attention"]
     for name in names:
         assert np.isfinite(first[name]) and first[name] == second[name]
 

@@ -1,7 +1,8 @@
 """What a rank runs in the port's sequence, pipeline and expert
 parallelism tests (``tests/test_torch_ring_attention.py``,
-``test_torch_pipeline.py``, ``test_torch_moe.py``) and in the ring-mode
-GraphTransformer's (``test_torch_model.py``), spawned through
+``test_torch_pipeline.py``, ``test_torch_moe.py``), in the ring-mode
+GraphTransformer's (``test_torch_model.py``) and in the tensor-parallel
+GraphTransformer's (``test_torch_tensor_parallel.py``), spawned through
 ``tests/torch_dist_worker.py``.
 
 Each case carries global numpy inputs; a rank takes its shard, runs the
@@ -172,3 +173,82 @@ def run_ring_graph(case: dict, rank: int, world: int) -> dict:
         emb = model.node_embeddings(_tensor(case["feats"][rows]), nbr, val)
     result["emb"] = _numpy(emb)
     return result
+
+
+def run_tensor_parallel(case: dict, rank: int, world: int) -> dict:
+    """The GraphTransformer on a ``(world / mp × mp)`` grid
+    (``grid_groups(case["model_parallel"])``) over the world's default
+    group: this rank's grid coordinates and its ``tp_shard_state`` slices
+    of ``case["init"]``; then, in gather and in blocks mode, ``train_gat``
+    with ``case["config"]`` from ``case["init"]`` (the history, step
+    losses, F1 and the gathered whole state; this rank's parameter bytes
+    and the replicated model's; rank 0's artifact), and the embeddings of every row under
+    ``case["emb_state"]`` placed on the grid (gathered over the data
+    axis)."""
+    import torch
+
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+    from dragonfly2_tpu_torch.models.graph_transformer import (
+        GraphTransformer,
+        build_neighbor_lists,
+        pad_graph_sparse,
+    )
+    from dragonfly2_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        grid_groups,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import gat_artifact_from_result
+    from dragonfly2_tpu_torch.train.gat_trainer import (
+        GATTrainConfig,
+        GATTrainer,
+        tp_shard_state,
+    )
+
+    grid = grid_groups(int(case["model_parallel"]))
+    graph = SyntheticCluster(n_hosts=int(case["n_hosts"]),
+                             seed=int(case["graph_seed"])).probe_graph(
+        int(case["n_probes"]))
+    init = {k: _tensor(v) for k, v in case["init"].items()}
+    out = {"grid": np.array([grid.data_rank, grid.model_rank, grid.n_data,
+                             grid.n_model])}
+    for key, value in tp_shard_state(init, grid).items():
+        out[f"shard/{key}"] = _numpy(value)
+    cfg = dict(case["config"])
+    for mode in ("gather", "blocks"):
+        trainer = GATTrainer(graph, GATTrainConfig(**cfg, attention=mode),
+                             "cpu", init_state=init, grid=grid)
+        result = trainer.fit()
+        out[f"{mode}.history"] = np.array(result.history)
+        out[f"{mode}.step_losses"] = np.array(result.step_losses)
+        out[f"{mode}.f1"] = np.array(result.f1)
+        out[f"{mode}.param_bytes"] = np.array(sum(
+            p.numel() * p.element_size()
+            for p in trainer.model.parameters()))
+        out[f"{mode}.whole_bytes"] = np.array(sum(
+            t.numel() * t.element_size()
+            for t in result.state_dict.values()))
+        for key, value in result.state_dict.items():
+            out[f"{mode}.param/{key}"] = _numpy(value)
+        artifact = (gat_artifact_from_result(result, graph, f"tp-{mode}")
+                    if rank == 0 else b"")
+        out[f"{mode}.artifact"] = np.frombuffer(artifact, np.uint8)
+
+        # The embeddings of the given weights placed on the grid: this
+        # rank's rows, gathered over the data axis.
+        nbr, val = build_neighbor_lists(
+            graph.n_nodes, graph.edge_src, graph.edge_dst,
+            graph.edge_rtt_ns)
+        feats, nbr, val, _ = pad_graph_sparse(graph.node_features, nbr, val,
+                                              int(case["emb_pad"]))
+        rows = _rows(len(nbr), grid.data_rank, grid.n_data)
+        model = GraphTransformer(
+            in_features=feats.shape[1], hidden=cfg["hidden"],
+            embed=cfg["embed"], layers=cfg["layers"], heads=cfg["heads"],
+            attention=mode, grid=grid)
+        model.load_state_dict(tp_shard_state(
+            {k: _tensor(v) for k, v in case["emb_state"].items()}, grid))
+        with torch.no_grad():
+            emb = model.node_embeddings(*(_tensor(a[rows])
+                                          for a in (feats, nbr, val)))
+            out[f"{mode}.emb"] = _numpy(all_gather_rows(emb, grid.data))
+    return out
