@@ -7,7 +7,9 @@ blocks mode and serve the results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
-through the scheduler's ``ml`` and ``cost`` evaluators, run the
+through the scheduler's ``ml`` and ``cost`` evaluators, replay a
+100 000-decision columnar corpus from ``.npc`` segments through the
+rule, ``ml`` and ``cost`` evaluators in batch, run the
 trainer's ``Training`` orchestrator from CSV dataset segments to the
 gated registry, run federated multi-cluster training (BASELINE
 config #4) through the crash-safe coordinator to a gated global model,
@@ -145,7 +147,25 @@ Phases (any failure exits nonzero, before the final line):
    correlation with realized cost above COST_CORR_MIN; cost_evaluator:
    orders by ascending predicted cost, ``is_bad_node`` verdicts equal to
    a CPU copy's, a verdict's cache miss and hit in µs, and a NaN-weighted
-   cost artifact giving the rule evaluator's orders and verdicts;
+   cost artifact giving the rule evaluator's orders and verdicts; then
+   the replay engine, the slice 17 path: replay_store (a 100 000-decision
+   synthetic corpus, K = 16, through ``ReplayStoreWriter`` into four
+   ``.npc`` segments and back through ``open_dir``: every segment's
+   ``check_corpus`` green, every column equal to the corpus in memory, a
+   segment cut before its tail marker and one with its first byte
+   flipped refused by ``open_corpus`` and reported invalid by
+   ``check_corpus``) and replay_vectorized (that corpus through
+   ``replay_decisions_vectorized`` for the rule, ``ml`` and ``cost``
+   evaluators, the learned ones scoring on the card through
+   ``score_corpus``, with every launch count set to 0 just before and
+   read just after — no kernel may launch: equal digests at 1 and 2
+   shards, the sequential harness's digest, orders, guard counters and
+   ``score_run`` metrics on the first 2 000 decisions, scores there
+   within the bf16 parity tolerance of an f32 CPU copy's, orders over
+   the whole corpus equal to the f32 CPU copy's except between
+   candidates closer than that tolerance, and a NaN-weighted ``ml``
+   artifact replaying the rule evaluator's digest with a fallback a
+   decision; decisions/s sequential, vectorized and sharded);
 13. the serving plane, the slice 10 paths: after the main path's
    requests, microbatch_gat (config #3's pair scorer behind the
    micro-batcher: the 8- and 32-thread rungs, and the replies of 32
@@ -437,10 +457,11 @@ MLP_EPOCHS = 1
 MLP_CFG = dict(hidden=(128, 128, 64), batch_size=16384, learning_rate=3e-3,
                weight_decay=1e-4, warmup_steps=100, eval_fraction=0.1,
                epochs=MLP_EPOCHS, max_seconds=60)
-# The cost model's stand-in corpus (the replay plane is not ported):
-# COST_ROWS of those pair rows as decisions of COST_SLOTS candidate slots,
-# realized cost the seconds of a PIECE_MB piece at the pair's bandwidth,
-# trained at CostTrainConfig's defaults. tests/test_replay.py:319-326
+# The cost model's stand-in corpus (``synth_replay_corpus``'s realized
+# costs are noise uncorrelated with its features, so a cost model trained
+# on it learns nothing): COST_ROWS of those pair rows as decisions of
+# COST_SLOTS candidate slots, realized cost the seconds of a PIECE_MB
+# piece at the pair's bandwidth, trained at CostTrainConfig's defaults. tests/test_replay.py:319-326
 # bounds the correlation of predicted with realized cost at 0.9 on a
 # recorded corpus whose best predictor reaches 1 (the port's model 0.999
 # there, tests/test_torch_mlp_train.py). Here the label's congestion
@@ -455,6 +476,19 @@ COST_CORR_MIN = 0.9 * COST_CORR_CEILING
 # closer than the bf16 parity tolerance differently from an f32 copy.
 ML_DECISIONS, ML_CANDIDATES = 200, 15
 ML_ORDER_GAP = 6e-2
+# The replay plane (slice 17): the throughput ladder's top rung
+# (replaybench.LADDER_RUNGS) of synthetic decisions, K = 16 slots, written
+# as REPLAY_SEGMENT-decision .npc segments; the sequential harness on the
+# first REPLAY_SEQ_DECISIONS, the fan-out at REPLAY_SHARDS shards.
+REPLAY_DECISIONS = 100_000
+REPLAY_SEGMENT = 25_000
+REPLAY_SEQ_DECISIONS = 2_000
+REPLAY_SHARDS = 2
+# The shards' prefetch workers. Two Python threads driving one card's
+# 64-row forwards ran at 0.53-0.57 x one thread (GIL contention; the
+# first proof run of this phase, PERF.md): one worker still takes the
+# shard split, the prefetch and the in-order merge the digest covers.
+REPLAY_WORKERS = 1
 # Request sizes held bit-identical to score_corpus: one row, the bucket
 # edges of the JAX package's scorer (8 … 64) and a row past each.
 SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
@@ -465,9 +499,10 @@ SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
 # threads; sheds under SHED_THREADS threads at queue depth 2; the model
 # lifecycle with the watcher polling every LIFECYCLE_TICK_S, grace windows
 # of LIFECYCLE_GRACE_S, and every LIFECYCLE_UNAVAILABLE_NTH-th ModelInfer
-# aborted by the fault plan.
+# aborted by the fault plan. One second a rung keeps the whole script's
+# time inside its budget.
 REQUEST_ROWS = 16
-LADDER_S = 2.0
+LADDER_S = 1.0
 MLP_LADDER_THREADS = (1, 8, 32, 128)
 GAT_LADDER_THREADS = (8, 32)
 IDENTITY_REQUESTS, IDENTITY_THREADS = 800, 32
@@ -2209,8 +2244,9 @@ def poisoned(tree: dict, how: str) -> dict:
     return dict(tree, params=walk(tree["params"]))
 
 
-def f32_cpu_scorer(torch, artifact: bytes):
-    """A CPU copy of an MLP-layout artifact's model, computing in f32."""
+def f32_cpu_scorer(torch, artifact: bytes, max_batch: int = 64):
+    """A CPU copy of an MLP-layout artifact's model, computing in f32,
+    ``max_batch`` rows a forward."""
     from dragonfly2_tpu_torch.inference.scorer import ParentScorer
     from dragonfly2_tpu_torch.models.mlp import MLPBandwidthPredictor
     from dragonfly2_tpu_torch.train.checkpoint import (
@@ -2224,7 +2260,8 @@ def f32_cpu_scorer(torch, artifact: bytes):
     model = MLPBandwidthPredictor(hidden=metadata.config["hidden"],
                                   dtype=torch.float32)
     model.load_state_dict(mlp_state_dict_from_flax(params))
-    return ParentScorer(model, norm, target, device="cpu")
+    return ParentScorer(model, norm, target, max_batch=max_batch,
+                        device="cpu")
 
 
 def check_mlp_small_model(torch) -> None:
@@ -2609,6 +2646,314 @@ def check_cost_evaluator(torch, artifact, scorer) -> None:
         hit_us=hit_us,
         nan_artifact={"rule_orders": orders, "rule_verdicts": verdicts,
                       "stats": stats.snapshot()})
+
+
+def column_equal(a, b) -> bool:
+    """Numeric columns bit for bit; string columns string for string (a
+    packed column's width is its longest string's)."""
+    if a.dtype.kind == "U" and b.dtype.kind == "U":
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.ascontiguousarray(a).tobytes() == np.ascontiguousarray(b).tobytes()
+
+
+def run_replay_store(torch, root: str):
+    """replay_store: ``synth_replay_corpus(REPLAY_DECISIONS)`` through
+    ``ReplayStoreWriter`` into rotated ``.npc`` segments, read back with
+    ``open_dir``: ``check_corpus`` green on every segment, every column
+    equal to the corpus in memory (``column_equal``); a segment with its
+    tail marker cut off and one with its first byte flipped must each make
+    ``open_corpus`` raise ``ReplayStoreError`` and ``check_corpus``
+    report the file invalid (without raising). Returns the opened
+    corpus."""
+    from dragonfly2_tpu_torch.scheduler import replaystore
+    from dragonfly2_tpu_torch.scheduler.replaybench import synth_replay_corpus
+
+    t0 = time.perf_counter()
+    corpus = synth_replay_corpus(REPLAY_DECISIONS, seed=SEED)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = corpus.to_events()
+    events_s = time.perf_counter() - t0
+    store = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    writer = replaystore.ReplayStoreWriter(store,
+                                           segment_decisions=REPLAY_SEGMENT)
+    for start in range(0, len(events), REPLAY_SEGMENT):
+        writer.append_batch(events[start:start + REPLAY_SEGMENT])
+    writer.close()
+    pack_s = time.perf_counter() - t0
+    del events
+    segments = writer.segments()
+    t0 = time.perf_counter()
+    opened = replaystore.open_dir(store)
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reports = [replaystore.check_corpus(p) for p in segments]
+    check_s = time.perf_counter() - t0
+    differ = [name for name in replaystore.ALL_COLUMNS
+              if not column_equal(getattr(opened, name),
+                                getattr(corpus, name))]
+    with open(segments[0], "rb") as f:
+        data = f.read()
+    broken = {}
+    for kind, body in (("tail_cut", data[:-len(replaystore.TAIL_MAGIC)]),
+                       ("first_byte_flipped",
+                        bytes([data[0] ^ 0xFF]) + data[1:])):
+        path = os.path.join(root, f"{kind}.npc")
+        with open(path, "wb") as f:
+            f.write(body)
+        try:
+            replaystore.open_corpus(path)
+            raised = None
+        except replaystore.ReplayStoreError as exc:
+            raised = str(exc)
+        report = replaystore.check_corpus(path)
+        broken[kind] = {"open_raised": raised, "check_ok": report["ok"],
+                        "check_errors": report["errors"]}
+    seg_bytes = sum(os.path.getsize(p) for p in segments)
+    ok = (len(segments) >= 3 and all(r["ok"] for r in reports)
+          and sum(r["decisions"] for r in reports) == REPLAY_DECISIONS
+          and not differ and opened.n == REPLAY_DECISIONS
+          and all(b["open_raised"] and b["check_ok"] is False
+                  and b["check_errors"] for b in broken.values()))
+    fields = dict(
+        decisions=opened.n, k=opened.k, segments=len(segments),
+        candidates=int(opened.valid.sum()),
+        features_mb=opened.features.nbytes / 1e6, segment_mb=seg_bytes / 1e6,
+        columns_differing=differ, checks_ok=[r["ok"] for r in reports],
+        broken=broken, synth_seconds=synth_s, to_events_seconds=events_s,
+        pack_seconds=pack_s, pack_mb_per_sec=seg_bytes / 1e6 / pack_s,
+        open_seconds=open_s, check_seconds=check_s)
+    if not ok:
+        raise AssertionError(f"replay_store: {fields}")
+    log("replay_store", **fields)
+    return opened
+
+
+def bf16_limit(a: float, b: float) -> float:
+    """The bf16 parity tolerance (``tests/test_torch_evaluator.py``: rtol
+    and atol 6e-2) for two scores: ML_ORDER_GAP · (1 + the larger
+    magnitude). The ml_evaluator phase's scores are of order 1, where
+    this is ML_ORDER_GAP itself."""
+    return ML_ORDER_GAP * (1.0 + max(abs(a), abs(b)))
+
+
+def replay_swaps(cc, got, want, score_rows) -> dict:
+    """Between two runs over ``cc``: the decisions whose orders differ,
+    and the swapped pair (two candidates ordered oppositely) whose gap in
+    ``score_rows`` scores is the largest share of ``bf16_limit`` — its
+    scores, gap and share (the order check fails from share 1)."""
+    seqs = cc.seq.tolist()
+    differ = [i for i, seq in enumerate(seqs)
+              if got.full_order.get(seq) != want.full_order.get(seq)]
+    worst = {"share": 0.0, "gap": 0.0, "scores": None}
+    if not differ:
+        return dict(worst, differing=0)
+    counts = cc.n_candidates[differ]
+    rows = np.concatenate([cc.features[i, :n] for i, n in
+                           zip(differ, counts.tolist())])
+    scores = np.split(score_rows(rows).astype(np.float64),
+                      np.cumsum(counts)[:-1])
+    for i, row in zip(differ, scores):
+        slot = {cid: j for j, cid in
+                enumerate(cc.cand_id[i, :len(row)].tolist())}
+        a, b = got.full_order[seqs[i]], want.full_order[seqs[i]]
+        pos = {cid: j for j, cid in enumerate(a)}
+        for x, c1 in enumerate(b):
+            for c2 in b[x + 1:]:
+                if pos[c1] > pos[c2]:
+                    s1, s2 = float(row[slot[c1]]), float(row[slot[c2]])
+                    share = abs(s1 - s2) / bf16_limit(s1, s2)
+                    if share > worst["share"]:
+                        worst = {"share": share, "gap": abs(s1 - s2),
+                                 "scores": [s1, s2]}
+    return dict(worst, differing=len(differ))
+
+
+def run_replay_vectorized(torch, cc, mlp_artifact_bytes, cost_artifact,
+                          counts) -> dict:
+    """replay_vectorized: the opened corpus through
+    ``replay_decisions_vectorized`` for the rule evaluator,
+    ``new_evaluator("ml")`` over the trained config #1 MLP and ``cost``
+    over the trained cost model, both loaded onto the card through the
+    sidecar's artifact loaders (scoring through ``score_corpus`` there),
+    with every launch count set to 0 just before and read just after —
+    no kernel may launch. Per evaluator: the digest at 1 and at
+    REPLAY_SHARDS shards (REPLAY_WORKERS prefetch workers) equal; on the
+    first REPLAY_SEQ_DECISIONS decisions the sequential harness's
+    digest, orders and guard counters equal the vectorized run's, and
+    ``score_run`` equals
+    ``score_run_vectorized`` key by key, and the ``ml`` and ``cost``
+    scores are within MLP_TOL · (1 + |score|) of an f32 CPU copy of the
+    artifact's; the ``ml`` and ``cost`` orders over the whole corpus
+    equal the f32 CPU copy's except between candidates whose card scores
+    are under ``bf16_limit`` apart. A NaN-weighted ``ml`` artifact must
+    replay the rule evaluator's digest with a fallback and a guard trip
+    on every ``parents`` decision of the first REPLAY_SEQ_DECISIONS.
+    Returns the launches."""
+    from dragonfly2_tpu_torch.inference.scorer import CostScorer
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        _cost_scorer_from_artifact,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.models.mlp import FEATURE_DIM
+    from dragonfly2_tpu_torch.scheduler import replay
+    from dragonfly2_tpu_torch.scheduler.controlstats import ControlPlaneStats
+    from dragonfly2_tpu_torch.scheduler.evaluator import (
+        BaseEvaluator,
+        new_evaluator,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import load_artifact
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    t_phase = time.perf_counter()
+    ml_scorer = _scorer_from_artifact(mlp_artifact_bytes)
+    cost_scorer = _cost_scorer_from_artifact(cost_artifact, version="smoke")
+    # The f32 CPU copies score every valid row in one forward.
+    valid_rows = int(cc.valid.sum())
+    cpu_ml = f32_cpu_scorer(torch, mlp_artifact_bytes, max_batch=valid_rows)
+    cpu_cost = CostScorer(f32_cpu_scorer(torch, cost_artifact,
+                                         max_batch=valid_rows),
+                          typical_cost_s=cost_scorer.typical_cost_s)
+    makers = {
+        "rule": lambda: BaseEvaluator(),
+        "ml": lambda: new_evaluator("ml", scorer=ml_scorer,
+                                    stats=ServingStats()),
+        "cost": lambda: new_evaluator("cost", scorer=cost_scorer,
+                                      stats=ControlPlaneStats()),
+    }
+    cpu_makers = {
+        "ml": lambda: new_evaluator("ml", scorer=cpu_ml, stats=ServingStats()),
+        "cost": lambda: new_evaluator("cost", scorer=cpu_cost,
+                                      stats=ControlPlaneStats()),
+    }
+    parents = int(((cc.verdict == 0) & (cc.n_candidates > 0)).sum())
+    head = cc.slice(0, REPLAY_SEQ_DECISIONS)
+    head_events = list(head.decisions())
+    verdicts = replay.rule_bad_node_verdicts(head)
+    results, failures, runs = {}, [], {}
+    counts.reset()
+    for name, make in makers.items():
+        ev = make()
+        t0 = time.perf_counter()
+        whole = replay.replay_decisions_vectorized(cc, ev, name=name)
+        torch.cuda.synchronize()
+        vec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded = replay.replay_decisions_vectorized(
+            cc, make(), name=name, shards=REPLAY_SHARDS,
+            prefetch_workers=REPLAY_WORKERS)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        seq_ev, vec_ev = make(), make()
+        t0 = time.perf_counter()
+        seq = replay.replay_decisions(head_events, seq_ev, name=name)
+        seq_s = time.perf_counter() - t0
+        part = replay.replay_decisions_vectorized(head, vec_ev, name=name)
+        scored_seq = replay.score_run(
+            head_events, seq, evaluator=None if name == "cost" else seq_ev)
+        scored_vec = replay.score_run_vectorized(
+            head, seq, bad_node_verdicts=None if name == "cost" else verdicts)
+        keys_differing = sorted(k for k in scored_seq
+                                if scored_vec.get(k) != scored_seq[k])
+        counters = {}
+        if name != "rule":
+            counters = {
+                "whole": [ev.scored_count, ev.fallback_count,
+                          ev.guard_trips],
+                "head_sequential": [seq_ev.scored_count,
+                                    seq_ev.fallback_count,
+                                    seq_ev.guard_trips],
+                "head_vectorized": [vec_ev.scored_count,
+                                    vec_ev.fallback_count,
+                                    vec_ev.guard_trips]}
+            if (counters["head_sequential"] != counters["head_vectorized"]
+                    or ev.scored_count + ev.fallback_count != parents):
+                failures.append(f"{name} guard counters {counters}")
+        if whole.digest != sharded.digest:
+            failures.append(f"{name}: shards 1 and {REPLAY_SHARDS} digests "
+                            "differ")
+        if seq.digest != part.digest or seq.full_order != part.full_order:
+            failures.append(f"{name}: sequential and vectorized digests "
+                            f"differ on {REPLAY_SEQ_DECISIONS} decisions")
+        if keys_differing:
+            failures.append(f"{name}: score_run vs score_run_vectorized "
+                            f"differ in {keys_differing}")
+        runs[name] = whole
+        results[name] = dict(
+            digest=whole.digest, shards_digest_equal=whole.digest
+            == sharded.digest, head_digest_equal=seq.digest == part.digest,
+            score_run_keys_equal=not keys_differing,
+            regret_mean_s=scored_vec["regret_mean_s"],
+            rank_agreement_mean=scored_vec["rank_agreement_mean"],
+            bad_node_precision=scored_vec.get("bad_node_precision"),
+            bad_node_recall=scored_vec.get("bad_node_recall"),
+            counters=counters, vectorized_seconds=vec_s,
+            sharded_seconds=sharded_s, sequential_seconds=seq_s,
+            sequential_decisions_per_s=REPLAY_SEQ_DECISIONS / seq_s,
+            vectorized_decisions_per_s=cc.n / vec_s,
+            sharded_decisions_per_s=cc.n / sharded_s)
+    # Against the f32 CPU copies: the same engine, the same corpus.
+    card_rows = {"ml": ml_scorer.score_corpus,
+                 "cost": cost_scorer.score_corpus}
+    cpu_rows = {"ml": cpu_ml.score_corpus, "cost": cpu_cost.score_corpus}
+    head_rows = head.features[head.valid]
+    for name, make in cpu_makers.items():
+        t0 = time.perf_counter()
+        cpu_run = replay.replay_decisions_vectorized(cc, make(), name=name)
+        cpu_s = time.perf_counter() - t0
+        swaps = replay_swaps(cc, runs[name], cpu_run, card_rows[name])
+        card = card_rows[name](head_rows).astype(np.float64)
+        cpu = cpu_rows[name](head_rows).astype(np.float64)
+        err = np.abs(card - cpu)
+        share = float((err / (MLP_TOL * (1.0 + np.abs(cpu)))).max())
+        results[name].update(
+            orders_differing_from_f32_cpu=swaps["differing"],
+            worst_swap=swaps, head_max_abs_err_vs_f32_cpu=float(err.max()),
+            head_max_err_share_of_tol=share, f32_cpu_seconds=cpu_s)
+        if not swaps["share"] < 1.0:
+            failures.append(f"{name}: candidates ordered unlike the f32 CPU "
+                            f"copy {swaps} (limit bf16_limit)")
+        if not share <= 1.0:
+            failures.append(f"{name}: scores on the first "
+                            f"{REPLAY_SEQ_DECISIONS} decisions off the f32 "
+                            f"CPU copy's by {share} of MLP_TOL (1 + |s|)")
+    # A NaN-weighted ml artifact replays the rule evaluator's decisions
+    # (on the first REPLAY_SEQ_DECISIONS: the guard path, not the scale).
+    tree, metadata = load_artifact(mlp_artifact_bytes)
+    nan_ev = new_evaluator("ml", scorer=_scorer_from_artifact(mlp_artifact(
+        poisoned(tree, "nan"), "mlp", metadata.config["hidden"])),
+        stats=ServingStats())
+    nan_run = replay.replay_decisions_vectorized(head, nan_ev, name="ml-nan")
+    rule_head = replay.replay_decisions_vectorized(head, BaseEvaluator())
+    torch.cuda.synchronize()
+    launches = counts.read()
+    head_parents = int(((head.verdict == 0) & (head.n_candidates > 0)).sum())
+    nan_result = dict(decisions=head.n,
+                      digest_equal_rule=nan_run.digest == rule_head.digest,
+                      fallback_count=nan_ev.fallback_count,
+                      guard_trips=nan_ev.guard_trips,
+                      scored_count=nan_ev.scored_count, parents=head_parents)
+    if not (nan_result["digest_equal_rule"] and nan_ev.fallback_count
+            == nan_ev.guard_trips == head_parents
+            and nan_ev.scored_count == 0):
+        failures.append(f"NaN ml artifact: {nan_result}")
+    if any(launches.values()):
+        failures.append(f"the replay path launched kernels: {launches}")
+    block = ml_scorer.max_batch
+    device_bytes = -(-valid_rows // block) * block * FEATURE_DIM * 4 \
+        + valid_rows * 4
+    fields = dict(decisions=cc.n, parents=parents, candidates=valid_rows,
+                  shards=REPLAY_SHARDS, shard_workers=REPLAY_WORKERS,
+                  evaluators=results, nan_ml=nan_result, launches=launches,
+                  corpus_device_bytes_per_pass=device_bytes,
+                  score_block=block,
+                  seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError(f"replay_vectorized: {failures}; {fields}")
+    log("replay_vectorized", **fields)
+    return launches
 
 
 class HealthLog:
@@ -6608,6 +6953,20 @@ def main() -> int:
         torch, mlp_x, mlp_y, counts)
     check_cost_evaluator(torch, cost_artifact, cost_scorer)
 
+    # -- phase 13b: the replay engine, slice 17 ------------------------------
+    import tempfile
+
+    replay_tmp = tempfile.mkdtemp(prefix="smoke-replay-")
+    try:
+        t0 = time.perf_counter()
+        replay_corpus = run_replay_store(torch, replay_tmp)
+        replay_launches = run_replay_vectorized(
+            torch, replay_corpus, mlp_artifact_bytes, cost_artifact, counts)
+        del replay_corpus
+        log("replay_phases", seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(replay_tmp, ignore_errors=True)
+
     # -- phase 14: the training orchestrator, slice 11's path ---------------
     training_launches, training_predicted, training_evals = run_training(
         torch, mlp_x, mlp_y, counts)
@@ -6643,6 +7002,7 @@ def main() -> int:
                    "train_gnn_host": host_launches[row["name"]],
                    "train_mlp": mlp_launches[row["name"]],
                    "train_cost": cost_launches[row["name"]],
+                   "replay": replay_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "federated": federated_launches[row["name"]],

@@ -39,6 +39,7 @@ COPIES = [
     "scheduler/resource/resource.py", "scheduler/resource/task.py",
     "scheduler/scheduling/__init__.py", "scheduler/scheduling/core.py",
     "scheduler/storage/__init__.py",
+    "scheduler/replaystore.py",
 ]
 
 

@@ -158,6 +158,10 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.utils.obsstats",
         "dragonfly2_tpu_torch.utils.ratelimit",
         "dragonfly2_tpu_torch.utils.tracing",
+        # slice 17: the replay engine, its bench helpers and the CLI
+        "dragonfly2_tpu_torch.scheduler.replaybench",
+        "dragonfly2_tpu_torch.cmd",
+        "dragonfly2_tpu_torch.cmd.replaytool",
     }
     assert expected <= set(probe["imported"])
 
