@@ -9,7 +9,9 @@ a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 (BASELINE config #1) and the piece-cost model and rank parents with them
 through the scheduler's ``ml`` and ``cost`` evaluators, replay a
 100 000-decision columnar corpus from ``.npc`` segments through the
-rule, ``ml`` and ``cost`` evaluators in batch, run the
+rule, ``ml`` and ``cost`` evaluators in batch, record a profiled swarm
+through the scheduler's announce-stream recorder and run the recorded
+A/B (train, gate, rule vs ``ml`` vs ``cost``) on it, run the
 trainer's ``Training`` orchestrator from CSV dataset segments to the
 gated registry, run federated multi-cluster training (BASELINE
 config #4) through the crash-safe coordinator to a gated global model,
@@ -165,7 +167,26 @@ Phases (any failure exits nonzero, before the final line):
    the whole corpus equal to the f32 CPU copy's except between
    candidates closer than that tolerance, and a NaN-weighted ``ml``
    artifact replaying the rule evaluator's digest with a fallback a
-   decision; decisions/s sequential, vectorized and sharded);
+   decision; decisions/s sequential, vectorized and sharded); then the
+   replay plane's recording half, the slice 18 path: swarm_record (a
+   profiled RECORD_PEERS-peer swarm through the port's
+   ``SchedulerService`` with a ``ReplayRecorder`` into a rotating
+   scheduler ``Storage``, read back from disk: no swarm error, every
+   decision recorded, finalized and read back, at least
+   ``MIN_CORPUS_DECISIONS``; packed into ``.npc`` segments whose columns
+   equal the events', and replayed there for the rule, ``ml`` and
+   ``cost`` evaluators on the card with the sequential harness's digest
+   on the events, no kernel launched), replay_ab (``run_replay_ab`` on
+   the card at bench.py's replay stage size, with every launch count set
+   to 0 just before and read just after — no kernel may launch: no
+   error, deterministic replays, both gates promoting, ``ml`` and
+   ``cost`` regret within bound, no swarm error; the gate's validation,
+   regret, rank agreement, bad-node counts, decision latency, the train
+   errors and the seconds of record, train, gate and A/B), swarm_ladder
+   (``run_swarm_ladder`` at 100, 1 000 and 5 000 peers: no swarm error;
+   the p99 ratio's 4 x bound printed, not gated) and recorder_overhead
+   (the guard's announce p99 with the recorder on against off; its
+   1.05 x bound printed, not gated);
 13. the serving plane, the slice 10 paths: after the main path's
    requests, microbatch_gat (config #3's pair scorer behind the
    micro-batcher: the 8- and 32-thread rungs, and the replies of 32
@@ -489,6 +510,16 @@ REPLAY_SHARDS = 2
 # first proof run of this phase, PERF.md): one worker still takes the
 # shard split, the prefetch and the in-order merge the digest covers.
 REPLAY_WORKERS = 1
+# The replay plane's recording half (slice 18): bench.py's replay stage
+# (replaybench.run_replay_ab: 600 profiled peers, 4 announce workers),
+# the recorded corpus packed into RECORD_SEGMENT-decision .npc segments,
+# and the scheduler stage's ladder (loadbench.check_scheduler_regression's
+# sizes, 8 workers).
+RECORD_PEERS = 600
+RECORD_WORKERS = 4
+RECORD_SEGMENT = 200
+SWARM_LADDER_SIZES = (100, 1000, 5000)
+SWARM_LADDER_WORKERS = 8
 # Request sizes held bit-identical to score_corpus: one row, the bucket
 # edges of the JAX package's scorer (8 … 64) and a row past each.
 SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
@@ -499,10 +530,11 @@ SCORE_REQUEST_ROWS = (1, 8, 15, 16, 17, 32, 33, 64)
 # threads; sheds under SHED_THREADS threads at queue depth 2; the model
 # lifecycle with the watcher polling every LIFECYCLE_TICK_S, grace windows
 # of LIFECYCLE_GRACE_S, and every LIFECYCLE_UNAVAILABLE_NTH-th ModelInfer
-# aborted by the fault plan. One second a rung keeps the whole script's
-# time inside its budget.
+# aborted by the fault plan. Half a second a rung (hundreds of requests
+# at one thread) keeps the whole script's time inside its budget; no
+# check reads a rung's length.
 REQUEST_ROWS = 16
-LADDER_S = 1.0
+LADDER_S = 0.5
 MLP_LADDER_THREADS = (1, 8, 32, 128)
 GAT_LADDER_THREADS = (8, 32)
 IDENTITY_REQUESTS, IDENTITY_THREADS = 800, 32
@@ -2954,6 +2986,236 @@ def run_replay_vectorized(torch, cc, mlp_artifact_bytes, cost_artifact,
         raise AssertionError(f"replay_vectorized: {failures}; {fields}")
     log("replay_vectorized", **fields)
     return launches
+
+
+def run_swarm_record(torch, root: str, mlp_artifact_bytes, cost_artifact,
+                     counts) -> None:
+    """swarm_record: a profiled RECORD_PEERS-peer swarm
+    (``run_swarm_bench``, RECORD_WORKERS announce workers) through the
+    port's ``SchedulerService`` with a ``ReplayRecorder`` into a rotating
+    scheduler ``Storage``, read back from disk (``corpus_from_storage``):
+    no swarm error, every decision recorded and finalized, a corpus of at
+    least ``MIN_CORPUS_DECISIONS``. That corpus packed with
+    ``ReplayStoreWriter`` and opened (``open_dir``) must hold the columns
+    ``as_columnar`` builds from the events, and replay through
+    ``replay_decisions_vectorized`` for the rule, ``ml`` (the trained
+    config #1 MLP) and ``cost`` (the trained cost model) evaluators on
+    the card with the digest ``replay_decisions`` gives on the events,
+    with every launch count set to 0 just before and read just after —
+    no kernel may launch."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        _cost_scorer_from_artifact,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.scheduler import replay, replaystore
+    from dragonfly2_tpu_torch.scheduler.controlstats import ControlPlaneStats
+    from dragonfly2_tpu_torch.scheduler.evaluator import (
+        BaseEvaluator,
+        new_evaluator,
+    )
+    from dragonfly2_tpu_torch.scheduler.loadbench import run_swarm_bench
+    from dragonfly2_tpu_torch.scheduler.replaybench import (
+        MIN_CORPUS_DECISIONS,
+    )
+    from dragonfly2_tpu_torch.scheduler.replaylog import ReplayRecorder
+    from dragonfly2_tpu_torch.scheduler.storage.storage import (
+        Storage,
+        StorageConfig,
+    )
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    t_phase = time.perf_counter()
+    storage = Storage(os.path.join(root, "sched"),
+                      StorageConfig(max_size=256 * 1024, buffer_size=25))
+    recorder = ReplayRecorder(storage)
+    rung = run_swarm_bench(RECORD_PEERS, workers=RECORD_WORKERS,
+                           recorder=recorder, cost_profile="profiled",
+                           profile_seed=SEED)
+    recorder.close()
+    t0 = time.perf_counter()
+    corpus = replay.corpus_from_storage(storage)
+    read_s = time.perf_counter() - t0
+    failures = []
+    if rung["errors"]:
+        failures.append(f"swarm errors {rung['errors']}")
+    if len(corpus) < MIN_CORPUS_DECISIONS:
+        failures.append(f"corpus {len(corpus)} < {MIN_CORPUS_DECISIONS}")
+    if not (rung["replay_decisions"] == rung["replay_finalized"]
+            == rung["decisions"] + rung["back_to_source"] == len(corpus)):
+        failures.append("decisions recorded, finalized and read back differ")
+    store = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    writer = replaystore.ReplayStoreWriter(store,
+                                           segment_decisions=RECORD_SEGMENT)
+    for start in range(0, len(corpus), RECORD_SEGMENT):
+        writer.append_batch(corpus[start:start + RECORD_SEGMENT])
+    writer.close()
+    opened = replaystore.open_dir(store)
+    pack_s = time.perf_counter() - t0
+    built = replay.as_columnar(corpus)
+    differ = [name for name in replaystore.ALL_COLUMNS
+              if not column_equal(getattr(opened, name),
+                                getattr(built, name))]
+    if differ or opened.n != len(corpus):
+        failures.append(f"packed columns differ: {differ}")
+    ml_scorer = _scorer_from_artifact(mlp_artifact_bytes)
+    cost_scorer = _cost_scorer_from_artifact(cost_artifact, version="smoke")
+    makers = {
+        "rule": lambda: BaseEvaluator(),
+        "ml": lambda: new_evaluator("ml", scorer=ml_scorer,
+                                    stats=ServingStats()),
+        "cost": lambda: new_evaluator("cost", scorer=cost_scorer,
+                                      stats=ControlPlaneStats()),
+    }
+    replays = {}
+    counts.reset()
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        seq = replay.replay_decisions(corpus, make(), name=name)
+        seq_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vec = replay.replay_decisions_vectorized(opened, make(), name=name)
+        torch.cuda.synchronize()
+        vec_s = time.perf_counter() - t0
+        scored = replay.score_run_vectorized(opened, vec)
+        replays[name] = dict(
+            digest=vec.digest, digest_equal_sequential=vec.digest
+            == seq.digest, sequential_seconds=seq_s,
+            vectorized_seconds=vec_s, regret_mean_s=scored["regret_mean_s"],
+            rank_agreement_mean=scored["rank_agreement_mean"])
+        if vec.digest != seq.digest:
+            failures.append(f"{name}: vectorized digest differs from the "
+                            "sequential one")
+    launches = counts.read()
+    if any(launches.values()):
+        failures.append(f"the recorded replays launched kernels: {launches}")
+    if len({r["digest"] for r in replays.values()}) != len(replays):
+        failures.append("two evaluators replayed the same decisions")
+    fields = dict(
+        peers=rung["peers"], workers=rung["workers"], tasks=rung["tasks"],
+        decisions=rung["decisions"], back_to_source=rung["back_to_source"],
+        replay_decisions=rung["replay_decisions"],
+        replay_finalized=rung["replay_finalized"],
+        replay_evicted=rung["replay_evicted"], dropped=recorder.dropped,
+        replay_appends_batched=rung["replay_appends_batched"],
+        replay_files=len(storage.replay.all_files()),
+        corpus_decisions=len(corpus), corpus_k=opened.k,
+        candidates=int(opened.valid.sum()),
+        segments=len(writer.segments()),
+        announce_p50_ms=rung["announce_p50_ms"],
+        announce_p99_ms=rung["announce_p99_ms"],
+        decisions_per_sec=rung["decisions_per_sec"],
+        swarm_seconds=rung["seconds"], read_seconds=read_s,
+        pack_seconds=pack_s, replays=replays, launches=launches,
+        errors=rung["errors"], seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError(f"swarm_record: {failures}; {fields}")
+    log("swarm_record", **fields)
+
+
+def run_replay_ab_phase(torch, counts) -> dict:
+    """replay_ab: ``run_replay_ab(seed=SEED, record_peers=RECORD_PEERS)``
+    on the card (record → train → gate → rule vs ``ml`` vs ``cost``) with
+    every launch count set to 0 just before and read just after — no
+    kernel may launch. It must hold the JAX package's verdict but for
+    the recorder-overhead bound (the recorder_overhead phase prints it):
+    no error, deterministic replays, both gates ``active``, ``ml`` and
+    ``cost`` regret within bound, no swarm error. Returns the launches."""
+    from dragonfly2_tpu_torch.scheduler.replaybench import run_replay_ab
+
+    counts.reset()
+    t0 = time.perf_counter()
+    report = run_replay_ab(seed=SEED, record_peers=RECORD_PEERS,
+                           workers=RECORD_WORKERS, overhead_guard=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts.read()
+    ab = report.get("ab") or {}
+    gate = report.get("gate") or {}
+    failures = []
+    if report.get("error"):
+        failures.append(f"error {report['error']}")
+    if not ab.get("deterministic"):
+        failures.append("replays not deterministic")
+    if {n: g.get("state") for n, g in gate.items()} != {
+            "cost": "active", "mlp": "active"}:
+        failures.append("a gate did not promote")
+    if report.get("regret_within_bound") != {"ml": True, "cost": True}:
+        failures.append("learned regret over its bound")
+    if (report.get("record") or {}).get("errors", ["missing"]):
+        failures.append("swarm errors")
+    if any(launches.values()):
+        failures.append(f"the replay_ab path launched kernels: {launches}")
+    evaluators = {
+        name: {key: scored.get(key) for key in (
+            "regret_mean_s", "regret_p99_s", "regret_delta_vs_baseline_s",
+            "rank_agreement_mean", "bad_node_labeled", "bad_node_tp",
+            "bad_node_fp", "bad_node_fn", "bad_node_tn",
+            "bad_node_precision", "bad_node_recall",
+            "decision_latency_p50_ms", "decision_latency_p99_ms",
+            "deterministic", "digest")}
+        for name, scored in (ab.get("evaluators") or {}).items()}
+    fields = dict(
+        record=report.get("record"), train=report.get("train"),
+        gate={name: {"state": g.get("state"), "validation": {
+            key: (g.get("validation") or {}).get(key) for key in (
+                "passed", "rank_correlation", "max_batch_latency_s",
+                "batches", "scored_rows", "trace_source", "reasons")}}
+            for name, g in gate.items()},
+        evaluators=evaluators, deterministic=ab.get("deterministic"),
+        regret_within_bound=report.get("regret_within_bound"),
+        regret_bounds=report.get("regret_bounds"),
+        verdict_pass_without_overhead=report.get("verdict_pass"),
+        launches=launches, phase_seconds=report.get("seconds"),
+        seconds=seconds, error=report.get("error"))
+    if failures:
+        raise AssertionError(f"replay_ab: {failures}; {fields}")
+    log("replay_ab", **fields)
+    return launches
+
+
+def run_swarm_ladder_phase() -> None:
+    """swarm_ladder: ``run_swarm_ladder(SWARM_LADDER_SIZES,
+    workers=SWARM_LADDER_WORKERS)`` — no rung may report a swarm error;
+    the largest rung's announce p99 over the smallest's is printed with
+    the 4 x bound's verdict, which decides nothing here (a limit on the
+    host's speed, set on another machine)."""
+    from dragonfly2_tpu_torch.scheduler.loadbench import run_swarm_ladder
+
+    t0 = time.perf_counter()
+    out = run_swarm_ladder(SWARM_LADDER_SIZES, workers=SWARM_LADDER_WORKERS)
+    rungs = {size: {key: rung[key] for key in (
+        "peers", "tasks", "peers_per_task", "workers", "seconds",
+        "announce_p50_ms", "announce_p99_ms", "decisions",
+        "decisions_per_sec", "piece_reports_per_sec", "back_to_source",
+        "filter_ms_p99", "evaluate_ms_p99", "gc_ticks",
+        "gc_budget_overruns", "gc_reclaimed", "gc_pause_p50_ms",
+        "gc_pause_p99_ms", "bytes_per_peer", "errors")}
+        for size, rung in out["ladder"].items()}
+    errors = {size: r["errors"] for size, r in rungs.items() if r["errors"]}
+    fields = dict(rungs=rungs, decision_p99_ratio=out["decision_p99_ratio"],
+                  ladder_p99_bound=out["ladder_p99_bound"],
+                  p99_within_bound=out["p99_within_bound"],
+                  bound_decides_exit=False,
+                  seconds=time.perf_counter() - t0)
+    if errors:
+        raise AssertionError(f"swarm_ladder: swarm errors {errors}; {fields}")
+    log("swarm_ladder", **fields)
+
+
+def run_recorder_overhead_phase() -> None:
+    """recorder_overhead: ``run_recorder_overhead_guard()`` — announce p99
+    with the recorder on against off, best of the interleaved
+    repetitions, and its retry; printed with the 1.05 x bound's verdict,
+    which decides nothing here (a limit on the host's speed)."""
+    from dragonfly2_tpu_torch.scheduler.loadbench import (
+        run_recorder_overhead_guard,
+    )
+
+    t0 = time.perf_counter()
+    guard = run_recorder_overhead_guard()
+    log("recorder_overhead", **guard, bound_decides_exit=False,
+        seconds=time.perf_counter() - t0)
 
 
 class HealthLog:
@@ -6967,6 +7229,19 @@ def main() -> int:
     finally:
         shutil.rmtree(replay_tmp, ignore_errors=True)
 
+    # -- phase 13c: the replay plane's recording half, slice 18 -------------
+    record_tmp = tempfile.mkdtemp(prefix="smoke-record-")
+    try:
+        t0 = time.perf_counter()
+        run_swarm_record(torch, record_tmp, mlp_artifact_bytes,
+                         cost_artifact, counts)
+        replay_ab_launches = run_replay_ab_phase(torch, counts)
+        run_swarm_ladder_phase()
+        run_recorder_overhead_phase()
+        log("recording_phases", seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(record_tmp, ignore_errors=True)
+
     # -- phase 14: the training orchestrator, slice 11's path ---------------
     training_launches, training_predicted, training_evals = run_training(
         torch, mlp_x, mlp_y, counts)
@@ -7003,6 +7278,7 @@ def main() -> int:
                    "train_mlp": mlp_launches[row["name"]],
                    "train_cost": cost_launches[row["name"]],
                    "replay": replay_launches[row["name"]],
+                   "replay_ab": replay_ab_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "federated": federated_launches[row["name"]],

@@ -1,2 +1,4 @@
-"""Scheduler-side pieces the learned evaluators need: the evaluators,
-their counters, and the replay plane's row helpers."""
+"""The scheduler: the in-process service, its resources and scheduling
+core, the evaluators and their counters, and the replay plane (the
+announce-stream recorder, the columnar store, the replay engine and its
+benches)."""

@@ -1,6 +1,19 @@
-"""Replay-plane bench helpers — port of
-``dragonfly2_tpu/scheduler/replaybench.py`` without the swarm.
+"""Replay-plane bench — port of ``dragonfly2_tpu/scheduler/replaybench.py``.
 
+- :func:`run_replay_ab`: the recorded A/B, four phases. **Record**: a
+  profiled-cost swarm (``loadbench.run_swarm_bench``) through the real
+  ``SchedulerService`` with the announce-stream recorder
+  (``replaylog.ReplayRecorder``) into a rotating scheduler-storage
+  ``replay`` dataset, read back from disk. **Train**: the learned cost
+  model and a bandwidth MLP on the corpus's (features → realized cost)
+  examples, on ``device``. **Gate**: both artifacts through the
+  registry's validation gate, replaying the feature traces of this
+  swarm, the candidates built on ``device``. **A/B**: the corpus
+  replayed through rule vs ``ml`` vs ``cost`` (each twice: the same
+  corpus and seed must give the same decisions), plus the recorder
+  overhead guard;
+- :func:`check_replay_regression`: a fresh A/B held to the stage's
+  absolute bounds, and the ladder half (:func:`ladder_regression`);
 - :func:`synth_replay_corpus`: a deterministic synthetic columnar corpus
   built with whole-corpus numpy ops, column for column the JAX
   package's for the same size and seed;
@@ -8,20 +21,24 @@
   sequential vs vectorized decisions/s of the rule evaluator over
   synthetic corpora, with bit-identical digests on every rung;
 - the persisted-record readers (:func:`best_recorded_replay_run`,
-  :func:`best_recorded_replay_ladder`) and the ladder half of the
-  regression check (:func:`ladder_regression`), with the stage's regret
-  bounds.
+  :func:`best_recorded_replay_ladder`).
 
 The ladder replays with the rule evaluator only, whose scores are numpy
 on the host: its ``VECTORIZED_SPEEDUP_BOUND`` is a limit on the host's
-speed. The recorded A/B (``run_replay_ab``: the announce-stream
-recorder over a swarm, training, the gate, the evaluators head to head)
-and the regression check's fresh A/B are not ported.
+speed, as the recorder guard's 5 % announce-p99 bound is.
+
+One deliberate difference from the JAX package: ``run_replay_ab`` folds
+an exception into ``report["error"]`` only when it is the data's or the
+artifact's fault; a fault of the card
+(:func:`~dragonfly2_tpu_torch.device.is_device_fault`) propagates, as it
+does from the registry's gate.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -44,6 +61,205 @@ def _regret_within_bound(candidate: Optional[float],
         return None
     return candidate <= baseline + max(REGRET_REL_BOUND * abs(baseline),
                                        REGRET_ABS_BOUND_S)
+
+
+def run_replay_ab(*, seed: int = 0, record_peers: int = 600,
+                  workers: int = 4, overhead_guard: bool = True,
+                  device=None) -> Dict[str, object]:
+    """The recorded A/B (module docstring). ``device=None`` trains, gates
+    and scores on the card. The report is the JAX package's, plus
+    ``seconds``: the wall time of each phase (``record``, ``train``,
+    ``gate``, ``ab``, ``overhead``)."""
+    from dragonfly2_tpu_torch.device import is_device_fault
+    from dragonfly2_tpu_torch.inference.scorer import (
+        LearnedCostEvaluator,
+        MLEvaluator,
+    )
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        MODEL_NAME_COST,
+        MODEL_NAME_MLP,
+        _cost_scorer_from_artifact,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.scheduler import replay as rp
+    from dragonfly2_tpu_torch.scheduler.evaluator import BaseEvaluator
+    from dragonfly2_tpu_torch.scheduler.loadbench import (
+        run_recorder_overhead_guard,
+        run_swarm_bench,
+    )
+    from dragonfly2_tpu_torch.scheduler.replaylog import ReplayRecorder
+    from dragonfly2_tpu_torch.scheduler.storage.storage import (
+        Storage,
+        StorageConfig,
+    )
+    from dragonfly2_tpu_torch.train.checkpoint import (
+        ModelMetadata,
+        mlp_tree,
+        save_model,
+    )
+    from dragonfly2_tpu_torch.train.cost_trainer import (
+        CostTrainConfig,
+        cost_examples_from_corpus,
+        cost_tree,
+        train_cost,
+    )
+    from dragonfly2_tpu_torch.train.mlp_trainer import (
+        MLPTrainConfig,
+        train_mlp,
+    )
+
+    report: Dict[str, object] = {"seed": seed, "record_peers": record_peers}
+    seconds: Dict[str, float] = {}
+    report["seconds"] = seconds
+    workdir = tempfile.mkdtemp(prefix="df2-replaybench-")
+    evaluators: Dict[str, object] = {}
+    try:
+        # -- phase 1: record ------------------------------------------------
+        t0 = time.perf_counter()
+        storage = Storage(os.path.join(workdir, "sched"),
+                          StorageConfig(max_size=256 * 1024, buffer_size=25))
+        recorder = ReplayRecorder(storage)
+        rung = run_swarm_bench(record_peers, workers=workers,
+                               recorder=recorder, cost_profile="profiled",
+                               profile_seed=seed)
+        # run_swarm_bench already finalized + flushed the recorder.
+        recorder.close()
+        corpus = rp.corpus_from_storage(storage)
+        report["record"] = {
+            "decisions": rung["decisions"],
+            "replay_decisions": rung["replay_decisions"],
+            "replay_finalized": rung["replay_finalized"],
+            "replay_files": len(storage.replay.all_files()),
+            "corpus_decisions": len(corpus),
+            "errors": rung["errors"],
+        }
+        seconds["record"] = time.perf_counter() - t0
+        if len(corpus) < MIN_CORPUS_DECISIONS:
+            report["error"] = (f"corpus too small: {len(corpus)} < "
+                               f"{MIN_CORPUS_DECISIONS}")
+            report["verdict_pass"] = False
+            return report
+
+        # -- phase 2: train -------------------------------------------------
+        t0 = time.perf_counter()
+        X, y = cost_examples_from_corpus(corpus)
+        report["train"] = {"examples": int(len(X))}
+        cost_result = train_cost(
+            X, y, CostTrainConfig(hidden=(32, 16), epochs=25,
+                                  batch_size=512, seed=seed), device)
+        report["train"]["cost_mae_s"] = round(cost_result.mae, 5)
+        # Bandwidth twin for the ML evaluator: same features, realized
+        # MB/s label (piece length is 4 MiB in the loadbench swarm).
+        piece_mb = 4.0
+        y_bw = piece_mb / np.maximum(y, 1e-4)
+        mlp_result = train_mlp(
+            X, y_bw.astype(np.float32),
+            MLPTrainConfig(hidden=(32, 16), epochs=25, batch_size=512,
+                           seed=seed), device)
+        report["train"]["mlp_rmse_mb_s"] = round(mlp_result.mse ** 0.5, 4)
+        report["train"]["mlp_mae_mb_s"] = round(mlp_result.mae, 4)
+        seconds["train"] = time.perf_counter() - t0
+
+        # -- phase 3: gate --------------------------------------------------
+        t0 = time.perf_counter()
+        manager = ManagerService(
+            Database(os.path.join(workdir, "manager.db")),
+            FilesystemObjectStore(os.path.join(workdir, "objects")),
+            validation=ValidationConfig(), device=device)
+        traces = [np.stack([rp._row_array(c) for c in e.candidates])
+                  for e in corpus if e.candidates]
+        gate: Dict[str, object] = {}
+        for name, tree, evaluation, hidden in (
+            (MODEL_NAME_COST, cost_tree(cost_result),
+             {"mse": cost_result.mse, "mae": cost_result.mae,
+              "n_samples": cost_result.n_samples}, (32, 16)),
+            (MODEL_NAME_MLP,
+             mlp_tree(mlp_result.params, mlp_result.normalizer,
+                      mlp_result.target_norm),
+             {"mse": mlp_result.mse, "mae": mlp_result.mae,
+              "n_samples": int(len(X))}, (32, 16)),
+        ):
+            art_dir = os.path.join(workdir, f"artifact-{name}")
+            save_model(art_dir, tree, ModelMetadata(
+                model_id=f"replay-{name}", model_type=name,
+                evaluation=dict(evaluation),
+                config={"hidden": list(hidden)}))
+            row = manager.create_model(
+                model_id=f"replay-{name}", model_type=name,
+                host_id="replay-bench", ip="127.0.0.1",
+                hostname="replaybench", evaluation=dict(evaluation),
+                artifact_dir=art_dir, scheduler_id=0, traces=traces)
+            gate[name] = {
+                "state": row.state,
+                "version": row.version,
+                "validation": (row.evaluation or {}).get("validation"),
+            }
+        report["gate"] = gate
+        gates_green = all(g["state"] == "active" for g in gate.values())
+        seconds["gate"] = time.perf_counter() - t0
+
+        # -- phase 4: A/B ---------------------------------------------------
+        t0 = time.perf_counter()
+        evaluators["rule"] = BaseEvaluator()
+        if gate[MODEL_NAME_MLP]["state"] == "active":
+            active = manager.get_active_model(MODEL_NAME_MLP)
+            evaluators["ml"] = MLEvaluator(
+                _scorer_from_artifact(active.artifact, device=device))
+        if gate[MODEL_NAME_COST]["state"] == "active":
+            active = manager.get_active_model(MODEL_NAME_COST)
+            evaluators["cost"] = LearnedCostEvaluator(
+                _cost_scorer_from_artifact(active.artifact,
+                                           version=active.version,
+                                           device=device))
+        ab = rp.replay_ab(corpus, evaluators, seed=seed)
+        report["ab"] = ab
+        seconds["ab"] = time.perf_counter() - t0
+
+        if overhead_guard:
+            t0 = time.perf_counter()
+            report["recorder_overhead"] = run_recorder_overhead_guard()
+            seconds["overhead"] = time.perf_counter() - t0
+
+        # -- verdict --------------------------------------------------------
+        scored = ab["evaluators"]
+        rule_regret = scored.get("rule", {}).get("regret_mean_s")
+        regret_ok: Dict[str, object] = {}
+        for name in ("ml", "cost"):
+            regret_ok[name] = _regret_within_bound(
+                scored.get(name, {}).get("regret_mean_s"), rule_regret)
+        report["regret_within_bound"] = regret_ok
+        report["regret_bounds"] = {"relative": REGRET_REL_BOUND,
+                                   "absolute_s": REGRET_ABS_BOUND_S}
+        overhead_ok = (report["recorder_overhead"]["within_bound"]
+                       if overhead_guard else True)
+        report["verdict_pass"] = bool(
+            ab["deterministic"]
+            and gates_green
+            and all(v is True for v in regret_ok.values())
+            and overhead_ok
+            and not rung["errors"])
+        return report
+    except Exception as exc:  # noqa: BLE001 — the stage must report
+        if is_device_fault(exc):
+            raise
+        report["error"] = f"{type(exc).__name__}: {exc}"
+        report["verdict_pass"] = False
+        return report
+    finally:
+        for ev in evaluators.values():
+            close = getattr(ev, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:  # noqa: BLE001
+                    pass
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def best_recorded_replay_run(state_dir: str):
@@ -78,6 +294,32 @@ def best_recorded_replay_run(state_dir: str):
     if best is not None:
         best.pop("_key")
     return best
+
+
+def check_replay_regression(state_dir: str,
+                            device=None) -> Dict[str, object]:
+    """``bench.py replay --check-regression``: a fresh (smaller) A/B
+    must hold the stage's ABSOLUTE bounds — determinism, both gates
+    promoting, regret within the documented delta of rule, recorder
+    overhead within 5% — like the mlguard gate; the best record rides
+    along for trend reading. The throughput ladder joins the gate
+    (:func:`ladder_regression`)."""
+    fresh = run_replay_ab(record_peers=400, device=device)
+    ladder = ladder_regression(state_dir)
+    return {
+        "fresh_verdict_pass": fresh.get("verdict_pass"),
+        "fresh_deterministic": (fresh.get("ab") or {}).get("deterministic"),
+        "fresh_regret": {
+            name: (scored or {}).get("regret_mean_s")
+            for name, scored in
+            ((fresh.get("ab") or {}).get("evaluators") or {}).items()},
+        "fresh_error": fresh.get("error"),
+        "best_recorded": best_recorded_replay_run(state_dir),
+        **ladder,
+        "passed": bool(fresh.get("verdict_pass")
+                       and ladder["ladder_digests_ok"]
+                       and ladder["ladder_throughput_ok"]),
+    }
 
 
 def ladder_regression(state_dir: str) -> Dict[str, object]:

@@ -40,6 +40,7 @@ COPIES = [
     "scheduler/scheduling/__init__.py", "scheduler/scheduling/core.py",
     "scheduler/storage/__init__.py",
     "scheduler/replaystore.py",
+    "scheduler/replaylog.py", "scheduler/loadbench.py",
 ]
 
 

@@ -162,6 +162,8 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.scheduler.replaybench",
         "dragonfly2_tpu_torch.cmd",
         "dragonfly2_tpu_torch.cmd.replaytool",
+        # slice 18: the swarm driver beside the recorder
+        "dragonfly2_tpu_torch.scheduler.loadbench",
     }
     assert expected <= set(probe["imported"])
 

@@ -4,7 +4,10 @@ import system refuses those packages (and ``dragonfly2_tpu``) drives the
 whole slice on the CPU at test size — synthetic corpus, segment writer,
 ``open_dir``, ``check_corpus``, the sequential and vectorized ``ml`` and
 ``cost`` replays through the sidecar's artifact loaders,
-``score_run_vectorized``, and the ``df2-replay`` tool.
+``score_run_vectorized``, and the ``df2-replay`` tool; and the recording
+half: the recorded A/B (``run_replay_ab``: swarm, recorder, rotating
+dataset, training, the gate, rule vs ``ml`` vs ``cost``), the scheduler
+ladder and the recorder-overhead guard at test size.
 
 ``tests/test_torch_isolation.py`` sees module-level imports only; a
 function-level import of a refused package fails here.
@@ -20,7 +23,7 @@ REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "grpc", "pyarrow",
            "pandas", "psutil", "prometheus_client", "tensorstore",
            "dragonfly2_tpu")
 
-_SCRIPT = r"""
+_PRELUDE = r"""
 import importlib.abc, json, os, sys, tempfile
 
 REFUSED = set(json.loads(sys.argv[1]))
@@ -35,8 +38,16 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 
-sys.meta_path.insert(0, Refuse())
+# torch's optimizers load torch._dynamo on first use, whose trace rules
+# probe optional packages (pandas among them) with importlib's find_spec:
+# on a machine without them the probe answers None, which a refusing
+# finder cannot imitate. Load it first; the port's own imports follow.
+import torch._dynamo  # noqa: E402,F401
 
+sys.meta_path.insert(0, Refuse())
+"""
+
+_SCRIPT = _PRELUDE + r"""
 import numpy as np
 import torch
 
@@ -129,13 +140,40 @@ print(json.dumps(out))
 """
 
 
-def test_replay_slice_runs_without_the_missing_packages():
+_RECORDING = _PRELUDE + r"""
+import torch
+
+torch.set_num_threads(1)
+from dragonfly2_tpu_torch.scheduler.loadbench import (
+    run_recorder_overhead_guard, run_swarm_ladder)
+from dragonfly2_tpu_torch.scheduler.replaybench import run_replay_ab
+
+ab = run_replay_ab(record_peers=150, workers=2, overhead_guard=False,
+                   device="cpu")
+ladder = run_swarm_ladder((20, 60), workers=2)
+guard = run_recorder_overhead_guard(n_peers=40, reps=1, retry_reps=0)
+print(json.dumps({
+    "error": ab.get("error"), "record": ab.get("record"),
+    "gates": {n: g["state"] for n, g in (ab.get("gate") or {}).items()},
+    "evaluators": sorted((ab.get("ab") or {}).get("evaluators") or {}),
+    "deterministic": (ab.get("ab") or {}).get("deterministic"),
+    "rungs": sorted(ladder["ladder"]),
+    "ladder_errors": [r["errors"] for r in ladder["ladder"].values()],
+    "guard_keys": sorted(guard), "attempts": attempts}))
+"""
+
+
+def run_refusing(script: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, json.dumps(REFUSED)], cwd=REPO,
+        [sys.executable, "-c", script, json.dumps(REFUSED)], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_replay_slice_runs_without_the_missing_packages():
+    out = run_refusing(_SCRIPT)
     assert out["segments"] == 3
     assert out["checks_ok"] and out["columns_equal"]
     assert out["cost_examples"] > 1000
@@ -146,4 +184,24 @@ def test_replay_slice_runs_without_the_missing_packages():
     assert out["ml"]["differs_from_rule"] and out["cost"]["differs_from_rule"]
     assert out["ladder_digests_equal"] is True
     assert out["tool"] == [0, 0, 0]
+    assert out["attempts"] == []
+
+
+def test_recording_half_runs_without_the_missing_packages():
+    out = run_refusing(_RECORDING)
+    assert out["error"] is None
+    assert out["record"]["corpus_decisions"] == 150
+    assert out["record"]["errors"] == []
+    # A gate's verdict on a 150-peer corpus may go either way (the MLP's
+    # rank-correlation floor); what matters here is that it was reached.
+    assert set(out["gates"]) == {"cost", "mlp"}
+    assert set(out["gates"].values()) <= {"active", "quarantined"}
+    names = {"cost": "cost", "mlp": "ml"}
+    assert out["evaluators"] == sorted(
+        ["rule"] + [names[n] for n, state in out["gates"].items()
+                    if state == "active"])
+    assert out["deterministic"] is True
+    assert out["rungs"] == ["20", "60"]
+    assert out["ladder_errors"] == [[], []]
+    assert {"p99_ratio", "bound", "within_bound"} <= set(out["guard_keys"])
     assert out["attempts"] == []

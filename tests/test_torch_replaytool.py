@@ -243,7 +243,8 @@ def test_best_recorded_runs_equal_to_jax(state_dir, tmp_path_factory):
 @pytest.mark.parametrize("record", ["unreachable", "reachable", "none"])
 def test_ladder_regression_equals_jax_check(monkeypatch, tmp_path, record):
     """The ladder keys of JAX's ``check_replay_regression`` (its fresh
-    A/B swapped for a canned report: the swarm is not ported)."""
+    A/B swapped for a canned report: only the ladder half is compared
+    here)."""
     if record != "none":
         rate = 1e12 if record == "unreachable" else 1.0
         write_json(tmp_path / "replay_ladder_run_x.json", {
