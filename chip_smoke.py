@@ -13,7 +13,9 @@ rule, ``ml`` and ``cost`` evaluators in batch, record a profiled swarm
 through the scheduler's announce-stream recorder and run the recorded
 A/B (train, gate, rule vs ``ml`` vs ``cost``) on it, run the
 trainer's ``Training`` orchestrator from CSV dataset segments to the
-gated registry, run federated multi-cluster training (BASELINE
+gated registry, let 16 daemons probe each other live and upload the
+scheduler's datasets through the announcer to the trainer service, which
+trains and registers them, run federated multi-cluster training (BASELINE
 config #4) through the crash-safe coordinator to a gated global model,
 and train configs #1-#3 and the orchestrator data-parallel over
 ``torch.distributed`` ranks, and fan a Llama-3-8B safetensors shard
@@ -237,6 +239,25 @@ Phases (any failure exits nonzero, before the final line):
    each job's samples/s; then training_to_serve: an ``InferenceService``
    whose ``reload_from_manager`` installs the gate-activated ``gat``
    version, and one ModelInfer with finite scores;
+14b. probe_loop, the slice 19 path (the ML loop's collection half): 16
+   port daemons on one in-process ``SchedulerService`` (a
+   ``NetworkTopologyStore`` over its dataset storage, a
+   ``ReplayRecorder`` on its scheduling core), each ``Prober`` TCP-
+   pinging its candidates every 0.05 s for 5 s while every daemon
+   downloads 4 files of 4 MiB from a local origin in waves (1, 3, 12);
+   4 snapshots of the store → the topology, download and replay
+   datasets → ``Announcer.train()`` (64 KiB chunks) → the port's
+   ``TrainerService.Train`` → ``Training.train`` with the training
+   phase's jobs at their published widths → the gating
+   ``ManagerService`` → ``reload_from_manager`` → ModelInfer on every
+   installed version, with every launch count set to 0 just before the
+   upload and read after the last ModelInfer — exactly the training
+   part's predicted launches on the loop's graph plus one K1 a layer for
+   the reload — every prober reporting, no failed probe, no probe cycle
+   raising, every host in the store, the accepted bytes the snapshot's,
+   no dataset or segment left, no job error, every registry row with
+   the announcer's host and scheduler id, the ``gat`` version active and
+   its served scores within MODE_TOL of the plain twin's on the card;
 15. federated training, the slice 12 path (BASELINE config #4), after a
    check that the profiler's kernel count sees K2a launches
    (profiler_check: of PROFILER_CHECK launches, how many it recorded):
@@ -302,7 +323,8 @@ Phases (any failure exits nonzero, before the final line):
    without an exchange), then PAR_WORLD gloo ranks spawned once on the
    one card: ring_gat_ranks (config #3 in ring mode, rows padded to
    20 480 and sharded 10 240 a rank, K/V blocks around the ring, the
-   embeddings all-gathered for the pair head, one epoch of 59 steps:
+   embeddings all-gathered for the pair head, one epoch of 29 steps at
+   batch WORLD_GAT_BATCH:
    equal digests, the loss and F1 gaps to the world of one, the trained
    weights' embeddings against blocks mode's, rank 0's artifact served
    in a world of one through K1 and ``InferenceService``, every rank's
@@ -445,6 +467,11 @@ DENSE_SCORES_BYTES = LONG_T * LONG_T * 4
 TRAIN_CFG = dict(hidden=128, embed=64, layers=2, heads=4, neighbor_cap=64,
                  edge_batch_size=8192, eval_fraction=0.02, epochs=8,
                  max_seconds=60)
+# The worlds of ring_gat_ranks and tp_grid, and their world-of-one
+# references, train config #3 for one epoch at twice this batch: 29
+# steps instead of 59. Their step is a full-graph pass whatever the
+# batch, so the spawned worlds' runs take about half as long.
+WORLD_GAT_BATCH = 2 * TRAIN_CFG["edge_batch_size"]
 # Blocks mode trains the same run (rows padded to the 1024-row chunks)
 # and must land within the CPU parity tests' F1 and accuracy band
 # (tests/test_torch_train.py) of gather mode's on the same split.
@@ -584,6 +611,31 @@ TRAINING_MLP_CFG = dict(hidden=(128, 128, 64), batch_size=16384,
                         epochs=TRAINING_MLP_EPOCHS)
 TRAINING_IP, TRAINING_HOSTNAME = "10.0.0.1", "scheduler-1"
 TRAINING_HOST_ID, TRAINING_SCHEDULER_ID = "scheduler-host-1", 1
+# The ML loop's collection half (slice 19), phase "probe_loop":
+# PROBE_DAEMONS port daemons on one in-process SchedulerService whose
+# topology store writes into its dataset storage and whose scheduling
+# core records decisions, each daemon's prober ticking every
+# PROBE_INTERVAL_S (TCP connects to the candidates' upload ports, at most
+# PROBE_TIMEOUT_S each) for at least PROBE_SECONDS, PROBE_SNAPSHOTS
+# snapshots of the store spread over that window; meanwhile each of
+# PROBE_FILES files of PROBE_FILE_BYTES is downloaded from a local origin
+# by every daemon in PROBE_WAVES (one back to source, then 3, then the
+# other 12 from parents). The announcer uploads the three datasets in
+# PROBE_UPLOAD_CHUNK chunks to the port's TrainerService, which trains
+# training_config()'s jobs at their published widths and epochs: on this
+# 16-host graph an epoch is one step of each graph job.
+PROBE_DAEMONS = 16
+PROBE_INTERVAL_S = 0.05
+PROBE_TIMEOUT_S = 0.5
+PROBE_SECONDS = 5.0
+PROBE_SNAPSHOTS = 4
+PROBE_FILES = 4
+PROBE_FILE_BYTES = 4 << 20
+PROBE_WAVES = (1, 3, 12)
+PROBE_UPLOAD_CHUNK = 64 << 10
+PROBE_DOWNLOAD_TIMEOUT_S = 120
+PROBE_IP, PROBE_HOSTNAME, PROBE_PORT = "10.0.0.2", "scheduler-2", 8002
+PROBE_HOST_ID, PROBE_SCHEDULER_ID = "scheduler-host-2", 2
 # Federated training (slice 12, BASELINE config #4). Phase "federated"
 # runs the port's fedbench at the JAX bench's own settings
 # (run_federated_bench's defaults: 3 clusters x 300 decisions, a
@@ -4283,6 +4335,422 @@ def run_training(torch, mlp_x, mlp_y, counts) -> dict:
     return launches, predicted, evaluations
 
 
+class LoopTrainerClient:
+    """The announcer's trainer client: the port's ``TrainerService``
+    called in process. Keeps the summed size of the snapshot's files,
+    which the announcer has frozen when it calls ``train``."""
+
+    def __init__(self, service, storage):
+        self.service = service
+        self.storage = storage
+        self.snapshot_bytes = None
+
+    def train(self, requests):
+        from dragonfly2_tpu_torch.rpc.status import CallContext
+
+        self.snapshot_bytes = sum(
+            os.path.getsize(path) for dataset in (
+                self.storage.download, self.storage.network_topology,
+                self.storage.replay) for path in dataset.all_files())
+        return self.service.Train(requests, CallContext())
+
+
+class LoopTraining:
+    """``Training`` behind the trainer service, keeping its outcome (the
+    service logs job errors and goes on) and the closed segments it
+    trains from."""
+
+    def __init__(self, training, storage):
+        self.training = training
+        self.storage = storage
+        self.outcome = None
+        self.segments = []
+
+    def train(self, ip, hostname, host_id, scheduler_id=0):
+        self.segments = [path for files in self.storage.snapshot(host_id)
+                         for path in files]
+        self.outcome = self.training.train(ip, hostname, host_id,
+                                           scheduler_id)
+        return self.outcome
+
+
+def plain_gat_scorer(artifact: bytes):
+    """The artifact's scorer built with K1 swapped for its plain twin,
+    ``graph_flash_attention_plain``, on the same card: the same weights
+    and inputs, the embedding pass in plain PyTorch."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        _gat_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.models import graph_transformer
+    from dragonfly2_tpu_torch.ops.flash_attention import (
+        graph_flash_attention_plain,
+    )
+
+    kernel = graph_transformer.graph_flash_attention
+    graph_transformer.graph_flash_attention = (
+        lambda q, k, v, nbr, val, block, inv=None:
+        graph_flash_attention_plain(q, k, v, nbr, val, block))
+    try:
+        return _gat_scorer_from_artifact(artifact)
+    finally:
+        graph_transformer.graph_flash_attention = kernel
+
+
+def probe_downloads(daemons, url: str, first: int) -> list:
+    """Every daemon downloads ``url`` in PROBE_WAVES, starting at daemon
+    ``first``: one back to source, then each wave at once from the
+    parents before it. Returns each wave's seconds."""
+    import threading
+
+    order = daemons[first:] + daemons[:first]
+    seconds, start = [], 0
+    for size in PROBE_WAVES:
+        wave, start = order[start:start + size], start + size
+        results = [None] * len(wave)
+
+        def fetch(i, daemon):
+            results[i] = daemon.download_file(url)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=fetch, args=(i, d), daemon=True)
+                   for i, d in enumerate(wave)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=PROBE_DOWNLOAD_TIMEOUT_S)
+        seconds.append(time.perf_counter() - t0)
+        failed = [(d.config.hostname, r and r.error)
+                  for d, r in zip(wave, results) if not (r and r.success)]
+        if failed:
+            raise AssertionError(f"probe_loop downloads failed: {failed}")
+    return seconds
+
+
+def run_probe_loop(torch, counts) -> dict:
+    """The ML loop's collection half, slice 19's path: PROBE_DAEMONS port
+    daemons probing each other live (``Prober`` → ``netping`` →
+    ``probe_finished`` → the store's queues → ``snapshot()`` → the
+    topology dataset) while they download files in waves (``Download``
+    records, and the recorder's ``replay`` decisions) → ``Announcer.train``
+    → the port's ``TrainerService.Train`` (``train_async=False``) →
+    ``Training.train`` with ``training_config()`` on the card → the
+    gating ``ManagerService`` → ``reload_from_manager`` → ModelInfer on
+    every installed version. Every launch count is set to 0 just before
+    the upload and read after the last ModelInfer: exactly the training
+    part's ``predicted_training_launches`` on the graph the loop made,
+    plus one K1 forward a layer for the reload's ``gat`` build. Fails on
+    a prober that did not build or report, a failed probe between live
+    daemons, a probe cycle's exception, a host missing from the store,
+    accepted bytes other than the snapshot's, a dataset or segment left,
+    a job error, a registry row without the announcer's host and
+    scheduler id, a gate that quarantined the ``gat`` version, or served
+    ``gat`` scores off the plain twin's by more than MODE_TOL. Returns
+    the launches."""
+    import logging
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dragonfly2_tpu_torch.client.daemon import Daemon, DaemonConfig
+    from dragonfly2_tpu_torch.client.networktopology import Prober
+    from dragonfly2_tpu_torch.data.features import (
+        graph_from_table,
+        pair_examples_from_table,
+    )
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.scheduler.announcer import (
+        Announcer,
+        AnnouncerConfig,
+    )
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import BaseEvaluator
+    from dragonfly2_tpu_torch.scheduler.networktopology.store import (
+        NetworkTopologyConfig,
+        NetworkTopologyStore,
+    )
+    from dragonfly2_tpu_torch.scheduler.replaylog import ReplayRecorder
+    from dragonfly2_tpu_torch.scheduler.resource.resource import Resource
+    from dragonfly2_tpu_torch.scheduler.scheduling.core import (
+        Scheduling,
+        SchedulingConfig,
+    )
+    from dragonfly2_tpu_torch.scheduler.service import SchedulerService
+    from dragonfly2_tpu_torch.scheduler.storage.storage import Storage
+    from dragonfly2_tpu_torch.schema import Download, NetworkTopology
+    from dragonfly2_tpu_torch.schema.io import records_to_table
+    from dragonfly2_tpu_torch.train.cost_trainer import (
+        MIN_COST_EXAMPLES,
+        cost_examples_from_corpus,
+    )
+    from dragonfly2_tpu_torch.trainer import (
+        TrainerService,
+        TrainerStorage,
+        Training,
+    )
+
+    class CycleErrors(logging.Handler):
+        """A probe cycle's exception: the ticker logs it and goes on."""
+
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(f"{record.getMessage()}: "
+                                 f"{record.exc_info and record.exc_info[1]!r}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-probe-loop-")
+    probe_log = logging.getLogger(
+        "dragonfly2_tpu_torch.client.networktopology")
+    cycle_errors = CycleErrors()
+    probe_log.addHandler(cycle_errors)
+    daemons, recorder, service = [], None, None
+    failures, host_s = [], {}
+    try:
+        resource = Resource()
+        storage = Storage(os.path.join(tmp, "datasets"))
+        recorder = ReplayRecorder(storage)
+        store = NetworkTopologyStore(NetworkTopologyConfig(),
+                                     resource=resource, storage=storage)
+        scheduler = SchedulerService(
+            resource=resource,
+            scheduling=Scheduling(BaseEvaluator(), SchedulingConfig(
+                retry_interval=0.01, retry_back_to_source_limit=2),
+                recorder=recorder),
+            storage=storage, network_topology=store)
+        t0 = time.perf_counter()
+        for i in range(PROBE_DAEMONS):
+            daemon = Daemon(scheduler, DaemonConfig(
+                storage_root=os.path.join(tmp, f"peer-{i}"),
+                hostname=f"peer-{i}", idc=f"idc-{i % 4}",
+                location=f"region-{i % 2}|zone-{i % 4}",
+                probe_interval=PROBE_INTERVAL_S,
+                probe_timeout=PROBE_TIMEOUT_S))
+            daemon.start()
+            daemons.append(daemon)
+            if not isinstance(daemon.prober, Prober):
+                raise AssertionError(f"peer-{i}: no prober ({daemon.prober})")
+        t_probing = time.perf_counter()
+        host_s["start_daemons"] = t_probing - t0
+
+        origin_dir = os.path.join(tmp, "origin")
+        os.makedirs(origin_dir)
+        for f in range(PROBE_FILES):
+            with open(os.path.join(origin_dir, f"blob-{f}.bin"), "wb") as out:
+                out.write(np.random.default_rng((SEED, f)).bytes(
+                    PROBE_FILE_BYTES))
+        wave_s = []
+        with OriginServer(origin_dir) as origin:
+            for f in range(PROBE_FILES):
+                wave_s.append(probe_downloads(
+                    daemons, origin.url(f"blob-{f}.bin"),
+                    f * PROBE_DAEMONS // PROBE_FILES))
+        host_s["downloads"] = time.perf_counter() - t_probing
+        snapshots = []
+        for n in range(1, PROBE_SNAPSHOTS + 1):
+            time.sleep(max(0.0, t_probing + n * PROBE_SECONDS
+                           / PROBE_SNAPSHOTS - time.perf_counter()))
+            snapshots.append(store.snapshot())
+        for daemon in daemons:
+            daemon.prober.stop()
+        host_s["probing"] = time.perf_counter() - t_probing
+        recorder.finalize_all()
+        recorder.flush()
+
+        ids = [d.host_id for d in daemons]
+        reported = {d.config.hostname: {
+            outcome: d.metrics.probe_count.labels(outcome=outcome).get()
+            for outcome in ("ok", "failed")} for d in daemons}
+        edges = dict(store._edges)
+        rtts = np.array([p.rtt for e in edges.values() for p in e.queue])
+        sources = {src for src, _ in edges}
+        records = {"topology": storage.network_topology_count(),
+                   "download": storage.download_count(),
+                   "replay": storage.replay_count()}
+        if any(r["ok"] < 1 for r in reported.values()):
+            failures.append(f"a prober reported nothing: {reported}")
+        if any(r["failed"] for r in reported.values()):
+            failures.append(f"probes between live daemons failed: "
+                            f"{reported}")
+        if cycle_errors.messages:
+            failures.append(f"probe cycles raised: "
+                            f"{cycle_errors.messages[:3]}")
+        if sources != set(ids) or not all(dst in ids for _, dst in edges):
+            failures.append(f"the store holds probes from "
+                            f"{len(sources)} of {len(ids)} hosts")
+        if not all(records.values()):
+            failures.append(f"empty datasets: {records}")
+        if failures:
+            raise AssertionError(f"probe_loop: {failures}")
+
+        # What the trainer will receive, read back from the datasets.
+        t0 = time.perf_counter()
+        graph = graph_from_table(records_to_table(
+            NetworkTopology, storage.list_network_topology()))
+        pair_x, _ = pair_examples_from_table(records_to_table(
+            Download, storage.list_download()))
+        cost_x, _ = cost_examples_from_corpus(storage.list_replay())
+        host_s["read_back"] = time.perf_counter() - t0
+        config = training_config()
+        predicted = predicted_training_launches(graph, config,
+                                                counts.read())
+
+        trainer_storage = TrainerStorage(os.path.join(tmp, "trainer"))
+        manager = ManagerService(
+            Database(os.path.join(tmp, "manager.db")),
+            FilesystemObjectStore(os.path.join(tmp, "objects")),
+            validation=ValidationConfig())
+        metrics = JobMetrics()
+        training = LoopTraining(Training(trainer_storage, manager, config,
+                                         metrics=metrics), trainer_storage)
+        client = LoopTrainerClient(
+            TrainerService(trainer_storage, training, train_async=False),
+            storage)
+        announcer = Announcer(
+            host_id=PROBE_HOST_ID, ip=PROBE_IP, hostname=PROBE_HOSTNAME,
+            port=PROBE_PORT, storage=storage, trainer_client=client,
+            config=AnnouncerConfig(upload_chunk=PROBE_UPLOAD_CHUNK),
+            scheduler_id=PROBE_SCHEDULER_ID)
+        counts.reset()
+        t0 = time.perf_counter()
+        response = announcer.train()
+        torch.cuda.synchronize()
+        upload_train_s = time.perf_counter() - t0
+        outcome = training.outcome
+        rows = manager.db.find("models", scheduler_id=PROBE_SCHEDULER_ID)
+        registry = [{"type": r.type, "version": r.version, "bio": r.bio,
+                     "scheduler_id": r.scheduler_id, "state": r.state,
+                     "gate": r.evaluation.get("validation")} for r in rows]
+        by_type = {r.type: r for r in rows}
+
+        service = InferenceService(manager=manager,
+                                   scheduler_id=PROBE_SCHEDULER_ID,
+                                   micro_batch=False)
+        t0 = time.perf_counter()
+        service.reload_from_manager()
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        served = {name: service.serving_version(name)
+                  for name in ("gat", "mlp")}
+        pairs = np.random.default_rng(SEED).integers(
+            0, graph.n_nodes, (16, 2))
+        ctx = CallContext()
+        answers = {}
+        if served["gat"] is not None:
+            answers["gat"] = service.ModelInfer(
+                ModelInferRequest("gat", pairs), ctx).outputs
+        if served["mlp"] is not None:
+            answers["mlp"] = service.ModelInfer(
+                ModelInferRequest("mlp", pair_x[:15]), ctx).outputs
+        launches = counts.read()
+        service.stop()
+        service = None
+
+        want = dict(predicted)
+        if served["gat"] is not None:
+            want["graph_flash_attention"] += config.gat.layers
+        twin_err = None
+        if "gat" in answers and by_type["gat"].state == "active":
+            twin = plain_gat_scorer(manager.store.get_object(
+                "models", by_type["gat"].object_key))
+            twin_err = float(np.abs(twin.score(pairs)
+                                    - answers["gat"]).max())
+        evaluations = ({job: getattr(outcome, f"{job}_evaluation")
+                        for job in ("gnn", "gat", "mlp", "cost")}
+                       if outcome is not None else None)
+        cost_case = ("trained" if len(cost_x) >= MIN_COST_EXAMPLES
+                     else f"skipped: {len(cost_x)} examples < "
+                     f"{MIN_COST_EXAMPLES}")
+        fields = dict(
+            daemons=len(daemons), probe_interval_s=PROBE_INTERVAL_S,
+            probers_reported=reported,
+            probes_stored=int(sum(store.probed_count(h) for h in ids)),
+            probes_in_queues=int(rtts.size), edges=len(edges),
+            rtt_ms={"p50": float(np.percentile(rtts, 50)) * 1e3,
+                    "p99": float(np.percentile(rtts, 99)) * 1e3},
+            snapshots=snapshots, records=records,
+            n_nodes=graph.n_nodes, n_edges=graph.n_edges,
+            pair_examples=len(pair_x), cost_examples=len(cost_x),
+            cost_case=cost_case, wave_seconds=wave_s,
+            accepted_bytes=response.accepted_bytes if response else None,
+            snapshot_bytes=client.snapshot_bytes,
+            datasets_left=[storage.download_count(),
+                           storage.network_topology_count(),
+                           storage.replay_count()],
+            segments_trained=len(training.segments),
+            segments_left=sorted(os.listdir(trainer_storage.base_dir)),
+            upload_train_seconds=upload_train_s, reload_seconds=reload_s,
+            jobs_seconds=dict(metrics.training_duration),
+            host_seconds=host_s, evaluations=evaluations,
+            errors=outcome.errors if outcome is not None else None,
+            registry=registry, served=served,
+            answers={k: [float(x) for x in v] for k, v in answers.items()},
+            gat_vs_plain_twin=twin_err, tol=MODE_TOL,
+            launches=launches, expected_launches=want,
+            seconds=time.perf_counter() - t_phase)
+        if outcome is None:
+            failures.append("Training.train did not return (see the log)")
+        elif outcome.errors:
+            failures.append(f"job errors {outcome.errors}")
+        if response is None or not response.accepted_bytes or (
+                response.accepted_bytes != client.snapshot_bytes):
+            failures.append("accepted bytes differ from the snapshot's")
+        if any(fields["datasets_left"]):
+            failures.append("the scheduler's datasets are not empty")
+        if not training.segments or any(
+                os.path.exists(p) for p in training.segments):
+            failures.append("closed segments left after training")
+        jobs = {"gnn", "gat", "mlp"} | (
+            {"cost"} if cost_case == "trained" else set())
+        if set(by_type) != jobs or len(rows) != len(jobs):
+            failures.append(f"registered {sorted(by_type)}, want "
+                            f"{sorted(jobs)}")
+        if any(r.bio.split("/")[-1] != PROBE_HOST_ID
+               or r.scheduler_id != PROBE_SCHEDULER_ID for r in rows):
+            failures.append("a registry row lacks the announcer's host_id "
+                            "or scheduler_id")
+        if "gat" in by_type and by_type["gat"].state != "active":
+            failures.append(f"the gate quarantined the gat version: "
+                            f"{by_type['gat'].evaluation.get('validation')}")
+        if served["gat"] != getattr(by_type.get("gat"), "version", None):
+            failures.append(f"serving gat {served['gat']}")
+        if not all(np.isfinite(a).all() and a.shape == (len(pairs),)
+                   if k == "gat" else np.isfinite(a).all()
+                   for k, a in answers.items()):
+            failures.append("bad ModelInfer outputs")
+        if twin_err is None or twin_err > MODE_TOL:
+            failures.append(f"gat scores vs the plain twin's: {twin_err}")
+        if launches != want:
+            failures.append(f"launches {launches} != expected {want}")
+        for name in ("table_gather", "graph_flash_attention",
+                     "graph_flash_attention_backward"):
+            if launches[name] < 1:
+                failures.append(f"{name} never launched")
+        if failures:
+            raise AssertionError(f"probe_loop: {failures}; {fields}")
+        log("probe_loop", **fields)
+        return launches
+    finally:
+        probe_log.removeHandler(cycle_errors)
+        if service is not None:
+            service.stop()
+        # Each stop persists a daemon's store; they share nothing.
+        with ThreadPoolExecutor(max(len(daemons), 1)) as pool:
+            list(pool.map(lambda d: d.stop(), daemons))
+        if recorder is not None:
+            recorder.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profiled_kernel_launches(torch, fn):
     """``fn()`` under ``torch.profiler`` (the card's activity) → (its
     result, {"launches": {kernel row: launches}, "device_events": every
@@ -5172,11 +5640,12 @@ PAR_F32_TOL = 1e-4
 
 
 def ring_gat_config():
-    """Config #3 in ring mode cut to one epoch (59 steps at batch 8192),
-    as the data-parallel phase cut it, with no wall-clock cap."""
+    """Config #3 in ring mode cut to one epoch at WORLD_GAT_BATCH (29
+    steps), with no wall-clock cap."""
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
 
     return GATTrainConfig(**dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS,
+                                 edge_batch_size=WORLD_GAT_BATCH,
                                  max_seconds=None, attention="ring"))
 
 
@@ -5837,8 +6306,8 @@ def run_parallel(torch, graph) -> dict:
 # (world, model axis): 1 x 2, then 2 x 2. Each trains in blocks mode (K1
 # forward and backward on a rank's head share, 2 heads of 32, its query
 # rows against every row's K/V) and in gather mode (K2a and K2b on the
-# share's 256-byte [k|v] rows), cut to one epoch (59 steps at batch
-# 8192) as ring_gat_ranks is, with no wall-clock cap.
+# share's 256-byte [k|v] rows), cut to one epoch at WORLD_GAT_BATCH (29
+# steps) as ring_gat_ranks is, with no wall-clock cap.
 TP_GRIDS = ((2, 2), (4, 2))
 TP_MODES = ("blocks", "gather")
 # A grid's last epoch loss against the world of one's on the same seed
@@ -5851,10 +6320,12 @@ TP_PAIRS = 64
 
 
 def tp_config(mode: str):
-    """Config #3 in ``mode`` cut to one epoch, no wall-clock cap."""
+    """Config #3 in ``mode`` cut to one epoch at WORLD_GAT_BATCH, no
+    wall-clock cap."""
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
 
     return GATTrainConfig(**dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS,
+                                 edge_batch_size=WORLD_GAT_BATCH,
                                  max_seconds=None, attention=mode))
 
 
@@ -7246,6 +7717,9 @@ def main() -> int:
     training_launches, training_predicted, training_evals = run_training(
         torch, mlp_x, mlp_y, counts)
 
+    # -- phase 14b: the ML loop's collection half, slice 19 ------------------
+    probe_launches = run_probe_loop(torch, counts)
+
     # -- phase 15: federated training, config #4, slice 12 ------------------
     check_profiler_sees_kernels(torch)
     federated_launches = run_federated(torch, counts)
@@ -7281,6 +7755,7 @@ def main() -> int:
                    "replay_ab": replay_ab_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
                    "training": training_launches[row["name"]],
+                   "probe_loop": probe_launches[row["name"]],
                    "federated": federated_launches[row["name"]],
                    "federated_config4": config4_launches[row["name"]],
                    "data_parallel": dp_launches[row["name"]],

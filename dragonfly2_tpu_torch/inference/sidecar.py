@@ -24,7 +24,8 @@ one loader (:func:`_mlp_checkpoint_from_artifact`).
 
 The port has no gRPC: a method's ``context`` only needs
 ``abort(code, details)`` taking a :class:`StatusCode` and raising, as
-gRPC's does; :class:`CallContext` is the in-process one. The gRPC
+gRPC's does; :class:`CallContext` is the in-process one
+(``rpc/status.py``; re-exported here). The gRPC
 transport (``InferenceClient``, ``RemoteMLEvaluator``, serving on a
 port) is not ported yet (ROADMAP.md, Queue 1 item 4).
 """
@@ -32,7 +33,6 @@ port) is not ported yet (ROADMAP.md, Queue 1 item 4).
 from __future__ import annotations
 
 import collections
-import enum
 import logging
 import threading
 import time
@@ -61,6 +61,11 @@ from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
 from dragonfly2_tpu_torch.models.mlp import FEATURE_DIM, MLPBandwidthPredictor
 from dragonfly2_tpu_torch.parallel.mesh import LOCAL
 from dragonfly2_tpu_torch.rpc.health import NOT_SERVING, SERVING
+from dragonfly2_tpu_torch.rpc.status import (  # noqa: F401 — re-exported
+    CallContext,
+    RpcAbort,
+)
+from dragonfly2_tpu_torch.rpc.status import StatusCode
 from dragonfly2_tpu_torch.train.checkpoint import (
     gat_from_tree,
     gat_state_dict_from_flax,
@@ -76,44 +81,6 @@ logger = logging.getLogger(__name__)
 MODEL_NAME_MLP = "mlp"
 MODEL_NAME_GAT = "gat"
 MODEL_NAME_COST = "cost"
-
-
-class StatusCode(enum.Enum):
-    """RPC status codes, named and numbered as gRPC's."""
-
-    OK = 0
-    CANCELLED = 1
-    UNKNOWN = 2
-    INVALID_ARGUMENT = 3
-    DEADLINE_EXCEEDED = 4
-    NOT_FOUND = 5
-    ALREADY_EXISTS = 6
-    PERMISSION_DENIED = 7
-    RESOURCE_EXHAUSTED = 8
-    FAILED_PRECONDITION = 9
-    ABORTED = 10
-    OUT_OF_RANGE = 11
-    UNIMPLEMENTED = 12
-    INTERNAL = 13
-    UNAVAILABLE = 14
-    DATA_LOSS = 15
-    UNAUTHENTICATED = 16
-
-
-class RpcAbort(Exception):
-    """Raised by :meth:`CallContext.abort`."""
-
-    def __init__(self, code: StatusCode, details: str):
-        super().__init__(f"{code.name}: {details}")
-        self.code = code
-        self.details = details
-
-
-class CallContext:
-    """In-process call context: ``abort`` raises :class:`RpcAbort`."""
-
-    def abort(self, code: StatusCode, details: str):
-        raise RpcAbort(code, details)
 
 
 @dataclass

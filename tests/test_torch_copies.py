@@ -41,6 +41,8 @@ COPIES = [
     "scheduler/storage/__init__.py",
     "scheduler/replaystore.py",
     "scheduler/replaylog.py", "scheduler/loadbench.py",
+    "utils/netping.py", "client/networktopology.py",
+    "scheduler/announcer.py",
 ]
 
 

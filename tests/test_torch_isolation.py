@@ -164,6 +164,12 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.cmd.replaytool",
         # slice 18: the swarm driver beside the recorder
         "dragonfly2_tpu_torch.scheduler.loadbench",
+        # slice 19: the ML loop's collection half
+        "dragonfly2_tpu_torch.utils.netping",
+        "dragonfly2_tpu_torch.client.networktopology",
+        "dragonfly2_tpu_torch.scheduler.announcer",
+        "dragonfly2_tpu_torch.trainer.service",
+        "dragonfly2_tpu_torch.rpc.status",
     }
     assert expected <= set(probe["imported"])
 
