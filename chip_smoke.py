@@ -198,7 +198,21 @@ Phases (any failure exits nonzero, before the final line):
    validation gate and a shadow load on the card, canaried and promoted:
    K1 and K2a must launch exactly 2 passes × 2 layers a version, with the
    launch counts set to 0 just before and read just after; each pass's
-   build time and the incumbent's p99 while the shadow's pass runs);
+   build time and the incumbent's p99 while the shadow's pass runs),
+   then manager_plane (the manager as a service, slice 20:
+   ``python -m dragonfly2_tpu_torch.cmd.manager`` in a child process, a
+   root JWT, 8 scheduler clusters with CIDR, IDC and location scopes, 64
+   instances registered and kept alive, 1 000 daemon dynconfig answers
+   each equal to the same ``Searcher``'s pick recomputed here; a
+   scheduler linked through ``connect_manager``, its row active and a
+   PATCHed cluster config applied; config #3 v1 (blocks) and v2
+   (gather) gated on the card and v2 served, a JWT rollback over REST
+   after which the watcher rebuilds v1 on the card and ModelInfer
+   equals a direct load of v1 exactly; a planted ``model.weights``
+   fault under the MLP's v2 tripping the scheduler's guard, escalated
+   through the link, v1 restored; the link's trace upload replayed by
+   the next MLP candidate's gate; the REST calls' p50/p99; K1 and K2a
+   exactly 2 passes × 2 layers each);
    after the evaluators, microbatch (the trained MLP behind
    ``InferenceService(micro_batch=True)`` at its defaults: the ladder at
    1, 8, 32 and 128 threads of 16-row requests; controls: the service
@@ -286,7 +300,8 @@ Phases (any failure exits nonzero, before the final line):
    card over gloo, each checking all_reduce and broadcast on a CUDA
    tensor, then training config #2 with sampling on the device and on
    the host, config #1, config #3 in blocks and in gather mode cut to
-   one epoch, and ``Training.train`` on the training phase's records
+   one epoch at WORLD_GAT_BATCH (29 steps), and ``Training.train`` on
+   the training phase's records
    with ``group=`` the world: both ranks' parameter digests equal, gaps
    to the world-of-one runs within the CPU tests' limits, each rank's
    K1, K2a and K2b launches as predicted, rank 0 alone uploading; the
@@ -573,6 +588,20 @@ SERVICE_CONTROL_THREADS = (8, 32)
 SLOW_SHED_S, SHED_BURST_S = 0.005, 1.0
 LIFECYCLE_TICK_S, LIFECYCLE_GRACE_S = 0.25, 0.5
 LIFECYCLE_UNAVAILABLE_NTH = 97
+# The manager as a service (slice 20), at a fleet's size: 8 scheduler
+# clusters of 8 instances (the 64 of a large Dragonfly deployment's
+# scheduler tier), 1 000 daemons asking for their schedulers. The linked
+# scheduler keeps alive and polls its dynconfig every MANAGER_TICK_S
+# (JAX's default 5 s and 60 s, shortened for a run of seconds) under a
+# pre-assigned id. A rollback rebuilds v1 on the card from the same
+# artifact through the same kernels: its scores must equal a direct
+# load's exactly.
+MANAGER_CLUSTERS, MANAGER_SCHEDULERS, MANAGER_QUERIES = 8, 64, 1000
+MANAGER_TICK_S = 0.1
+MANAGER_START_TIMEOUT_S = 60.0
+MANAGER_SCHEDULER_ID = 1000
+MANAGER_WARM_DECISIONS = 8
+MANAGER_ROLLBACK_TOL = 0.0
 # The training orchestrator (slice 11): records of config #2's 2000-host
 # cluster (bench.py:382-386) from one SyntheticCluster, topology first,
 # written as CSV segments: TRAINING_TOPOLOGY NetworkTopology records
@@ -708,8 +737,14 @@ KERNEL_FUNCTIONS = {
 }
 
 
+T_IMPORT = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at`` is the seconds since the script started, so
+    consecutive lines give each phase's seconds."""
+    print(json.dumps({"phase": phase, "at": time.perf_counter() - T_IMPORT,
+                      **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -4037,6 +4072,393 @@ def run_lifecycle_gat(torch, artifacts: dict, counts) -> dict:
     return launches
 
 
+class TimedHTTP:
+    """REST calls on the manager's listeners on loopback, each call's
+    round trip kept in ms: ``call`` speaks JSON to a URL (a bearer token
+    if given), ``client`` wraps a ``ManagerHTTPClient`` method."""
+
+    def __init__(self):
+        self.ms = []
+
+    def call(self, method: str, url: str, body=None, token: str = ""):
+        import urllib.request
+
+        req = urllib.request.Request(
+            url, data=None if body is None else json.dumps(body).encode(),
+            method=method, headers={"Content-Type": "application/json",
+                                    "Authorization": token})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = json.loads(resp.read())
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def client(self, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def percentiles(self) -> dict:
+        ms = sorted(self.ms)
+        return {"calls": len(ms), "p50_ms": ms[len(ms) // 2],
+                "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)]}
+
+
+def start_manager(tmp: str):
+    """``python -m dragonfly2_tpu_torch.cmd.manager`` in a child process
+    (auth and the model gate on, both listeners on free loopback ports)
+    → (process, public port, internal port), read from its stdout."""
+    err = open(os.path.join(tmp, "manager.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.manager",
+         "--host", "127.0.0.1", "--port", "0", "--internal-port", "0",
+         "--db", os.path.join(tmp, "manager.db"),
+         "--object-store-dir", os.path.join(tmp, "objects"),
+         "--model-gate"], cwd=ROOT, stdout=subprocess.PIPE, stderr=err,
+        text=True)
+    err.close()
+    # A child that hangs before printing is killed, so readline returns.
+    import threading
+
+    watchdog = threading.Timer(MANAGER_START_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines = [proc.stdout.readline() for _ in range(2)]
+    watchdog.cancel()
+    if not (lines[0].startswith("manager serving on 127.0.0.1:")
+            and lines[1].startswith("manager internal surface on ")):
+        stop_manager(proc)
+        with open(os.path.join(tmp, "manager.err")) as fh:
+            raise AssertionError(f"manager did not start: {lines}, "
+                                 f"{fh.read()[-2000:]}")
+    public = int(lines[0].split(":")[1].split()[0])
+    internal = int(lines[1].rstrip().rsplit(":", 1)[1])
+    return proc, public, internal
+
+
+def stop_manager(proc) -> int:
+    """SIGTERM (the command's graceful stop), then SIGKILL after 20 s."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait()
+
+
+def run_manager_plane(torch, artifacts: dict, mlp_bytes: bytes,
+                      counts) -> dict:
+    """The manager as a service (slice 20) at a fleet's size, beside the
+    card: the manager started through its entry point in a child
+    process; a root JWT over HTTP; MANAGER_CLUSTERS scheduler clusters
+    with CIDR, IDC and location scopes; MANAGER_SCHEDULERS instances
+    registered and kept alive over the internal surface;
+    MANAGER_QUERIES seeded ``daemon_dynconfig`` answers held against the
+    same ``Searcher``'s pick recomputed here from the listed rows. Then
+    a scheduler in this process linked through ``connect_manager`` (its
+    row must turn active, a PATCHed cluster config must reach
+    ``Scheduling.apply_dynconfig``), whose ``RemoteMLEvaluator`` scores
+    through an ``InferenceService`` watching a trainer-side registry on
+    the same database: config #3 v1 (blocks) and v2 (gather) gated on
+    the card, v2 served; a JWT rollback of v2 over REST, after which the
+    watcher must rebuild v1 on the card and ModelInfer equal a direct
+    load of v1 (MANAGER_ROLLBACK_TOL); a ``model.weights`` CORRUPT rule
+    planted under the MLP's v2, whose NaN scores trip the evaluator's
+    guard, which escalates through the link to
+    ``/internal/v1/models/quarantine``: v1 must come back; the recorded
+    traces uploaded through the link, which the next MLP candidate's
+    gate must replay. K1 and K2a must launch 2 passes × 2 layers each
+    (v1's gate and rebuild; v2's gate and install), with the counts set
+    to 0 just before the gate builds and read after the rebuild.
+    Returns the launches."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.cmd.scheduler import connect_manager
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        LocalInferenceClient,
+        ModelInferRequest,
+        RemoteMLEvaluator,
+        _gat_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+        Searcher,
+    )
+    from dragonfly2_tpu_torch.manager.client import ManagerHTTPClient
+    from dragonfly2_tpu_torch.manager.service import untar_to_directory
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.scheduler.resource.resource import Resource
+    from dragonfly2_tpu_torch.scheduler.scheduling.core import Scheduling
+    from dragonfly2_tpu_torch.scheduler.service import SchedulerService
+    from dragonfly2_tpu_torch.scheduler.storage.storage import Storage
+    from dragonfly2_tpu_torch.utils import faultplan
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    tmp = tempfile.mkdtemp(prefix="smoke-manager-")
+    steps, http = {}, TimedHTTP()
+    proc = link = sidecar = None
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        proc, public, internal = start_manager(tmp)
+        base = f"http://127.0.0.1:{public}"
+        client = ManagerHTTPClient(f"127.0.0.1:{internal}")
+        steps["start"] = time.perf_counter() - t0
+
+        # -- the fleet: clusters, instances, dynconfig answers ----------
+        t0 = time.perf_counter()
+        token = "Bearer " + http.call(
+            "POST", f"{base}/api/v1/users/signin",
+            {"name": "root", "password": "dragonfly"})["token"]
+        cluster_ids = []
+        for c in range(MANAGER_CLUSTERS):
+            cluster_ids.append(http.call(
+                "POST", f"{base}/api/v1/scheduler-clusters",
+                {"name": f"smoke-c{c}", "is_default": c == 0,
+                 "scopes": {"cidrs": [f"10.{c}.0.0/16"],
+                            "idc": f"idc-{c % 4}",
+                            "location": f"r{c % 4}|z{c}"},
+                 "client_config": {"load_limit": 100 + c}}, token)["id"])
+        per = MANAGER_SCHEDULERS // MANAGER_CLUSTERS
+        fleet = [(cluster_ids[c], f"sched-{c}-{j}", f"10.{c}.1.{j + 1}")
+                 for c in range(MANAGER_CLUSTERS) for j in range(per)]
+        for cid, host, ip in fleet:
+            http.client(client.update_scheduler_instance, hostname=host,
+                        ip=ip, port=8002, cluster_id=cid)
+        for _ in range(2):
+            for cid, host, ip in fleet:
+                http.client(client.keepalive_scheduler, hostname=host,
+                            ip=ip, cluster_id=cid)
+        steps["fleet"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        clusters = [types.SimpleNamespace(**c) for c in http.call(
+            "GET", f"{base}/api/v1/scheduler-clusters", token=token)]
+        rows = http.call("GET", f"{base}/api/v1/schedulers?all=1",
+                         token=token)
+        active_of = {}
+        for r in rows:
+            if r["state"] == "active":
+                active_of.setdefault(r["scheduler_cluster_id"], []).append(
+                    f"{r['ip']}:{r['port']}")
+        searcher = Searcher()
+        rng = np.random.default_rng(SEED + 20)
+        mismatches, picked = [], set()
+        for q in range(MANAGER_QUERIES):
+            ip = (f"10.{int(rng.integers(0, MANAGER_CLUSTERS + 2))}."
+                  f"{int(rng.integers(256))}.{int(rng.integers(1, 255))}"
+                  if rng.random() < 0.8 else
+                  f"192.168.{int(rng.integers(256))}.1")
+            hostname = f"daemon-{q}"
+            got = http.client(client.daemon_dynconfig, ip=ip,
+                              hostname=hostname)
+            ranked = searcher.find_scheduler_clusters(
+                clusters, ip, hostname, {},
+                has_active_schedulers=lambda c: c.id in active_of)
+            want = sorted(active_of[ranked[0].id]) if ranked else []
+            picked.add(ranked[0].id if ranked else None)
+            if sorted(got["schedulers"]) != want:
+                mismatches.append({"ip": ip, "got": got["schedulers"],
+                                   "want": want})
+        steps["dynconfig"] = time.perf_counter() - t0
+        fleet_active = sum(r["state"] == "active" for r in rows
+                           if r["hostname"].startswith("sched-"))
+
+        # -- the scheduler's link ----------------------------------------
+        t0 = time.perf_counter()
+        db_path = os.path.join(tmp, "manager.db")
+        objects = os.path.join(tmp, "objects")
+        stats = ServingStats()
+        trainer = ManagerService(Database(db_path),
+                                 FilesystemObjectStore(objects),
+                                 validation=ValidationConfig(),
+                                 serving_stats=stats)
+        sidecar = InferenceService(
+            manager=trainer, scheduler_id=MANAGER_SCHEDULER_ID,
+            reload_interval=MANAGER_TICK_S, micro_batch=False,
+            shadow_mode=False, serving_stats=stats)
+        evaluator = RemoteMLEvaluator(LocalInferenceClient(sidecar),
+                                      stats=stats, guard_trip_limit=3)
+        scheduler = SchedulerService(
+            resource=Resource(), scheduling=Scheduling(evaluator),
+            storage=Storage(os.path.join(tmp, "datasets")))
+        link = connect_manager(
+            scheduler, f"127.0.0.1:{internal}", port=8002,
+            cluster_id=cluster_ids[0], scheduler_id=MANAGER_SCHEDULER_ID,
+            advertise_ip="127.0.0.1", hostname="smoke-scheduler",
+            data_dir=tmp, keepalive_interval=MANAGER_TICK_S,
+            dynconfig_interval=MANAGER_TICK_S)
+        link_state = [r["state"] for r in http.call(
+            "GET", f"{base}/api/v1/schedulers?all=1", token=token)
+            if r["hostname"] == "smoke-scheduler"]
+        patched = {"filter_parent_limit": 9, "candidate_parent_limit": 5}
+        http.call("PATCH",
+                  f"{base}/api/v1/scheduler-clusters/{cluster_ids[0]}",
+                  {"config": patched}, token)
+        cfg = scheduler.scheduling.config
+        dynconfig_s = wait_until(
+            "the PATCHed cluster config",
+            lambda: (cfg.filter_parent_limit, cfg.candidate_parent_limit)
+            == (9, 5), timeout_s=10.0)
+        steps["link"] = time.perf_counter() - t0
+
+        # -- config #3 through the gate, served, rolled back over REST --
+        dirs = {}
+        for tag, payload in (("blocks", artifacts["blocks"]),
+                             ("gather", artifacts["gather"]),
+                             ("mlp", mlp_bytes)):
+            dirs[tag] = os.path.join(tmp, f"artifact-{tag}")
+            untar_to_directory(payload, dirs[tag])
+        versions = []
+
+        def create(name, model_type, tag, **kw):
+            row = trainer.create_model(
+                name, model_type, "host", "127.0.0.1", "smoke", {},
+                dirs[tag], scheduler_id=MANAGER_SCHEDULER_ID, **kw)
+            versions.append(row.version)
+            return row
+
+        t0 = time.perf_counter()
+        counts.reset()
+        gat_v1 = create("smoke-gat", "gat", "blocks")
+        gat_v2 = create("smoke-gat", "gat", "gather")
+        torch.cuda.synchronize()
+        steps["gat_gates"] = time.perf_counter() - t0
+        mlp_v1 = create("smoke-mlp", "mlp", "mlp", skip_validation=True)
+        t0 = time.perf_counter()
+        sidecar.reload_from_manager()
+        torch.cuda.synchronize()
+        steps["serve_v2"] = time.perf_counter() - t0
+        served = {"gat": sidecar.serving_version("gat") == gat_v2.version,
+                  "mlp": sidecar.serving_version("mlp") == mlp_v1.version}
+        sidecar.serve_watcher()
+        for parents, child, total in seeded_decisions(
+                SEED + 21, MANAGER_WARM_DECISIONS, ML_CANDIDATES):
+            evaluator.evaluate_parents(parents, child, total)
+        warm_scored = evaluator.scored_count
+
+        t0 = time.perf_counter()
+        rollback = http.call("POST",
+                             f"{base}/api/v1/models/{gat_v2.id}/rollback",
+                             {"reason": "smoke operator rollback"}, token)
+        reload_s = wait_until(
+            "gat v1 rebuilt after the rollback",
+            lambda: sidecar.serving_version("gat") == gat_v1.version,
+            timeout_s=60.0)
+        torch.cuda.synchronize()
+        launches = counts.read()
+        steps["rollback"] = time.perf_counter() - t0
+        pairs = np.random.default_rng(SEED + 22).integers(
+            0, N_HOSTS, (REQUEST_ROWS, 2))
+        served_scores = sidecar.ModelInfer(
+            ModelInferRequest("gat", pairs), CallContext()).outputs
+        direct = _gat_scorer_from_artifact(trainer.get_active_model(
+            "gat", MANAGER_SCHEDULER_ID).artifact)
+        direct_scores = direct.score(pairs)
+        del direct
+        rollback_err = float(np.abs(np.asarray(served_scores, np.float64)
+                                    - direct_scores).max())
+
+        # -- the guard's escalation through the link ------------------------
+        t0 = time.perf_counter()
+        plan = faultplan.install(faultplan.FaultPlan(seed=SEED))
+        try:
+            plan.add("model.weights", faultplan.FaultKind.CORRUPT,
+                     every_nth=1, max_fires=1, match="mlp")
+            mlp_v2 = create("smoke-mlp", "mlp", "mlp", skip_validation=True)
+            wait_until("mlp v2 serving", lambda: sidecar.serving_version(
+                "mlp") == mlp_v2.version, timeout_s=30.0)
+            poisoned = 0
+            for parents, child, total in seeded_decisions(
+                    SEED + 23, 10, ML_CANDIDATES):
+                if stats.get("ml_quarantines_reported"):
+                    break
+                evaluator.evaluate_parents(parents, child, total)
+                poisoned += 1
+            restore_s = wait_until(
+                "mlp v1 restored", lambda: sidecar.serving_version(
+                    "mlp") == mlp_v1.version, timeout_s=30.0)
+            weights_faults = plan.snapshot()["model.weights"]["total_fires"]
+        finally:
+            faultplan.uninstall()
+        steps["escalation"] = time.perf_counter() - t0
+
+        # -- the traces reach the next gate ------------------------------
+        t0 = time.perf_counter()
+        uploaded = link.upload_traces()
+        traces = trainer.load_announce_traces(MANAGER_SCHEDULER_ID) or []
+        mlp_v3 = create("smoke-mlp", "mlp", "mlp")
+        gate = mlp_v3.evaluation["validation"]
+        steps["traces"] = time.perf_counter() - t0
+        registry = {versions.index(r.version): (r.type, r.state)
+                    for r in trainer.list_models()}
+        keepalives = link.keepalives
+    finally:
+        if link is not None:
+            link.stop()
+        if sidecar is not None:
+            sidecar.stop()
+        manager_rc = stop_manager(proc) if proc is not None else None
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {name: 0 for name in launches} | {
+        "graph_flash_attention": 2 * GAT_CFG["layers"],
+        "table_gather": 2 * GAT_CFG["layers"]}
+    checks = {
+        "fleet_active": fleet_active == MANAGER_SCHEDULERS,
+        "dynconfig_picks": not mismatches,
+        "link_active": link_state == ["active"],
+        "dynconfig_applied": (cfg.filter_parent_limit,
+                              cfg.candidate_parent_limit) == (9, 5),
+        "served_v2": all(served.values()),
+        "rollback_restored": (rollback["restored"] or {}).get("id")
+        == gat_v1.id,
+        "rollback_scores": rollback_err <= MANAGER_ROLLBACK_TOL,
+        "escalation": (weights_faults == 1
+                       and stats.get("ml_quarantines_reported") == 1
+                       and registry[versions.index(mlp_v2.version)]
+                       == ("mlp", "quarantined")),
+        "traces_gated": (uploaded and len(traces) == warm_scored + poisoned
+                         and gate["trace_source"] == "recorded"
+                         and gate["batches"] == len(traces)),
+        "launches": launches == want,
+        "manager_exit": manager_rc == 0,
+    }
+    log("manager_plane", seconds=time.perf_counter() - t_phase,
+        step_seconds=steps, clusters=MANAGER_CLUSTERS,
+        schedulers={"registered": MANAGER_SCHEDULERS, "active": fleet_active},
+        dynconfig={"queries": MANAGER_QUERIES, "mismatches": len(mismatches),
+                   "first_mismatches": mismatches[:3],
+                   "clusters_picked": len(picked)},
+        link={"state": link_state, "keepalives": keepalives,
+              "dynconfig_applied_seconds": dynconfig_s, "config": patched},
+        rest_rtt=http.percentiles(),
+        rollback={"restored_v1": checks["rollback_restored"],
+                  "reload_seconds": reload_s, "max_abs_err": rollback_err,
+                  "tol": MANAGER_ROLLBACK_TOL},
+        escalation={"decisions_warm": warm_scored,
+                    "decisions_poisoned": poisoned,
+                    "guard_trips": evaluator.guard_trips,
+                    "restore_seconds": restore_s,
+                    "weights_faults": weights_faults},
+        traces={"uploaded": uploaded, "batches": len(traces),
+                "gate": {k: gate[k] for k in ("passed", "batches",
+                                              "trace_source", "reasons")}},
+        registry={str(k): v for k, v in sorted(registry.items())},
+        launches=launches, expected_launches=want, checks=checks,
+        manager_exit=manager_rc)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"manager_plane: {failed}; see the line above")
+    return launches
+
+
 def training_records():
     """(NetworkTopology records, Download records) of the training phase:
     one seeded SyntheticCluster of TRAINING_HOSTS hosts, topology first."""
@@ -5154,7 +5576,8 @@ def run_federated_config4(torch, counts) -> dict:
 
 def dp_configs() -> dict:
     """The data-parallel phases' jobs: config #2 (both sampling paths)
-    and config #1 as their phases train them, config #3 cut to one epoch,
+    and config #1 as their phases train them, config #3 cut to one epoch
+    at WORLD_GAT_BATCH (29 steps, as the ring and TP worlds train it),
     each without a wall-clock cap (a cap would add a collective a step:
     the ranks must agree when to stop)."""
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
@@ -5162,7 +5585,8 @@ def dp_configs() -> dict:
     from dragonfly2_tpu_torch.train.mlp_trainer import MLPTrainConfig
 
     gnn = dict(GNN_CFG, max_seconds=None)
-    gat = dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS, max_seconds=None)
+    gat = dict(TRAIN_CFG, epochs=DP_GAT_EPOCHS,
+               edge_batch_size=WORLD_GAT_BATCH, max_seconds=None)
     return {
         "gnn_device": ("gnn", GNNTrainConfig(**gnn, device_sample=True)),
         "gnn_host": ("gnn", GNNTrainConfig(**gnn, device_sample=False)),
@@ -7539,6 +7963,8 @@ def main() -> int:
     # -- the serving plane on config #3: batcher, gate and shadow loads ------
     run_microbatch_gat(torch, scorers["gather"])
     lifecycle_launches = run_lifecycle_gat(torch, artifacts, counts)
+    manager_launches = run_manager_plane(torch, artifacts, mlp_artifact,
+                                         counts)
 
     # -- phase 5: train in gather mode, slice 2's path --------------------
     trainer, result, train_launches = run_train(
@@ -7754,6 +8180,7 @@ def main() -> int:
                    "replay": replay_launches[row["name"]],
                    "replay_ab": replay_ab_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
+                   "manager_plane": manager_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "probe_loop": probe_launches[row["name"]],
                    "federated": federated_launches[row["name"]],

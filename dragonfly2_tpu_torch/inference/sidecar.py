@@ -25,9 +25,14 @@ one loader (:func:`_mlp_checkpoint_from_artifact`).
 The port has no gRPC: a method's ``context`` only needs
 ``abort(code, details)`` taking a :class:`StatusCode` and raising, as
 gRPC's does; :class:`CallContext` is the in-process one
-(``rpc/status.py``; re-exported here). The gRPC
-transport (``InferenceClient``, ``RemoteMLEvaluator``, serving on a
-port) is not ported yet (ROADMAP.md, Queue 1 item 4).
+(``rpc/status.py``; re-exported here).
+
+:class:`RemoteMLEvaluator` is JAX's: the ``ml`` evaluator over a client
+of an inference service, with a circuit breaker and the serving version
+a guard trip escalates. Its client here is :class:`LocalInferenceClient`,
+the same calls on a service in this process; the gRPC
+``InferenceClient`` and serving on a port are not ported yet
+(ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from dragonfly2_tpu_torch.inference.modelguard import (
 from dragonfly2_tpu_torch.inference.scorer import (
     CostScorer,
     GATParentScorer,
+    MLEvaluator,
     ParentScorer,
 )
 from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
@@ -778,6 +784,103 @@ class InferenceService:
         with self._lock:
             ready = bool(self._models)
         return ServerReadyResponse(ready=ready)
+
+
+class LocalInferenceClient:
+    """JAX's ``InferenceClient.model_infer_full`` on an
+    :class:`InferenceService` in this process: what a
+    :class:`RemoteMLEvaluator` scores through where the gRPC transport is
+    not ported. An abort raises :class:`RpcAbort` as a gRPC error would
+    raise its ``RpcError``."""
+
+    def __init__(self, service: InferenceService):
+        self.service = service
+
+    def model_infer_full(self, model_name: str,
+                         inputs: np.ndarray) -> "tuple[np.ndarray, str]":
+        """(scores, serving model version) — the version is what a
+        guard-trip escalation must quarantine."""
+        resp = self.service.ModelInfer(
+            ModelInferRequest(model_name, inputs), CallContext())
+        return np.asarray(resp.outputs), resp.model_version
+
+
+class CircuitOpenError(RuntimeError):
+    """Raised instead of a remote call while the breaker cools down."""
+
+
+def _is_resource_exhausted(exc: Exception) -> bool:
+    """True when a call aborted with RESOURCE_EXHAUSTED (the service's
+    bounded-admission shed status)."""
+    return (isinstance(exc, RpcAbort)
+            and exc.code is StatusCode.RESOURCE_EXHAUSTED)
+
+
+class _RemoteScorer:
+    """Service-backed ``score()`` with an open-after-failure circuit
+    breaker: while open, calls fail instantly (→ rule fallback) instead of
+    eating the client retry/timeout ladder on every scheduling decision."""
+
+    def __init__(self, client, model_name: str, cooldown: float = 5.0):
+        self.client = client
+        self.model_name = model_name
+        self.cooldown = cooldown
+        self._open_until = 0.0
+        self._lock = threading.Lock()
+        # The version the last successful score came from — what a
+        # guard-trip escalation must quarantine.
+        self.last_version = ""
+
+    def score(self, features: np.ndarray) -> np.ndarray:
+        with self._lock:
+            if time.monotonic() < self._open_until:
+                raise CircuitOpenError("inference service circuit open")
+        try:
+            scores, version = self.client.model_infer_full(
+                self.model_name, np.asarray(features, dtype=np.float32))
+        except Exception as exc:
+            if _is_resource_exhausted(exc):
+                # The service is alive but shedding (bounded admission):
+                # surface it as the batcher's own saturation error so
+                # MLEvaluator counts a shed and rule-falls-back, and do
+                # NOT open the breaker — the next decision may land on a
+                # lane with room.
+                raise BatcherSaturatedError(
+                    "inference service saturated (lane queue at depth "
+                    "cap)") from exc
+            with self._lock:
+                self._open_until = time.monotonic() + self.cooldown
+            raise
+        with self._lock:
+            self._open_until = 0.0
+            if version:
+                self.last_version = version
+        return scores
+
+
+class RemoteMLEvaluator(MLEvaluator):
+    """The ``ml`` evaluator backed by an inference service — fills the
+    reference's MLAlgorithm TODO (evaluator.go:48). Delegates ranking,
+    fallback counting, guard trips, and loud first-failure logging to
+    :class:`MLEvaluator`; the remote scorer adds transport, the circuit
+    breaker, and serving-version tracking (``serving_version`` is what a
+    guard-trip escalation quarantines back to the manager)."""
+
+    def __init__(self, client, model_name: str = MODEL_NAME_MLP,
+                 cooldown: float = 5.0, **guard_kwargs):
+        super().__init__(_RemoteScorer(client, model_name, cooldown),
+                         **guard_kwargs)
+        self.client = client
+
+    @property
+    def serving_version(self) -> str:
+        """Version of the model behind the last successful score."""
+        return self._scorer.last_version
+
+    @property
+    def model_name(self) -> str:
+        """Registry model type this evaluator scores with."""
+        return self._scorer.model_name
 
 
 def _new_shadow(name: str, version: str, scorer) -> dict:

@@ -1,7 +1,6 @@
-"""Manager service — port of the model-registry half of
-``dragonfly2_tpu/manager/service.py`` (upstream: manager_server_v2.go
-CreateModel :816, manager/service/model.go:109-190 single-active-version
-activation).
+"""Manager service — port of ``dragonfly2_tpu/manager/service.py``
+(upstream: manager_server_v2.go CreateModel :816,
+manager/service/model.go:109-190 single-active-version activation).
 
 A trained artifact dir is tarred into the object store under
 ``<model>/<version>/model.tar``; with no validation gate the new version
@@ -14,9 +13,16 @@ Quarantine is terminal and restores the previous good version in the
 same transaction — the fleet-wide rollback the inference service's
 watcher picks up on its next poll.
 
-The cluster, keepalive and application methods, the read-through cache
-and the metrics wait for the manager's cluster half. The artifact's
-unpacking is ``train.checkpoint.untar_to_directory``, re-exported here.
+The cluster half (upstream: UpdateScheduler :290, UpdateSeedPeer :180,
+ListSchedulers :500, KeepAlive :968) is JAX's: scheduler and seed-peer
+cluster CRUD, instance upserts, keepalive with its expiry sweep, the
+searcher's dynconfig answer behind a read-through cache, and
+applications. It differs on purpose in one way: there are no
+prometheus counters (``metrics``), since the card machine has no
+``prometheus_client``. The artifact's unpacking is
+``train.checkpoint.untar_to_directory``, reached through
+:func:`untar_to_directory` here. The module loads no torch: the
+manager's own process (``cmd/manager.py``) builds nothing on a device.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 from dragonfly2_tpu_torch.manager import validation as validation_mod
+from dragonfly2_tpu_torch.manager.cache import ReadThroughCache
 from dragonfly2_tpu_torch.manager.database import (
     STATE_ACTIVE,
     STATE_CANDIDATE,
@@ -41,11 +48,11 @@ from dragonfly2_tpu_torch.manager.database import (
     Row,
 )
 from dragonfly2_tpu_torch.manager.objectstore import ObjectStore
-from dragonfly2_tpu_torch.train.checkpoint import untar_to_directory
+from dragonfly2_tpu_torch.manager.searcher import Searcher
 from dragonfly2_tpu_torch.utils.servingstats import SERVING
 
-__all__ = ["ActiveModel", "ManagerError", "ManagerService",
-           "untar_to_directory"]
+__all__ = ["ActiveModel", "DEFAULT_KEEPALIVE_TTL", "ManagerError",
+           "ManagerService", "untar_to_directory"]
 
 logger = logging.getLogger(__name__)
 
@@ -53,6 +60,8 @@ MODELS_BUCKET = "models"
 MODEL_FILE_NAME = "model.tar"          # types/model.go:25 model.graphdef
 MODEL_CONFIG_FILE_NAME = "config.json"  # types/model.go:28 config.pbtxt
 DEFAULT_SERVING_PLATFORM = "pytorch_cuda"
+
+DEFAULT_KEEPALIVE_TTL = 60.0
 
 
 class ManagerError(Exception):
@@ -80,13 +89,19 @@ class ActiveModel:
 
 
 class ManagerService:
-    """The model registry: ingest, gate, promote, quarantine, roll back,
-    and the active-version answers the inference service polls."""
+    """The scheduler-cluster control plane (clusters, instances,
+    keepalive, dynconfig answers, applications) and the model registry
+    (ingest, gate, promote, quarantine, roll back, and the active-version
+    answers the inference service polls)."""
 
     def __init__(self, database: Database, object_store: ObjectStore,
-                 validation=None, serving_stats=None, device=None):
+                 keepalive_ttl: float = DEFAULT_KEEPALIVE_TTL,
+                 cache_ttl: float = 5.0, validation=None,
+                 serving_stats=None, device=None):
         self.db = database
         self.store = object_store
+        self.searcher = Searcher()
+        self.keepalive_ttl = keepalive_ttl
         # None keeps the reference's direct-activate behaviour
         # (model.go:109-150) for deployments without a serving path to
         # protect.
@@ -95,7 +110,191 @@ class ManagerService:
                               else SERVING)
         # Where the gate builds candidates; None means the card.
         self.device = device
+        # Read-through cache for fleet-polled dynconfig answers
+        # (manager/cache two-tier role; single tier — sqlite is local).
+        self.cache = ReadThroughCache(ttl=cache_ttl)
         self.store.create_bucket(MODELS_BUCKET)
+
+    # ------------------------------------------------------------------
+    # Cluster CRUD (manager/service/scheduler_cluster.go, seed_peer_cluster)
+    # ------------------------------------------------------------------
+
+    def create_scheduler_cluster(self, name: str, *, config: Dict | None = None,
+                                 client_config: Dict | None = None,
+                                 scopes: Dict | None = None,
+                                 is_default: bool = False) -> Row:
+        cluster_id = self.db.insert(
+            "scheduler_clusters", name=name, config=config or {},
+            client_config=client_config or {}, scopes=scopes or {},
+            is_default=int(is_default),
+        )
+        return self.db.get("scheduler_clusters", cluster_id)
+
+    def create_seed_peer_cluster(self, name: str,
+                                 config: Dict | None = None) -> Row:
+        cluster_id = self.db.insert(
+            "seed_peer_clusters", name=name, config=config or {}
+        )
+        return self.db.get("seed_peer_clusters", cluster_id)
+
+    def list_scheduler_clusters(self) -> List[Row]:
+        return self.db.find("scheduler_clusters")
+
+    # ------------------------------------------------------------------
+    # Instance registration (UpdateScheduler/UpdateSeedPeer upserts)
+    # ------------------------------------------------------------------
+
+    def update_scheduler(self, *, hostname: str, ip: str, port: int,
+                         scheduler_cluster_id: int,
+                         features: List[str] | None = None) -> Row:
+        existing = self.db.find_one(
+            "schedulers", hostname=hostname, ip=ip,
+            scheduler_cluster_id=scheduler_cluster_id,
+        )
+        if existing is not None:
+            self.db.update("schedulers", existing.id, port=port,
+                           features=features or [])
+            # Invalidate AFTER the write: before it, a concurrent reader
+            # could re-cache the pre-write rows for a full TTL.
+            self.cache.invalidate_prefix("list_schedulers")
+            return self.db.get("schedulers", existing.id)
+        row_id = self.db.insert(
+            "schedulers", hostname=hostname, ip=ip, port=port,
+            scheduler_cluster_id=scheduler_cluster_id,
+            features=features or [], state=STATE_INACTIVE,
+        )
+        self.cache.invalidate_prefix("list_schedulers")
+        return self.db.get("schedulers", row_id)
+
+    def update_seed_peer(self, *, hostname: str, ip: str, port: int,
+                         download_port: int, seed_peer_cluster_id: int,
+                         type: str = "super", idc: str = "",
+                         location: str = "") -> Row:
+        existing = self.db.find_one(
+            "seed_peers", hostname=hostname, ip=ip,
+            seed_peer_cluster_id=seed_peer_cluster_id,
+        )
+        if existing is not None:
+            self.db.update("seed_peers", existing.id, port=port,
+                           download_port=download_port, type=type,
+                           idc=idc, location=location)
+            return self.db.get("seed_peers", existing.id)
+        row_id = self.db.insert(
+            "seed_peers", hostname=hostname, ip=ip, port=port,
+            download_port=download_port, type=type, idc=idc,
+            location=location, seed_peer_cluster_id=seed_peer_cluster_id,
+            state=STATE_INACTIVE,
+        )
+        return self.db.get("seed_peers", row_id)
+
+    # ------------------------------------------------------------------
+    # Keepalive (manager_server_v2.go:968-1050)
+    # ------------------------------------------------------------------
+
+    def keepalive(self, *, source_type: str, hostname: str, ip: str,
+                  cluster_id: int) -> None:
+        """Mark the instance active and stamp the keepalive time; the
+        expiry sweep flips instances inactive after ``keepalive_ttl``."""
+        table = "schedulers" if source_type == "scheduler" else "seed_peers"
+        cluster_col = ("scheduler_cluster_id" if table == "schedulers"
+                       else "seed_peer_cluster_id")
+        row = self.db.find_one(
+            table, hostname=hostname, ip=ip, **{cluster_col: cluster_id}
+        )
+        if row is None:
+            raise ManagerError(f"{source_type} {hostname}/{ip} not registered")
+        self.db.update(table, row.id, state=STATE_ACTIVE,
+                       last_keepalive=time.time())
+        # Invalidate AFTER the write and only on a state flip —
+        # steady-state keepalives would otherwise defeat the cache.
+        if row.state != STATE_ACTIVE:
+            self.cache.invalidate_prefix("list_schedulers")
+
+    def sweep_keepalive(self) -> int:
+        """Expire silent instances (the stream-drop path of KeepAlive)."""
+        cutoff = time.time() - self.keepalive_ttl
+        flipped = 0
+        for table in ("schedulers", "seed_peers"):
+            for row in self.db.query(
+                f"SELECT * FROM {table} WHERE state=? AND last_keepalive<?",
+                [STATE_ACTIVE, cutoff],
+            ):
+                self.db.update(table, row.id, state=STATE_INACTIVE)
+                flipped += 1
+        if flipped:
+            self.cache.invalidate_prefix("list_schedulers")
+        return flipped
+
+    # ------------------------------------------------------------------
+    # Dynconfig answers (ListSchedulers :500 / ListApplications / configs)
+    # ------------------------------------------------------------------
+
+    def list_schedulers(self, *, ip: str = "", hostname: str = "",
+                        conditions: Dict[str, str] | None = None) -> List[Row]:
+        """Active schedulers of the best-matching cluster for this daemon —
+        the searcher path of ListSchedulers (manager_server_v2.go:500-560).
+        Cached a few seconds: every daemon polls this on its dynconfig
+        ticker."""
+        key = f"list_schedulers:{ip}|{hostname}|{sorted((conditions or {}).items())}"
+        return self.cache.get(
+            key, lambda: self._list_schedulers(
+                ip=ip, hostname=hostname, conditions=conditions))
+
+    def _list_schedulers(self, *, ip: str, hostname: str,
+                         conditions: Dict[str, str] | None) -> List[Row]:
+        clusters = self.db.find("scheduler_clusters")
+        counts = {
+            r.scheduler_cluster_id: r.n
+            for r in self.db.query(
+                "SELECT scheduler_cluster_id, COUNT(*) AS n FROM schedulers "
+                "WHERE state=? GROUP BY scheduler_cluster_id",
+                [STATE_ACTIVE],
+            )
+        }
+        ranked = self.searcher.find_scheduler_clusters(
+            clusters, ip, hostname, conditions,
+            has_active_schedulers=lambda c: counts.get(c.id, 0) > 0,
+        )
+        if not ranked:
+            return []
+        return self.db.query(
+            "SELECT * FROM schedulers WHERE scheduler_cluster_id=? AND state=?",
+            [ranked[0].id, STATE_ACTIVE],
+        )
+
+    def list_seed_peers(self, seed_peer_cluster_id: int | None = None) -> List[Row]:
+        if seed_peer_cluster_id is None:
+            return self.db.query(
+                "SELECT * FROM seed_peers WHERE state=?", [STATE_ACTIVE]
+            )
+        return self.db.query(
+            "SELECT * FROM seed_peers WHERE seed_peer_cluster_id=? AND state=?",
+            [seed_peer_cluster_id, STATE_ACTIVE],
+        )
+
+    def get_scheduler_cluster_config(self, cluster_id: int) -> Dict:
+        cluster = self.db.get("scheduler_clusters", cluster_id)
+        if cluster is None:
+            raise ManagerError(f"scheduler cluster {cluster_id} not found")
+        return dict(cluster.config or {})
+
+    # ------------------------------------------------------------------
+    # Applications (priority config used by schedulers)
+    # ------------------------------------------------------------------
+
+    def create_application(self, name: str, *, url: str = "", bio: str = "",
+                           priorities: Dict | None = None) -> Row:
+        row_id = self.db.insert("applications", name=name, url=url, bio=bio,
+                                priorities=priorities or {})
+        return self.db.get("applications", row_id)
+
+    def list_applications(self) -> List[Row]:
+        return self.db.find("applications")
+
+    # ------------------------------------------------------------------
+    # Model registry (manager_server_v2.go:816-965 CreateModel;
+    # manager/service/model.go:109-190 activation invariant)
+    # ------------------------------------------------------------------
 
     def create_model(self, model_id: str, model_type: str, host_id: str,
                      ip: str, hostname: str, evaluation: Dict,
@@ -405,6 +604,14 @@ class ManagerService:
                 [state, time.time(), row_id],
             )
 
+
+
+def untar_to_directory(artifact: bytes, directory: str) -> None:
+    """Unpack a model.tar payload (sidecar side):
+    ``train.checkpoint.untar_to_directory``, imported on use."""
+    from dragonfly2_tpu_torch.train import checkpoint
+
+    checkpoint.untar_to_directory(artifact, directory)
 
 
 def _tar_directory(directory: str) -> bytes:

@@ -29,7 +29,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from dragonfly2_tpu_torch.device import default_device, is_device_fault
 from dragonfly2_tpu_torch.inference.modelguard import guard_reason
 from dragonfly2_tpu_torch.scheduler.evaluator import scoring
 
@@ -338,8 +337,10 @@ def validate_artifact(model_type: str, artifact: bytes,
     of the card or its kernels while the candidate builds
     (:func:`~dragonfly2_tpu_torch.device.is_device_fault`), raise instead
     of giving a verdict: they must not read as a bad artifact."""
-    device = default_device(device)
-    # Lazy import: the sidecar imports this module for its canary.
+    # Lazy imports: the sidecar imports this module for its canary, and
+    # the manager's process (cmd/manager.py) reads ValidationConfig
+    # without loading torch.
+    from dragonfly2_tpu_torch.device import default_device, is_device_fault
     from dragonfly2_tpu_torch.inference.sidecar import (
         MODEL_NAME_COST,
         MODEL_NAME_GAT,
@@ -348,6 +349,8 @@ def validate_artifact(model_type: str, artifact: bytes,
         _gat_scorer_from_artifact,
         _scorer_from_artifact,
     )
+
+    device = default_device(device)
 
     def validate_feature_type(builder, enforce_correlation: bool):
         # One load→trace-fallback→replay scaffold for every feature-

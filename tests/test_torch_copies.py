@@ -43,6 +43,10 @@ COPIES = [
     "scheduler/replaylog.py", "scheduler/loadbench.py",
     "utils/netping.py", "client/networktopology.py",
     "scheduler/announcer.py",
+    "utils/ttlcache.py", "utils/dynconfig.py", "utils/dflog.py",
+    "manager/database.py", "manager/cache.py", "manager/searcher.py",
+    "manager/oauth.py", "manager/auth.py", "manager/console/__init__.py",
+    "manager/console/index.html", "manager/rest.py", "manager/client.py",
 ]
 
 

@@ -170,6 +170,20 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.scheduler.announcer",
         "dragonfly2_tpu_torch.trainer.service",
         "dragonfly2_tpu_torch.rpc.status",
+        # slice 20: the manager as a service and the scheduler's link
+        "dragonfly2_tpu_torch.utils.ttlcache",
+        "dragonfly2_tpu_torch.utils.dynconfig",
+        "dragonfly2_tpu_torch.utils.dflog",
+        "dragonfly2_tpu_torch.manager.cache",
+        "dragonfly2_tpu_torch.manager.searcher",
+        "dragonfly2_tpu_torch.manager.oauth",
+        "dragonfly2_tpu_torch.manager.auth",
+        "dragonfly2_tpu_torch.manager.console",
+        "dragonfly2_tpu_torch.manager.rest",
+        "dragonfly2_tpu_torch.manager.client",
+        "dragonfly2_tpu_torch.cmd.common",
+        "dragonfly2_tpu_torch.cmd.manager",
+        "dragonfly2_tpu_torch.cmd.scheduler",
     }
     assert expected <= set(probe["imported"])
 
