@@ -7,7 +7,9 @@ blocks mode and serve the results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
-through the scheduler's ``ml`` and ``cost`` evaluators, replay a
+through the scheduler's ``ml`` and ``cost`` evaluators, publish a
+poisoned MLP under live swarm traffic and see the gate, the canary and
+the runtime guard reject it, replay a
 100 000-decision columnar corpus from ``.npc`` segments through the
 rule, ``ml`` and ``cost`` evaluators in batch, record a profiled swarm
 through the scheduler's announce-stream recorder and run the recorded
@@ -236,6 +238,17 @@ Phases (any failure exits nonzero, before the final line):
    artifact faults, the load thread's only failures the injected
    UNAVAILABLE ones, health NOT_SERVING in grace windows, and device
    memory after ``stop()`` within one model's footprint of the start);
+   then mlguard, the slice 21 path: ``guardbench.run_mlguard_rung`` at
+   the JAX rung's defaults — the rule-distilled MLP trained on the card
+   and gated, three daemons on an in-process scheduler whose ``ml``
+   evaluator scores through ``LocalInferenceClient`` and the sidecar,
+   and a NaN model published three ways: quarantined by the gate on the
+   swarm's recorded traces, rejected by shadow and canary while the
+   incumbent serves, and served live until the guard trips, escalates
+   and the watcher restores the good version — with every term of the
+   JAX verdict checked by name, the sidecar's scorer on the card and its
+   ModelInfer within MLP_TOL of an f32 CPU copy, and every launch count
+   0 (set to 0 just before the rung, read just after);
 14. training, the slice 11 path: the 2000-host cluster's seeded records
    (20 000 NetworkTopology, 2 000 Download, and the cost stand-in's
    decisions as ReplayDecision records) written by the port's CSV writer
@@ -318,7 +331,8 @@ Phases (any failure exits nonzero, before the final line):
    back; the copies' event seconds) and hbm_fanout (Llama-3-8B's
    embedding and layers 0-8 at their published shapes in bf16, 4 976
    689 152 data bytes from per-tensor seeded streams, offsets padded to
-   64 bytes, at an origin served by ``OriginServer`` → the port's
+   64 bytes, written on a thread while phase 16 runs (``FanoutOrigin``)
+   and served by ``OriginServer`` → the port's
    in-process ``SchedulerService`` with a SUPER_SEED daemon and a peer
    that downloads the file first → a third daemon's ``download_to_hbm``
    onto cuda:0, with every launch count set to 0 just before and read
@@ -703,6 +717,9 @@ DP_F1_TOL = {"gnn": 0.05, "gat": 0.1}
 DP_MAE_RTOL = 5e-2
 DP_ALLREDUCE_ITERS = 20
 DP_TIMEOUT_S = 300
+# mlguard: seeded trace batches of 12 rows that the rung's sidecar scores
+# through ModelInfer, on the card, against an f32 CPU copy before it stops.
+MLGUARD_PROBE_BATCHES = 8
 # BASELINE config #5 (slice 14): a safetensors file with Llama-3-8B's
 # tensor names and shapes from its published config.json (hidden 4096,
 # intermediate 14336, 32 heads, 8 KV heads of 128, vocab 128256, bf16),
@@ -3971,6 +3988,146 @@ def run_lifecycle(torch, config1_artifact: bytes) -> None:
                 s for _, s in health.transitions)
             and stopped - start <= footprint):
         raise AssertionError("lifecycle: see the lines above")
+
+
+def mlguard_served(torch, service) -> dict:
+    """What the rung's sidecar serves just before it stops: the version,
+    the device of its scorer, and its ModelInfer on MLGUARD_PROBE_BATCHES
+    seeded trace batches against an f32 CPU copy of the active artifact
+    (max |error|, MLP_TOL). A fault here is returned, not raised: the
+    sidecar must still stop."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        ModelInferRequest,
+    )
+    from dragonfly2_tpu_torch.manager.validation import synthetic_traces
+
+    try:
+        with service._lock:
+            loaded = service._models["mlp"]
+        active = service.manager.get_active_model("mlp",
+                                                  service.scheduler_id)
+        batches = synthetic_traces(seed=SEED + 21,
+                                   batches=MLGUARD_PROBE_BATCHES, rows=12)
+        ctx = CallContext()
+        card = [np.asarray(service.ModelInfer(
+            ModelInferRequest("mlp", b), ctx).outputs) for b in batches]
+        cpu = f32_cpu_scorer(torch, active.artifact,
+                             loaded.scorer.max_batch)
+        return {
+            "version": loaded.version, "active_version": active.version,
+            "scorer_device": str(next(
+                loaded.scorer._model.parameters()).device),
+            "finite": all(bool(np.isfinite(c).all()) for c in card),
+            "shapes": sorted({c.shape for c in card}),
+            "mlp_vs_f32_cpu": max(float(np.abs(c - cpu.score(b)).max())
+                                  for c, b in zip(card, batches))}
+    except Exception as exc:  # noqa: BLE001 — reported by run_mlguard
+        return {"error": f"{type(exc).__name__}: {exc}"}
+
+
+def run_mlguard(torch, counts) -> dict:
+    """The poisoned-model rung, slice 21's path:
+    ``guardbench.run_mlguard_rung(seed=SEED)`` on the card at the JAX
+    rung's defaults (reload interval 2 s, guard trip limit 3, 4 canary
+    batches): the rule-distilled MLP (hidden (32,)) trained on the card
+    and gated on synthetic traces, the sidecar's watcher, three daemons
+    pulling md5-checked blobs from a ``MultiBlobServer`` while their
+    scheduler ranks parents through ``RemoteMLEvaluator`` →
+    ``LocalInferenceClient`` → the sidecar, then a NaN model quarantined
+    by the gate on the swarm's recorded traces, rejected by shadow and
+    canary with the incumbent serving, and served live until the
+    evaluator's guard trips, escalates and the watcher restores the good
+    version. Every term of the JAX verdict is checked by name, and
+    beside them: the sidecar's scorer on the card and its ModelInfer
+    within MLP_TOL of an f32 CPU copy (:func:`mlguard_served`). The MLP
+    has no hand-written kernel: with the counts set to 0 just before the
+    rung and read just after, every count must be 0."""
+    from dragonfly2_tpu_torch.inference import guardbench, sidecar
+
+    served = {}
+    base = sidecar.InferenceService
+
+    class Observed(base):
+        """The rung's sidecar, looked at once before it stops."""
+
+        def stop(self):
+            if not served:
+                served.update(mlguard_served(torch, self))
+            super().stop()
+
+    sidecar.InferenceService = Observed
+    try:
+        counts.reset()
+        t0 = time.perf_counter()
+        report = guardbench.run_mlguard_rung(seed=SEED)
+        seconds = time.perf_counter() - t0
+        launches = counts.read()
+    finally:
+        sidecar.InferenceService = base
+    stats = report["counters"]
+    bound = report["rollback_bound_s"]
+    shadow, guard = report["shadow_phase"], report["guard_phase"]
+    states = report["registry"].get("states", {})
+    active = [v for v, state in states.items() if state == "active"]
+    terms = {
+        "no_error": report["error"] is None,
+        "success_rate": report["success_rate"] == 1.0,
+        "gate_rejected_on_recorded_traces": (
+            report["gate"]["rejected_offline"]
+            and report["gate"]["trace_source"] == "recorded"),
+        "shadow_rolled_back_in_bound": (
+            shadow["rolled_back"] and shadow["rollback_s"] is not None
+            and shadow["rollback_s"] <= bound),
+        "shadow_incumbent_held": shadow["incumbent_held"],
+        "guard_rolled_back_in_bound": (
+            guard["rolled_back"] and guard["rollback_s"] is not None
+            and guard["rollback_s"] <= bound),
+        "ml_guard_trips": (stats.get("ml_guard_trips", 0)
+                           >= report["guard_trip_limit"]),
+        "ml_quarantines_reported": stats.get("ml_quarantines_reported",
+                                             0) >= 1,
+        "canary_rollbacks": stats.get("canary_rollbacks", 0) >= 1,
+        "model_rollbacks": stats.get("model_rollbacks", 0) >= 2,
+        "model_quarantines": stats.get("model_quarantines", 0) >= 3,
+        "quality_mean": (report["quality_mean"] or 0.0)
+        >= guardbench.QUALITY_FLOOR,
+        "guard_quality_min": (
+            guard["quality_samples"] > 0
+            and guard["quality_min"] is not None
+            and guard["quality_min"] >= guardbench.QUALITY_FLOOR),
+        "one_active_row_the_good_version": (
+            active == [report["registry"].get("good_version")]),
+        "verdict_pass": report["verdict_pass"],
+        "scorer_on_card": served.get("scorer_device", "").startswith(
+            "cuda"),
+        "served_the_good_version": (
+            served.get("version") == served.get("active_version")
+            == report["registry"].get("good_version")),
+        "served_finite_12_rows": (served.get("finite") is True
+                                  and served.get("shapes") == [(12,)]),
+        "mlp_vs_f32_cpu": served.get("mlp_vs_f32_cpu",
+                                     float("inf")) <= MLP_TOL,
+        "no_kernel_launched": not any(launches.values()),
+    }
+    log("mlguard", seconds=seconds, card=nvidia_smi(),
+        reload_interval_s=report["reload_interval_s"],
+        rollback_bound_s=bound, guard_trip_limit=report["guard_trip_limit"],
+        downloads=report["downloads"], failures=report["failures"],
+        scored=stats.get("scored"), fallbacks=stats.get("fallbacks"),
+        shadow_rollback_s=shadow["rollback_s"],
+        guard_rollback_s=guard["rollback_s"],
+        quality_mean=report["quality_mean"],
+        guard_quality_min=guard["quality_min"],
+        guard_quality_samples=guard["quality_samples"],
+        gate=report["gate"], counters=stats, registry=report["registry"],
+        served=served, mlp_tol=MLP_TOL, launches=launches,
+        error=report["error"], terms=terms)
+    failed = [name for name, ok in terms.items() if not ok]
+    if failed:
+        raise AssertionError(f"mlguard: {failed} failed (see the line "
+                             "above)")
+    return launches
 
 
 def jitter(params: dict, rng) -> dict:
@@ -7502,10 +7659,16 @@ def write_llama_shard(path: str, specs: list) -> dict:
             rng = np.random.default_rng((SEED, i))
             digest, left = hashlib.sha256(), bf16_bytes(shape)
             while left:
-                chunk = rng.bytes(min(left, FANOUT_CHUNK))
+                # rng.bytes(n)'s own draw, viewed in place: the same bytes
+                # without its three copies, which hold the interpreter lock
+                # while the file is written beside other phases.
+                n = min(left, FANOUT_CHUNK)
+                chunk = memoryview(rng.integers(
+                    0, 1 << 32, size=(n - 1) // 4 + 1, dtype=np.uint32
+                ).astype("<u4", copy=False)).cast("B")[:n]
                 digest.update(chunk)
                 f.write(chunk)
-                left -= len(chunk)
+                left -= n
             f.write(b"\0" * ((-bf16_bytes(shape)) % FANOUT_ALIGN))
             digests[name] = digest.hexdigest()
     return digests
@@ -7554,13 +7717,61 @@ def fanout_layers(tmp: str) -> int:
     return layers
 
 
-def run_hbm_fanout(torch, counts, dev) -> dict:
+class FanoutOrigin:
+    """Config #5's origin file, written on a background thread from the
+    moment this is made (the write is host work: seeded bytes, sha256,
+    the disk), so that an earlier phase's wait hides it. ``wait()``
+    returns the digests, the write's own seconds and the seconds spent
+    waiting for it; ``close()`` waits for the writer and deletes the
+    temp dir."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.tmp = tempfile.mkdtemp(prefix="smoke-fanout-")
+        self.layers = fanout_layers(self.tmp)
+        self.specs = llama_shard_specs(self.layers)
+        self.dir = os.path.join(self.tmp, "origin")
+        os.makedirs(self.dir)
+        self.path = os.path.join(self.dir, "model.safetensors")
+        self._out = {}
+        self._thread = threading.Thread(target=self._write, daemon=True,
+                                        name="fanout-origin")
+        if self.layers >= 1:
+            self._thread.start()
+
+    def _write(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._out["digests"] = write_llama_shard(self.path, self.specs)
+        except Exception as exc:  # noqa: BLE001 — re-raised by wait()
+            self._out["error"] = exc
+        self._out["write_s"] = time.perf_counter() - t0
+
+    def wait(self) -> tuple:
+        t0 = time.perf_counter()
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return (self._out["digests"], self._out["write_s"],
+                time.perf_counter() - t0)
+
+    def close(self) -> None:
+        if self._thread.ident is not None:
+            self._thread.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def run_hbm_fanout(torch, counts, dev, origin: FanoutOrigin | None = None
+                   ) -> dict:
     """BASELINE config #5 through the port's entry point: the shard at an
     origin → the in-process scheduler, a SUPER_SEED daemon and a warmed
     peer → a third daemon's ``download_to_hbm`` onto ``dev``. Launch
-    counts are set to 0 just before the download and read just after."""
+    counts are set to 0 just before the download and read just after.
+    ``origin`` is the file's writer, started earlier (None: start it
+    now); the phase waits for it and deletes it at the end."""
     import hashlib
-    import tempfile
     import threading
 
     from dragonfly2_tpu_torch import native
@@ -7573,14 +7784,15 @@ def run_hbm_fanout(torch, counts, dev) -> dict:
 
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="smoke-fanout-")
+    origin = origin if origin is not None else FanoutOrigin()
+    tmp = origin.tmp
     daemons = []
     try:
-        layers = fanout_layers(tmp)
+        layers = origin.layers
         if layers < 1:
             raise AssertionError(f"{shutil.disk_usage(tmp).free} bytes free "
                                  "under the temp dir: not one layer fits")
-        specs = llama_shard_specs(layers)
+        specs = origin.specs
         reduced = [
             f"Llama-3-8B cut to its first shard's tensors: "
             f"model.embed_tokens.weight and layers 0-{layers - 1} whole "
@@ -7591,17 +7803,12 @@ def run_hbm_fanout(torch, counts, dev) -> dict:
         if layers < FANOUT_LAYERS:
             reduced.append(f"{FANOUT_LAYERS - layers} fewer layers: "
                            "the disk under the temp dir is short")
-        origin_dir = os.path.join(tmp, "origin")
-        os.makedirs(origin_dir)
-        path = os.path.join(origin_dir, "model.safetensors")
-        t0 = time.perf_counter()
-        digests = write_llama_shard(path, specs)
-        write_s = time.perf_counter() - t0
-        length = os.path.getsize(path)
+        digests, write_s, write_wait_s = origin.wait()
+        length = os.path.getsize(origin.path)
         piece_size = compute_piece_size(length)
 
-        with OriginServer(origin_dir) as origin:
-            url = origin.url("model.safetensors")
+        with OriginServer(origin.dir) as server:
+            url = server.url("model.safetensors")
             scheduler, start_daemon = fanout_mesh(tmp)
             daemons.append(start_daemon("seed-1", HostType.SUPER_SEED))
             scheduler.seed_peer_client = daemons[0].seed_client()
@@ -7693,7 +7900,8 @@ def run_hbm_fanout(torch, counts, dev) -> dict:
             content_bytes=length, piece_size=piece_size,
             piece_count=compute_piece_count(length, piece_size),
             native_available=native.available(),
-            write_file_s=write_s, warm_download_s=warm_s,
+            write_file_s=write_s, write_file_wait_s=write_wait_s,
+            warm_download_s=warm_s,
             t_last_piece_s=t_last_piece, t_last_tensor_s=t_last_tensor,
             first_tensor_landed_s=landed[0],
             last_tensor_landed_s=landed[-1],
@@ -7723,7 +7931,7 @@ def run_hbm_fanout(torch, counts, dev) -> dict:
     finally:
         for d in reversed(daemons):
             d.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+        origin.close()
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -8108,6 +8316,8 @@ def main() -> int:
     run_microbatch(torch, trained_mlp, eval_x)
     run_shed(torch, trained_mlp)
     run_lifecycle(torch, mlp_artifact_bytes)
+    # -- phase 13a: the poisoned-model rung, slice 21 -------------------------
+    mlguard_launches = run_mlguard(torch, counts)
     cost_artifact, cost_scorer, cost_launches = run_train_cost(
         torch, mlp_x, mlp_y, counts)
     check_cost_evaluator(torch, cost_artifact, cost_scorer)
@@ -8152,13 +8362,20 @@ def main() -> int:
     config4_launches = run_federated_config4(torch, counts)
 
     # -- phase 16: data parallelism, slice 13 -------------------------------
-    dp_launches = run_data_parallel(torch, mlp_x, mlp_y, {
-        "evaluations": training_evals, "predicted": training_predicted})
+    # Config #5's origin file is written meanwhile: the host work of
+    # hbm_fanout, hidden behind this phase's wait on its ranks.
+    fanout_origin = FanoutOrigin()
+    try:
+        dp_launches = run_data_parallel(torch, mlp_x, mlp_y, {
+            "evaluations": training_evals, "predicted": training_predicted})
 
-    # -- phase 17: BASELINE config #5, slice 14 -----------------------------
-    card0 = torch.device("cuda", 0)
-    run_hbm_sink_small(torch, card0)
-    fanout_launches = run_hbm_fanout(torch, counts, card0)
+        # -- phase 17: BASELINE config #5, slice 14 -------------------------
+        card0 = torch.device("cuda", 0)
+        run_hbm_sink_small(torch, card0)
+        fanout_launches = run_hbm_fanout(torch, counts, card0,
+                                         fanout_origin)
+    finally:
+        fanout_origin.close()
 
     # -- phase 18: sequence, pipeline and expert parallelism, slice 15 ------
     par_launches = run_parallel(torch, graph)
@@ -8180,6 +8397,7 @@ def main() -> int:
                    "replay": replay_launches[row["name"]],
                    "replay_ab": replay_ab_launches[row["name"]],
                    "lifecycle": lifecycle_launches[row["name"]],
+                   "mlguard": mlguard_launches[row["name"]],
                    "manager_plane": manager_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "probe_loop": probe_launches[row["name"]],

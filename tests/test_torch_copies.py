@@ -47,6 +47,8 @@ COPIES = [
     "manager/database.py", "manager/cache.py", "manager/searcher.py",
     "manager/oauth.py", "manager/auth.py", "manager/console/__init__.py",
     "manager/console/index.html", "manager/rest.py", "manager/client.py",
+    "utils/tlsconf.py", "utils/otlp.py", "utils/reload.py",
+    "client/uploadbench.py", "client/chaosbench.py", "client/qosbench.py",
 ]
 
 

@@ -184,6 +184,15 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.cmd.common",
         "dragonfly2_tpu_torch.cmd.manager",
         "dragonfly2_tpu_torch.cmd.scheduler",
+        # slice 21: the poisoned-model rung, the chaos plane, and the
+        # modules the data plane and tracing import
+        "dragonfly2_tpu_torch.utils.tlsconf",
+        "dragonfly2_tpu_torch.utils.otlp",
+        "dragonfly2_tpu_torch.utils.reload",
+        "dragonfly2_tpu_torch.client.uploadbench",
+        "dragonfly2_tpu_torch.client.chaosbench",
+        "dragonfly2_tpu_torch.client.qosbench",
+        "dragonfly2_tpu_torch.inference.guardbench",
     }
     assert expected <= set(probe["imported"])
 
@@ -194,3 +203,98 @@ def test_no_forbidden_module_loaded(probe, package):
     # "dragonfly2_tpu" prefix but is not that package.
     hits = [m for m in probe["modules"] if m.split(".")[0] == package]
     assert hits == [], hits
+
+
+# Modules of the JAX package the port does not have yet (ROADMAP.md,
+# Queue 1 item 4: they need grpc, or processes that serve it), each with
+# every line of the port that names it. A call that reaches one of these
+# lines raises ModuleNotFoundError naming the module.
+NOT_PORTED = {
+    "dragonfly2_tpu_torch.rpc.client": {
+        "dragonfly2_tpu_torch/client/networktopology.py:75",
+    },
+    "dragonfly2_tpu_torch.scheduler.rpcserver": {
+        "dragonfly2_tpu_torch/client/networktopology.py:76",
+        "dragonfly2_tpu_torch/client/networktopology.py:88",
+        "dragonfly2_tpu_torch/scheduler/networktopology/antientropy.py:48",
+        "dragonfly2_tpu_torch/client/chaosbench.py:329",
+        "dragonfly2_tpu_torch/client/chaosbench.py:751",
+    },
+    "dragonfly2_tpu_torch.scheduler.replica": {
+        "dragonfly2_tpu_torch/client/chaosbench.py:285",
+    },
+    "dragonfly2_tpu_torch.client.daemon_proc": {
+        "dragonfly2_tpu_torch/client/chaosbench.py:591",
+    },
+}
+
+
+def _module_file(name: str):
+    path = os.path.join(REPO, *name.split("."))
+    for candidate in (path + ".py", os.path.join(path, "__init__.py")):
+        if os.path.isfile(candidate):
+            return candidate
+    return None
+
+
+def _package_names(init_file: str) -> set:
+    """The names a package's ``__init__.py`` binds."""
+    import ast
+
+    names = set()
+    with open(init_file) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return names
+
+
+def _port_module_references():
+    """(module, "file:line") for every ``dragonfly2_tpu_torch`` module the
+    port and ``chip_smoke.py`` import — at module level or inside a
+    function — or start with ``python -m``."""
+    import ast
+
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dragonfly2_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in sorted(files):
+        where = os.path.relpath(path, REPO)
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            found = []
+            if isinstance(node, ast.Import):
+                found = [a.name for a in node.names]
+            elif (isinstance(node, ast.ImportFrom) and node.level == 0
+                  and node.module):
+                found = [node.module]
+                init = _module_file(node.module)
+                if init is not None and init.endswith("__init__.py"):
+                    bound = _package_names(init)
+                    found += [f"{node.module}.{a.name}" for a in node.names
+                              if a.name not in bound]
+            elif isinstance(node, (ast.List, ast.Tuple)):
+                items = node.elts
+                found = [b.value for a, b in zip(items, items[1:])
+                         if isinstance(a, ast.Constant) and a.value == "-m"
+                         and isinstance(b, ast.Constant)
+                         and isinstance(b.value, str)]
+            for name in found:
+                if name.split(".")[0] == "dragonfly2_tpu_torch":
+                    yield name, f"{where}:{node.lineno}"
+
+
+def test_every_imported_port_module_exists():
+    missing = {}
+    for name, where in _port_module_references():
+        if _module_file(name) is None:
+            missing.setdefault(name, set()).add(where)
+    assert missing == NOT_PORTED
