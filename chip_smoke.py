@@ -2,8 +2,10 @@
 """Chip smoke for the PyTorch port: serve the GraphTransformer parent
 scorer (BASELINE config #3) and the MLP scorer, also behind the
 micro-batcher and through the model registry's gate and the
-shadow/canary rollout, train the GraphTransformer in gather mode and in
-blocks mode and serve the results, run ring mode in
+shadow/canary rollout, with the registry in S3 and weights, image
+layers and objects through the daemon's edge, train the
+GraphTransformer in gather mode and in blocks mode and serve the
+results, run ring mode in
 a world of one, run Ulysses attention, train GraphSAGE (BASELINE config
 #2) with on-device sampling, and train the MLP bandwidth predictor
 (BASELINE config #1) and the piece-cost model and rank parents with them
@@ -214,7 +216,24 @@ Phases (any failure exits nonzero, before the final line):
    fault under the MLP's v2 tripping the scheduler's guard, escalated
    through the link, v1 restored; the link's trace upload replayed by
    the next MLP candidate's gate; the REST calls' p50/p99; K1 and K2a
-   exactly 2 passes × 2 layers each);
+   exactly 2 passes × 2 layers each), then edge (the daemon's edge and
+   the cloud object stores, slice 22, against ``EdgeS3``, a loopback S3
+   endpoint that verifies every request's SigV4 and refuses one request
+   signed with a wrong secret: (a) config #3 v1 (blocks) and v2 (gather)
+   gated from ``S3ObjectStore`` on the card, the stored objects' sha256
+   equal to the artifacts', ``cmd.manager --object-store s3`` started
+   from ``AWS_*`` on the same database listing both under a JWT and
+   rolling v2 back, the watcher rebuilding v1 from S3 and ModelInfer
+   equal to a direct load, K1 and K2a exactly 4 each; (b) Llama-3-8B's
+   decoder layer 0 (nine bf16 tensors, 436 MB) from ``s3://`` through a
+   SUPER_SEED and a peer's ``download_to_hbm`` onto cuda:0, every tensor
+   bit-equal, the object served once, the seed the peer's parent; (c) a
+   128 MiB layer blob through two daemons' registry mirrors with the
+   task header and the origin serving it once, a ``direct`` rule around
+   the mesh, a CONNECT tunnel both ways, a host outside the whitelist
+   refused, and, where ``cryptography`` imports, the CONNECT hijack;
+   (d) a 64 MiB object through two dfstore gateways, B's GET from A,
+   an overwrite a new task; no kernel on (b)-(d));
    after the evaluators, microbatch (the trained MLP behind
    ``InferenceService(micro_batch=True)`` at its defaults: the ladder at
    1, 8, 32 and 128 threads of 16-row requests; controls: the service
@@ -616,6 +635,21 @@ MANAGER_START_TIMEOUT_S = 60.0
 MANAGER_SCHEDULER_ID = 1000
 MANAGER_WARM_DECISIONS = 8
 MANAGER_ROLLBACK_TOL = 0.0
+# The daemon's edge and the cloud object stores (slice 22), on loopback:
+# a path-style S3 endpoint that verifies every request's SigV4 (and each
+# body's sha256) with the port's own signer, under EDGE_S3_KEYS; the
+# registry's gat versions kept there under EDGE_SCHEDULER_ID; Llama-3-8B's
+# decoder layer 0 (nine bf16 tensors, 436 MB) at s3://EDGE_WEIGHTS_URL;
+# an EDGE_BLOB_BYTES layer blob behind the proxy's registry mirror, and
+# an EDGE_OBJECT_BYTES object through the dfstore gateway. EDGE_ECHO_BYTES
+# go through a CONNECT tunnel each way.
+EDGE_S3_KEYS = ("edge-access-key", "edge-secret-key")
+EDGE_SCHEDULER_ID = 2200
+EDGE_WEIGHTS_URL = "models/layer0.safetensors"
+EDGE_BLOB_BYTES = 128 << 20
+EDGE_OBJECT_BYTES = 64 << 20
+EDGE_ECHO_BYTES = 1 << 20
+EDGE_TIMEOUT_S = 300
 # The training orchestrator (slice 11): records of config #2's 2000-host
 # cluster (bench.py:382-386) from one SyntheticCluster, topology first,
 # written as CSV segments: TRAINING_TOPOLOGY NetworkTopology records
@@ -4262,18 +4296,21 @@ class TimedHTTP:
                 "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)]}
 
 
-def start_manager(tmp: str):
+def start_manager(tmp: str, store_args=None, env=None):
     """``python -m dragonfly2_tpu_torch.cmd.manager`` in a child process
     (auth and the model gate on, both listeners on free loopback ports)
-    → (process, public port, internal port), read from its stdout."""
+    → (process, public port, internal port), read from its stdout.
+    ``store_args`` replace the filesystem store's flags; ``env`` is the
+    child's environment (None: this process's)."""
     err = open(os.path.join(tmp, "manager.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.manager",
          "--host", "127.0.0.1", "--port", "0", "--internal-port", "0",
          "--db", os.path.join(tmp, "manager.db"),
-         "--object-store-dir", os.path.join(tmp, "objects"),
+         *(store_args or ["--object-store-dir",
+                          os.path.join(tmp, "objects")]),
          "--model-gate"], cwd=ROOT, stdout=subprocess.PIPE, stderr=err,
-        text=True)
+        text=True, env=env)
     err.close()
     # A child that hangs before printing is killed, so readline returns.
     import threading
@@ -4614,6 +4651,759 @@ def run_manager_plane(torch, artifacts: dict, mlp_bytes: bytes,
     if failed:
         raise AssertionError(f"manager_plane: {failed}; see the line above")
     return launches
+
+
+class EdgeS3:
+    """A path-style S3 endpoint on loopback for the edge phase (what
+    ``tests/fake_s3.py`` is to the CPU tests): bucket creation, PUT, GET
+    with a Range, HEAD, DELETE and ListObjectsV2, in memory. Every
+    request's SigV4 is recomputed with the port's ``utils/awssig`` from
+    the headers the request says it signed, and its body's sha256 held
+    against ``x-amz-content-sha256``; a mismatch answers 403. Counts the
+    requests, the verified and the refused ones, and the body bytes each
+    object served to GETs."""
+
+    def __init__(self, access_key: str, secret_key: str,
+                 region: str = "us-east-1"):
+        import collections
+        import datetime
+        import hashlib
+        import threading
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from dragonfly2_tpu_torch.client.piece import parse_http_range
+        from dragonfly2_tpu_torch.utils.awssig import (
+            parse_authorization,
+            sign_request,
+        )
+
+        self.buckets: dict = {}
+        self.served = collections.Counter()
+        self.counts = collections.Counter()
+        lock = threading.Lock()
+        edge = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _verified(self, body: bytes) -> bool:
+                auth = self.headers.get("Authorization", "")
+                try:
+                    key, _, signature = parse_authorization(auth)
+                    now = datetime.datetime.strptime(
+                        self.headers.get("x-amz-date", ""),
+                        "%Y%m%dT%H%M%SZ").replace(
+                        tzinfo=datetime.timezone.utc)
+                except (ValueError, KeyError):
+                    return False
+                payload_hash = self.headers.get("x-amz-content-sha256", "")
+                if (key != access_key or payload_hash
+                        != hashlib.sha256(body).hexdigest()):
+                    return False
+                names = auth.split("SignedHeaders=", 1)[-1].split(",")[0]
+                headers = {n: self.headers.get(n) for n in names.split(";")
+                           if n not in ("host", "x-amz-date",
+                                        "x-amz-content-sha256")
+                           and self.headers.get(n) is not None}
+                want = sign_request(
+                    self.command, f"http://{self.headers.get('Host')}"
+                    f"{self.path}", region=region, access_key=access_key,
+                    secret_key=secret_key, headers=headers,
+                    payload_hash=payload_hash, now=now)
+                return parse_authorization(
+                    want["Authorization"])[2] == signature
+
+            def _send(self, code: int, body=b"", headers=None):
+                self.send_response(code)
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if self.command != "HEAD" and body:
+                    self.wfile.write(body)
+
+            def _handle(self):  # noqa: C901 — one branch a verb
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length) if length else b""
+                ok = self._verified(body)
+                with lock:
+                    edge.counts["requests"] += 1
+                    edge.counts["verified" if ok else "refused"] += 1
+                if not ok:
+                    return self._send(403, b"SignatureDoesNotMatch")
+                parsed = urllib.parse.urlparse(self.path)
+                bucket, _, key = parsed.path.lstrip("/").partition("/")
+                key = urllib.parse.unquote(key)
+                query = dict(urllib.parse.parse_qsl(parsed.query))
+                objects = edge.buckets.get(bucket)
+                if not key and self.command == "PUT":
+                    if objects is not None:
+                        return self._send(409)
+                    edge.buckets[bucket] = {}
+                    return self._send(200)
+                if not key and self.command == "HEAD":
+                    return self._send(200 if objects is not None else 404)
+                if objects is None:
+                    return self._send(404, b"NoSuchBucket")
+                if not key and "list-type" in query:
+                    prefix = query.get("prefix", "")
+                    keys = "".join(f"<Contents><Key>{k}</Key></Contents>"
+                                   for k in sorted(objects)
+                                   if k.startswith(prefix))
+                    return self._send(200, (
+                        '<?xml version="1.0"?><ListBucketResult xmlns='
+                        '"http://s3.amazonaws.com/doc/2006-03-01/">'
+                        f"<IsTruncated>false</IsTruncated>{keys}"
+                        "</ListBucketResult>").encode())
+                if self.command == "PUT":
+                    objects[key] = body
+                    return self._send(200)
+                if self.command == "DELETE":
+                    objects.pop(key, None)
+                    return self._send(204)
+                data = objects.get(key)
+                if data is None:
+                    return self._send(404, b"NoSuchKey")
+                meta = {"ETag": f'"{hashlib.md5(data[:4096]).hexdigest()}'
+                                f'-{len(data)}"',
+                        "Last-Modified": "Mon, 01 Jan 2024 00:00:00 GMT"}
+                if self.command == "HEAD":
+                    self.send_response(200)
+                    for k, v in meta.items():
+                        self.send_header(k, v)
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    return None
+                start, end, code = 0, len(data) - 1, 200
+                if self.headers.get("Range"):
+                    rng = parse_http_range(self.headers["Range"], len(data))
+                    start, end, code = rng.start, rng.end, 206
+                    meta["Content-Range"] = (f"bytes {start}-{end}/"
+                                             f"{len(data)}")
+                self.send_response(code)
+                for k, v in meta.items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(end - start + 1))
+                self.end_headers()
+                self.wfile.write(memoryview(data)[start:end + 1])
+                with lock:
+                    edge.served[f"{bucket}/{key}"] += end - start + 1
+                return None
+
+            do_GET = do_PUT = do_HEAD = do_DELETE = _handle
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        self._thread = None
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self._server.server_address[1]}"
+
+    def __enter__(self):
+        import threading
+
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, kwargs={"poll_interval": 0.05},
+            name="edge-s3", daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=10)
+
+
+def sha256_hex(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def tar_members(payload: bytes) -> dict:
+    """name → sha256 of each file in a tar payload."""
+    import io
+    import tarfile
+
+    with tarfile.open(fileobj=io.BytesIO(payload)) as tar:
+        return {m.name: sha256_hex(tar.extractfile(m).read())
+                for m in tar.getmembers() if m.isfile()}
+
+
+def dir_members(path: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = sha256_hex(f.read())
+    return out
+
+
+def edge_registry(torch, s3, artifacts: dict, counts, tmp: str,
+                  device=None) -> dict:
+    """(a) The registry on S3, through K1 and K2a on the card: a
+    trainer-side ``ManagerService`` over ``S3ObjectStore`` with the gate
+    on registers config #3 ``gat`` v1 (blocks) and v2 (gather) — each
+    gate reads its candidate back from S3 and builds it — and an
+    ``InferenceService`` watching the registry installs v2; the manager
+    entry point, started with ``--object-store s3`` from the ``AWS_*``
+    environment on the same database, lists both over REST under a JWT
+    and rolls v2 back, after which the watcher rebuilds v1 from S3.
+    Counts are set to 0 before the gates and read after the rebuild."""
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        CallContext,
+        InferenceService,
+        ModelInferRequest,
+        _gat_scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.manager import Database, ManagerService
+    from dragonfly2_tpu_torch.manager.objectstore import S3ObjectStore
+    from dragonfly2_tpu_torch.manager.service import (
+        _tar_directory,
+        untar_to_directory,
+    )
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.utils.servingstats import ServingStats
+
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    access, secret = EDGE_S3_KEYS
+    steps, http = {}, TimedHTTP()
+    dirs = {}
+    for tag in ("blocks", "gather"):
+        dirs[tag] = os.path.join(tmp, f"artifact-{tag}")
+        untar_to_directory(artifacts[tag], dirs[tag])
+    stats = ServingStats()
+    trainer = ManagerService(
+        Database(os.path.join(tmp, "manager.db")),
+        S3ObjectStore(access_key=access, secret_key=secret,
+                      endpoint_url=s3.endpoint),
+        validation=ValidationConfig(), serving_stats=stats, device=device)
+    sidecar = InferenceService(
+        manager=trainer, scheduler_id=EDGE_SCHEDULER_ID,
+        reload_interval=MANAGER_TICK_S, micro_batch=False,
+        shadow_mode=False, serving_stats=stats, device=device)
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        counts.reset()
+        rows = {tag: trainer.create_model(
+            "edge-gat", "gat", "host", "127.0.0.1", "smoke", {}, dirs[tag],
+            scheduler_id=EDGE_SCHEDULER_ID) for tag in ("blocks", "gather")}
+        sync()
+        steps["gates"] = time.perf_counter() - t0
+        v1, v2 = rows["blocks"], rows["gather"]
+        t0 = time.perf_counter()
+        sidecar.reload_from_manager()
+        sync()
+        steps["serve_v2"] = time.perf_counter() - t0
+        served_v2 = sidecar.serving_version("gat") == v2.version
+        sidecar.serve_watcher()
+        objects = {tag: s3.buckets["models"][row.object_key]
+                   for tag, row in rows.items()}
+        stored = {tag: {
+            "object_sha256": sha256_hex(obj),
+            "artifact_sha256": sha256_hex(_tar_directory(dirs[tag])),
+            "members_equal": tar_members(obj) == dir_members(dirs[tag]),
+            "bytes": len(obj)} for tag, obj in objects.items()}
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, AWS_ACCESS_KEY_ID=access,
+                   AWS_SECRET_ACCESS_KEY=secret, AWS_ENDPOINT_URL=s3.endpoint)
+        proc, public, _ = start_manager(
+            tmp, store_args=["--object-store", "s3"], env=env)
+        steps["manager_start"] = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{public}"
+        t0 = time.perf_counter()
+        token = "Bearer " + http.call(
+            "POST", f"{base}/api/v1/users/signin",
+            {"name": "root", "password": "dragonfly"})["token"]
+        listed = sorted(m["version"] for m in http.call(
+            "GET", f"{base}/api/v1/models?scheduler_id={EDGE_SCHEDULER_ID}",
+            token=token))
+        rollback = http.call("POST", f"{base}/api/v1/models/{v2.id}/rollback",
+                             {"reason": "edge operator rollback"}, token)
+        reload_s = wait_until(
+            "gat v1 rebuilt from S3 after the rollback",
+            lambda: sidecar.serving_version("gat") == v1.version,
+            timeout_s=60.0)
+        sync()
+        launches = counts.read()
+        steps["rollback"] = time.perf_counter() - t0
+        pairs = np.random.default_rng(SEED + 40).integers(
+            0, N_HOSTS, (REQUEST_ROWS, 2))
+        served = sidecar.ModelInfer(ModelInferRequest("gat", pairs),
+                                    CallContext()).outputs
+        direct = _gat_scorer_from_artifact(trainer.get_active_model(
+            "gat", EDGE_SCHEDULER_ID).artifact, device=device)
+        rollback_err = float(np.abs(np.asarray(served, np.float64)
+                                    - direct.score(pairs)).max())
+        del direct
+    finally:
+        sidecar.stop()
+        manager_rc = stop_manager(proc) if proc is not None else None
+    want = {name: 0 for name in launches} | {
+        "graph_flash_attention": 2 * GAT_CFG["layers"],
+        "table_gather": 2 * GAT_CFG["layers"]}
+    checks = {
+        "gated_active": v1.state == v2.state == "active",
+        "served_v2": served_v2,
+        "objects_equal_artifacts": all(
+            o["object_sha256"] == o["artifact_sha256"] and o["members_equal"]
+            for o in stored.values()),
+        "rest_lists_both": listed == sorted([v1.version, v2.version]),
+        "rollback_restored": (rollback["restored"] or {}).get("id") == v1.id,
+        "rollback_scores": rollback_err <= MANAGER_ROLLBACK_TOL,
+        "launches": launches == want,
+        "manager_exit": manager_rc == 0,
+    }
+    return {"checks": checks, "launches": launches,
+            "expected_launches": want, "step_seconds": steps,
+            "stored": stored, "rest_rtt": http.percentiles(),
+            "rollback": {"reload_seconds": reload_s,
+                         "max_abs_err": rollback_err,
+                         "tol": MANAGER_ROLLBACK_TOL},
+            "manager_exit": manager_rc}
+
+
+def edge_s3_to_device(torch, s3, tmp: str, dev) -> dict:
+    """(b) Config #5 with its origin in object storage: Llama-3-8B's
+    decoder layer 0 PUT into the endpoint, then ``download_to_hbm`` of
+    ``s3://`` through a peer whose SUPER_SEED back-sources it over the
+    port's S3 source client."""
+    from dragonfly2_tpu_torch.client import source
+    from dragonfly2_tpu_torch.client.hbm_sink import download_to_hbm
+    from dragonfly2_tpu_torch.client.source_s3 import S3Config, register_s3
+    from dragonfly2_tpu_torch.manager.objectstore import S3ObjectStore
+    from dragonfly2_tpu_torch.utils.hosttypes import HostType
+
+    access, secret = EDGE_S3_KEYS
+    specs = [spec for spec in llama_shard_specs(1)
+             if spec[0] != "model.embed_tokens.weight"]
+    path = os.path.join(tmp, "layer0.safetensors")
+    t0 = time.perf_counter()
+    digests = write_llama_shard(path, specs)
+    with open(path, "rb") as f:
+        data = f.read()
+    os.remove(path)
+    length = len(data)
+    bucket, key = EDGE_WEIGHTS_URL.split("/", 1)
+    store = S3ObjectStore(access_key=access, secret_key=secret,
+                          endpoint_url=s3.endpoint)
+    store.create_bucket(bucket)
+    store.put_object(bucket, key, data)
+    del data
+    put_s = time.perf_counter() - t0
+    register_s3(S3Config(access_key=access, secret_key=secret,
+                         endpoint_url=s3.endpoint))
+    scheduler, start_daemon = fanout_mesh(os.path.join(tmp, "mesh-s3"))
+    daemons = []
+    try:
+        daemons.append(start_daemon("seed-1", HostType.SUPER_SEED))
+        scheduler.seed_peer_client = daemons[0].seed_client()
+        daemons.append(start_daemon("peer-hbm", HostType.NORMAL))
+        t0 = time.perf_counter()
+        tensors = download_to_hbm(daemons[1], f"s3://{EDGE_WEIGHTS_URL}",
+                                  device=dev, timeout=EDGE_TIMEOUT_S)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        last_tensor_s = time.perf_counter() - t0
+        bad = []
+        for name, shape in specs:
+            t = tensors[name]
+            back = t.reshape(-1).view(torch.uint8).cpu().numpy()
+            if (t.device != dev or t.dtype != torch.bfloat16
+                    or tuple(t.shape) != shape
+                    or sha256_hex(back) != digests[name]):
+                bad.append(name)
+        records = scheduler.storage.list_download()
+        parents = sorted({p.host.hostname for r in records
+                          if r.host.hostname == "peer-hbm"
+                          for p in r.parents})
+        seed_fetched = [r.state for r in records
+                        if r.host.hostname == "seed-1"]
+        del tensors
+    finally:
+        for d in reversed(daemons):
+            d.stop()
+        source.unregister("s3")
+    served = s3.served[EDGE_WEIGHTS_URL]
+    checks = {
+        "tensors_on_device_bit_equal": not bad and len(digests) == 9,
+        "served_once": served == length,
+        "seed_fetched": seed_fetched == ["Succeeded"],
+        "parent_is_seed": parents == ["seed-1"],
+    }
+    return {"checks": checks, "bad_tensors": bad, "tensors": len(specs),
+            "content_bytes": length, "put_seconds": put_s,
+            "served_bytes": served, "hbm_peer_parents": parents,
+            "t_last_tensor_s": last_tensor_s,
+            "download_MBps": length / 1e6 / last_tensor_s}
+
+
+def edge_proxy(tmp: str, scheduler, start_daemon, daemons: list) -> dict:
+    """(c) The proxy's registry mirror in front of two daemons: a layer
+    blob from a loopback registry origin pulled through each daemon's
+    mirror in turn, a ``direct`` rule, a CONNECT passthrough, the
+    whitelist, and (where ``cryptography`` imports) the CONNECT hijack."""
+    import http.client
+    import socket
+    import ssl
+    import threading
+    import urllib.request
+
+    from dragonfly2_tpu_torch.client.proxy import (
+        HEADER_TASK_ID,
+        ProxyConfig,
+        ProxyRule,
+        ProxyServer,
+        RegistryMirror,
+        WhiteListEntry,
+    )
+    from dragonfly2_tpu_torch.utils.hosttypes import HostType
+
+    blob = np.random.default_rng(SEED + 41).bytes(EDGE_BLOB_BYTES)
+    digest = "sha256:" + sha256_hex(blob)
+    blob_path = f"/v2/edge/llama/blobs/{digest}"
+    root = os.path.join(tmp, "registry")
+    os.makedirs(os.path.dirname(root + blob_path))
+    with open(root + blob_path, "wb") as f:
+        f.write(blob)
+    whitelist = [WhiteListEntry(host=r"127\.0\.0\.1|localhost")]
+    proxies, out = [], {}
+    echo = socket.socket()
+    try:
+        with OriginServer(root) as origin:
+            remote = origin.url("").rstrip("/")
+            verdicts = []
+            for name in ("mirror-a", "mirror-b"):
+                daemons.append(start_daemon(name, HostType.NORMAL))
+                proxies.append(ProxyServer(daemons[-1], ProxyConfig(
+                    registry_mirror=RegistryMirror(remote=remote),
+                    rules=[ProxyRule(regx=r"blobs/sha256", direct=True)],
+                    whitelist=whitelist)))
+                proxies[-1].start()
+            pulls = []
+            for proxy in proxies:
+                if pulls:
+                    verdicts.append(parent_verdict(scheduler, "mirror-a",
+                                                   remote + blob_path))
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{proxy.port}{blob_path}",
+                        timeout=EDGE_TIMEOUT_S) as resp:
+                    body = resp.read()
+                    task = resp.headers.get(HEADER_TASK_ID)
+                pulls.append({"seconds": time.perf_counter() - t0,
+                              "digest_ok": body == blob,
+                              "task_header": bool(task),
+                              **origin_counts(origin, blob_path)})
+            del body
+            out["pulls"], out["a_as_parent"] = pulls, verdicts[0]
+
+            # A direct rule: the absolute-form request goes around the mesh.
+            conn = http.client.HTTPConnection("127.0.0.1", proxies[1].port,
+                                              timeout=EDGE_TIMEOUT_S)
+            conn.request("GET", remote + blob_path)
+            resp = conn.getresponse()
+            direct_ok = resp.status == 200 and resp.read() == blob
+            out["direct"] = {"ok": direct_ok,
+                             "task_header": resp.getheader(HEADER_TASK_ID),
+                             **origin_counts(origin, blob_path)}
+            conn.close()
+
+            # A host outside the whitelist: 403 before any dial.
+            conn = http.client.HTTPConnection("127.0.0.1", proxies[0].port,
+                                              timeout=30)
+            conn.request("GET", "http://outside.invalid/x")
+            out["outside_whitelist_status"] = conn.getresponse().status
+            conn.close()
+
+            # CONNECT passthrough: bytes through the tunnel both ways; the
+            # far end answers each byte XOR 0x5A.
+            echo.bind(("127.0.0.1", 0))
+            echo.listen(1)
+
+            def serve_echo():
+                conn, _ = echo.accept()
+                with conn:
+                    while data := conn.recv(1 << 16):
+                        conn.sendall((np.frombuffer(data, np.uint8)
+                                      ^ 0x5A).tobytes())
+
+            threading.Thread(target=serve_echo, daemon=True).start()
+            sent = np.random.default_rng(SEED + 42).bytes(EDGE_ECHO_BYTES)
+            raw = tunnel(proxies[0].port, f"127.0.0.1:{echo.getsockname()[1]}")
+            raw.sendall(sent)
+            got = bytearray()
+            while len(got) < len(sent):
+                got += raw.recv(1 << 16)
+            raw.close()
+            out["connect"] = {"bytes_each_way": len(sent), "ok": bytes(got)
+                              == (np.frombuffer(sent, np.uint8)
+                                  ^ 0x5A).tobytes()}
+
+            # The CONNECT hijack, where cryptography is present: the inner
+            # HTTPS GET is redirected onto the mirror's task, which daemon
+            # A serves from its storage.
+            try:
+                import cryptography  # noqa: F401
+
+                out["cryptography"] = True
+            except ImportError:
+                out["cryptography"] = False
+            out["hijack"] = "not run: no cryptography"
+            if out["cryptography"]:
+                hijack = ProxyServer(daemons[0], ProxyConfig(
+                    rules=[ProxyRule(regx=r"^https://localhost:443/(.*)$",
+                                     redirect=remote + r"/\1")],
+                    whitelist=whitelist, hijack_https=True,
+                    ca_dir=os.path.join(tmp, "proxy-ca")))
+                hijack.start()
+                proxies.append(hijack)
+                raw = tunnel(hijack.port, "localhost:443")
+                tls = ssl.create_default_context(
+                    cafile=hijack.ca.ca_cert_path).wrap_socket(
+                    raw, server_hostname="localhost")
+                tls.sendall(f"GET {blob_path} HTTP/1.1\r\nHost: localhost:443"
+                            "\r\nConnection: close\r\n\r\n".encode())
+                status, headers, body = read_http_response(tls)
+                tls.close()
+                out["hijack"] = {
+                    "status": status, "task_header": bool(
+                        headers.get(HEADER_TASK_ID.lower())),
+                    "digest_ok": body == blob,
+                    **origin_counts(origin, blob_path)}
+    finally:
+        echo.close()
+        for proxy in proxies:
+            proxy.stop()
+    (a, b), direct, hijack = out["pulls"], out["direct"], out["hijack"]
+    b_row = [r for r in scheduler.storage.list_download()
+             if r.host.hostname == "mirror-b"]
+    b_parents = sorted(p.host.hostname for r in b_row for p in r.parents)
+    out["b_parents"] = b_parents
+    # The origin served the blob's bytes once, to daemon A's back-source
+    # (which fetches a file this size in concurrent ranges, beside two
+    # one-byte probes). B's pull must come from A and never reach the
+    # origin, unless the scheduler's bad-node rule filters A out (a slow
+    # last piece): then B must go back to the source, once.
+    b_origin = (b["origin_bytes"] - a["origin_bytes"],
+                b["origin_gets"] > a["origin_gets"])
+    out["checks"] = {
+        "mirror_pulls": all(p["digest_ok"] and p["task_header"]
+                            for p in (a, b)),
+        "origin_blob_once": a["origin_bytes"] == EDGE_BLOB_BYTES and (
+            (b_origin, b_parents) == ((0, False), ["mirror-a"])
+            if not out["a_as_parent"].get("bad_node", True) else
+            (b_origin, b_parents) == ((EDGE_BLOB_BYTES, True), [])),
+        "direct_rule": (direct["ok"] and direct["task_header"] is None
+                        and direct["origin_gets"] == b["origin_gets"] + 1
+                        and direct["origin_bytes"]
+                        == b["origin_bytes"] + EDGE_BLOB_BYTES),
+        "outside_whitelist_403": out["outside_whitelist_status"] == 403,
+        "connect_both_ways": out["connect"]["ok"],
+        "hijack": (not out["cryptography"] or (
+            hijack["status"] == 200 and hijack["task_header"]
+            and hijack["digest_ok"]
+            and hijack["origin_bytes"] == direct["origin_bytes"])),
+    }
+    return out
+
+
+def origin_counts(origin, path: str) -> dict:
+    return {"origin_gets": origin.gets[path],
+            "origin_bytes": origin.served[path],
+            "origin_probes": origin.probes[path]}
+
+
+def parent_verdict(scheduler, hostname: str, url: str) -> dict:
+    """The scheduler's view of ``hostname``'s peer of ``url`` as a
+    parent: its piece-cost statistics (count, last, mean and standard
+    deviation of the earlier ones, s) and whether the evaluator's
+    bad-node rule (``evaluator_base.go:211-247``: the last cost above 20 x
+    the mean under 30 pieces, above mean + 3 sigma from 30) filters it
+    out of a child's candidates."""
+    peers = [peer for shard in scheduler.resource.peer_manager._shards
+             for peer in list(shard.items.values())
+             if peer.host.hostname == hostname and peer.task.url == url]
+    if len(peers) != 1:
+        return {"peers": len(peers)}
+    n, last, mean, std = peers[0].piece_cost_stats().snapshot()
+    return {"pieces": n, "last_s": last, "mean_s": mean, "std_s": std,
+            "bad_node": scheduler.scheduling.evaluator.is_bad_node(
+                peers[0])}
+
+
+def tunnel(port: int, target: str):
+    """A socket through the proxy on ``port`` after its CONNECT to
+    ``target`` was answered 200."""
+    import socket
+
+    raw = socket.create_connection(("127.0.0.1", port), timeout=60)
+    raw.sendall(f"CONNECT {target} HTTP/1.1\r\nHost: {target}\r\n\r\n"
+                .encode())
+    head = b""
+    while b"\r\n\r\n" not in head:
+        chunk = raw.recv(1)
+        if not chunk:
+            raise ConnectionError("proxy closed before answering CONNECT")
+        head += chunk
+    if head.split()[1] != b"200":
+        raise AssertionError(f"CONNECT {target}: {head[:80]!r}")
+    return raw
+
+
+def read_http_response(sock) -> tuple:
+    """(status, lower-cased headers, body) of one HTTP/1.1 response with
+    a Content-Length."""
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(1 << 16)
+        if not chunk:
+            raise ConnectionError("eof before headers")
+        buf += chunk
+    head, _, body = buf.partition(b"\r\n\r\n")
+    lines = head.decode("latin1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in
+               (line.partition(":") for line in lines[1:])}
+    want = int(headers.get("content-length", 0))
+    parts = [body]
+    got = len(body)
+    while got < want:
+        chunk = sock.recv(1 << 20)
+        if not chunk:
+            break
+        parts.append(chunk)
+        got += len(chunk)
+    return int(lines[0].split()[1]), headers, b"".join(parts)
+
+
+def edge_gateway(tmp: str, scheduler, daemons: list) -> dict:
+    """(d) The dfstore gateway on daemons A and B over one filesystem
+    backend: an object PUT through A, GET through A (back to source) and
+    through B (the mesh, A its parent); after it is overwritten, B's next
+    GET is a new task (the gateway's version tag)."""
+    from dragonfly2_tpu_torch.client.objectstorage_gateway import (
+        DfstoreClient,
+        ObjectStorageGateway,
+    )
+    from dragonfly2_tpu_torch.manager.objectstore import FilesystemObjectStore
+
+    backend = FilesystemObjectStore(os.path.join(tmp, "gateway-objects"))
+    gateways = [ObjectStorageGateway(d, backend) for d in daemons[:2]]
+    for gw in gateways:
+        gw.start()
+    a, b = (DfstoreClient(f"http://127.0.0.1:{gw.port}", timeout=120)
+            for gw in gateways)
+    rng = np.random.default_rng(SEED + 43)
+    first, second = (rng.bytes(EDGE_OBJECT_BYTES) for _ in range(2))
+    url = gateways[0]._source_url("weights", "layer.bin")
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        a.put_object("weights", "layer.bin", first)
+        seconds["put"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        via_a = a.get_object("weights", "layer.bin") == first
+        seconds["get_a"] = time.perf_counter() - t0
+        a_as_parent = parent_verdict(scheduler, "mirror-a", url)
+        t0 = time.perf_counter()
+        via_b = b.get_object("weights", "layer.bin") == first
+        seconds["get_b"] = time.perf_counter() - t0
+        tags = [gateways[1]._version_tag("weights", "layer.bin")]
+        a.put_object("weights", "layer.bin", second)
+        tags.append(gateways[1]._version_tag("weights", "layer.bin"))
+        after = b.get_object("weights", "layer.bin") == second
+    finally:
+        for gw in gateways:
+            gw.stop()
+    b_rows = [r for r in scheduler.storage.list_download()
+              if r.host.hostname == "mirror-b" and r.task.url == url]
+    parents = [sorted(p.host.hostname for p in r.parents) for r in b_rows]
+    checks = {
+        "get_a": via_a, "get_b": via_b, "after_overwrite": after,
+        # From A, unless the bad-node rule filters A out (then B goes
+        # back to the source: the file).
+        "b_parent_is_a": bool(parents) and parents[0] == (
+            [] if a_as_parent.get("bad_node", True) else ["mirror-a"]),
+        "new_task_after_overwrite": (tags[0] != tags[1] and len(
+            {r.task.id for r in b_rows}) == 2),
+    }
+    return {"checks": checks, "object_bytes": EDGE_OBJECT_BYTES,
+            "seconds": seconds, "b_parents": parents,
+            "a_as_parent": a_as_parent, "version_tags": tags}
+
+
+def run_edge(torch, artifacts: dict, counts, dev) -> dict:
+    """The daemon's edge and the cloud object stores (slice 22) on the
+    card: (a) the registry on S3 gated and rebuilt through K1 and K2a,
+    (b) ``s3://`` weights through P2P into device memory, (c) the proxy's
+    registry mirror, (d) the dfstore gateway; one S3 endpoint verifies
+    every request's signature, and a request under a wrong secret must be
+    refused. Returns the launches of (a); (b)-(d) must launch nothing.
+    ``dev`` is where the registry builds and (b) places the tensors (the
+    CPU only in a rehearsal)."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.manager.objectstore import S3ObjectStore
+
+    tmp = tempfile.mkdtemp(prefix="smoke-edge-")
+    t_phase = time.perf_counter()
+    parts, seconds = {}, {}
+    daemons = []
+    try:
+        with EdgeS3(*EDGE_S3_KEYS) as s3:
+            t0 = time.perf_counter()
+            parts["registry"] = edge_registry(
+                torch, s3, artifacts, counts, tmp,
+                None if dev.type == "cuda" else dev)
+            seconds["registry"] = time.perf_counter() - t0
+            counts.reset()
+            t0 = time.perf_counter()
+            parts["s3_to_device"] = edge_s3_to_device(torch, s3, tmp, dev)
+            seconds["s3_to_device"] = time.perf_counter() - t0
+            wrong = S3ObjectStore(access_key=EDGE_S3_KEYS[0],
+                                  secret_key="wrong-secret",
+                                  endpoint_url=s3.endpoint)
+            wrong_secret_exists = wrong.is_object_exist(
+                *EDGE_WEIGHTS_URL.split("/", 1))
+            requests = dict(s3.counts)
+        scheduler, start_daemon = fanout_mesh(os.path.join(tmp, "mesh"))
+        t0 = time.perf_counter()
+        parts["proxy"] = edge_proxy(tmp, scheduler, start_daemon, daemons)
+        seconds["proxy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["gateway"] = edge_gateway(tmp, scheduler, daemons)
+        seconds["gateway"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rest_launches = counts.read()
+    finally:
+        for d in reversed(daemons):
+            d.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = {f"{part}.{name}": ok for part, out in parts.items()
+              for name, ok in out.pop("checks").items()}
+    checks["s3_every_request_verified"] = (
+        requests.get("refused") == 1
+        and requests.get("verified") == requests.get("requests", 0) - 1)
+    checks["s3_wrong_secret_refused"] = not wrong_secret_exists
+    checks["no_launch_off_the_registry"] = not any(rest_launches.values())
+    log("edge", seconds=time.perf_counter() - t_phase, part_seconds=seconds,
+        card=nvidia_smi() if dev.type == "cuda" else None,
+        s3_requests=requests,
+        launches=parts["registry"]["launches"],
+        expected_launches=parts["registry"]["expected_launches"],
+        launches_s3_proxy_gateway=rest_launches, **parts, checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"edge: {failed}; see the line above")
+    return parts["registry"]["launches"]
 
 
 def training_records():
@@ -6034,15 +6824,57 @@ def join_processes(procs, timeout_s: float, out_dir: str) -> None:
         raise AssertionError(f"processes hung {hung} or failed {failed}")
 
 
+class World:
+    """A world's rank processes, started at once so that they run while
+    this process works on the card (the references they are held
+    against), and joined later. ``args(rank, address, out_dir)`` gives a
+    rank's arguments to ``fn``; each rank writes ``rank<i>.json`` to
+    ``out_dir``."""
+
+    def __init__(self, torch, fn, args, phase: str, backend: str,
+                 world: int, out_dir: str):
+        os.makedirs(out_dir)
+        self.phase, self.backend, self.world = phase, backend, world
+        self.out_dir = out_dir
+        self.parent_gib = release_card_memory(torch)
+        self.t0 = time.perf_counter()
+        address = f"localhost:{free_port()}"
+        self.procs = start_processes([(fn, args(rank, address, out_dir))
+                                      for rank in range(world)])
+
+    def join(self, timeout_s: float) -> tuple:
+        """(each rank's report, seconds from the start to the last
+        report)."""
+        join_processes(self.procs, timeout_s, self.out_dir)
+        self.procs = []
+        ranks = []
+        for rank in range(self.world):
+            with open(os.path.join(self.out_dir, f"rank{rank}.json")) as fh:
+                ranks.append(json.load(fh))
+        return ranks, time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        """Terminate ranks never joined (the caller failed first)."""
+        for proc in self.procs:
+            proc.terminate()
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.procs = []
+
+
 def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
     """Data parallelism, slice 13's path (the JAX mesh's ``data`` axis).
 
     dp_world_one: a child process joins a world of one over NCCL through
     ``init_multihost`` and trains config #2 GraphSAGE; its parameters
     must equal the same run's without a process group (here) bit for
-    bit (its seconds include this process's reference runs beside it). dp_train: DP_WORLD ranks spawned once on cuda:0 over gloo (NCCL
-    refuses two ranks on one card) train every job of :func:`dp_configs`
-    and ``Training.train`` (:func:`dp_train`). dp_nccl_cards: the same
+    bit (its seconds include this process's reference runs beside it).
+    dp_train: DP_WORLD ranks on cuda:0 over gloo (NCCL refuses two ranks
+    on one card), started beside the child and the reference runs, train
+    every job of :func:`dp_configs` and ``Training.train``
+    (:func:`dp_world`, :func:`dp_train`). dp_nccl_cards: the same
     over NCCL with a rank a card where the machine has several cards;
     with one it is logged as waiting. Returns rank 0's launches in
     dp_train, summed over its jobs."""
@@ -6051,16 +6883,22 @@ def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
     from dragonfly2_tpu_torch.trainer import TrainerStorage
 
     tmp = tempfile.mkdtemp(prefix="smoke-dp-")
+    gloo = None
     try:
-        # dp_world_one's child (NCCL, one rank) runs while this process
-        # trains the world-of-one references (no process group) and
-        # writes the training records; the card's numerics do not depend
-        # on who else runs on it.
+        # dp_world_one's child (NCCL, one rank) and dp_train's ranks run
+        # while this process trains the world-of-one references (no
+        # process group); the card's numerics do not depend on who else
+        # runs on it.
         t0 = time.perf_counter()
         parent_gib = release_card_memory(torch)
+        segments = os.path.join(tmp, "segments")
+        write_training_segments(TrainerStorage(segments), mlp_x, mlp_y, tmp,
+                                {})
         out_path = os.path.join(tmp, "world_one.pt")
         child = start_processes([(dp_world_one_child,
                                   (f"localhost:{free_port()}", out_path))])
+        gloo = dp_world(torch, "dp_train", "gloo", DP_WORLD, tmp, segments,
+                        training_ref["predicted"])
         reference, state_one = {}, None
         for name, (kind, config) in dp_configs().items():
             trainer, result, state, _ = dp_fit(kind, config, dp_data(kind),
@@ -6070,9 +6908,6 @@ def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
                 state_one = {k: v.clone() for k, v in state.items()}
             del trainer, result, state
         reference["training"] = training_ref["evaluations"]
-        segments = os.path.join(tmp, "segments")
-        write_training_segments(TrainerStorage(segments), mlp_x, mlp_y, tmp,
-                                {})
         join_processes(child, DP_TIMEOUT_S, tmp)
         one = torch.load(out_path)
         gaps = {k: float((one["state"][k].float()
@@ -6089,15 +6924,17 @@ def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
             raise AssertionError(f"dp_world_one: a world of one over NCCL "
                                  f"is not the no-group run: {gaps}")
 
-        ranks = dp_train(torch, "dp_train", "gloo", DP_WORLD, tmp, segments,
-                         training_ref["predicted"], reference)
+        ranks = dp_train(gloo, reference)
         cards = torch.cuda.device_count()
         if cards > 1:
-            dp_train(torch, "dp_nccl_cards", "nccl", cards, tmp, segments,
-                     training_ref["predicted"], reference)
+            dp_train(dp_world(torch, "dp_nccl_cards", "nccl", cards, tmp,
+                              segments, training_ref["predicted"]),
+                     reference)
         else:
             log("dp_nccl_cards", cards=cards)
     finally:
+        if gloo is not None:
+            gloo.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(ranks[0]["training"]["launches"], 0)
     for name in list(dp_configs()) + ["training"]:
@@ -6106,29 +6943,25 @@ def run_data_parallel(torch, mlp_x, mlp_y, training_ref) -> dict:
     return launches
 
 
-def dp_train(torch, phase: str, backend: str, world: int, tmp: str,
-             segments: str, predicted: dict, reference: dict) -> list:
-    """``world`` ranks over ``backend``, spawned once (:func:`dp_rank`):
-    both ranks' parameter digests equal, each job's gaps to its
-    world-of-one run (``reference``; the training phase's evaluations for
+def dp_world(torch, phase: str, backend: str, world: int, tmp: str,
+             segments: str, predicted: dict) -> World:
+    """``world`` ranks over ``backend`` (:func:`dp_rank`), started now."""
+    return World(torch, dp_rank, lambda rank, address, out_dir: (
+        rank, world, address, backend, out_dir, segments, predicted),
+        phase, backend, world, os.path.join(tmp, phase))
+
+
+def dp_train(started: World, reference: dict) -> list:
+    """The ranks of ``started`` (:func:`dp_world`) joined: both ranks'
+    parameter digests equal, each job's gaps to its world-of-one run
+    (``reference``; the training phase's evaluations for
     ``Training.train``) within DP_LOSS_TOL / DP_F1_TOL / DP_MAE_RTOL, each
     rank's launches as predicted, rank 0 alone uploading; logs the step,
     the all-reduce's time and share of it, samples/s and peak memory of
-    each rank as ``phase``. Returns the ranks' reports."""
-    out_dir = os.path.join(tmp, phase)
-    os.makedirs(out_dir)
-    parent_gib = release_card_memory(torch)
-    t0 = time.perf_counter()
-    address = f"localhost:{free_port()}"
-    join_processes(start_processes(
-        [(dp_rank, (rank, world, address, backend, out_dir, segments,
-                    predicted)) for rank in range(world)]),
-        DP_TIMEOUT_S, out_dir)
-    ranks = []
-    for rank in range(world):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
-            ranks.append(json.load(fh))
-    seconds = time.perf_counter() - t0
+    each rank as the world's phase. Returns the ranks' reports."""
+    ranks, seconds = started.join(DP_TIMEOUT_S)
+    phase, backend, world = started.phase, started.backend, started.world
+    parent_gib = started.parent_gib
 
     failures, jobs = [], {}
     for name, (kind, _) in dp_configs().items():
@@ -6694,10 +7527,17 @@ def par_failures(ranks: list, world: int) -> list:
     return failures
 
 
-def run_parallel_world(torch, phase: str, backend: str, world: int,
-                       tmp: str, one: dict, graph) -> dict:
-    """``world`` ranks over ``backend`` spawned once (:func:`par_rank`),
-    checked against the world of one (``one``, run in this process):
+def par_world(torch, phase: str, backend: str, world: int,
+              tmp: str) -> World:
+    """``world`` ranks over ``backend`` (:func:`par_rank`), started now."""
+    return World(torch, par_rank, lambda rank, address, out_dir: (
+        rank, world, address, backend, out_dir), phase, backend, world,
+        os.path.join(tmp, f"{phase}-world{world}"))
+
+
+def run_parallel_world(torch, started: World, one: dict, graph) -> dict:
+    """The ranks of ``started`` (:func:`par_world`) joined and checked
+    against the world of one (``one``, run in this process):
     ring_gat_ranks, ring_attention and pipeline_moe logged with ``phase``
     as their prefix where it is not the one-card gloo run. Returns rank
     0's launches a path."""
@@ -6714,19 +7554,9 @@ def run_parallel_world(torch, phase: str, backend: str, world: int,
         load_artifact,
     )
 
-    out_dir = os.path.join(tmp, f"{phase}-world{world}")
-    os.makedirs(out_dir)
-    parent_gib = release_card_memory(torch)
-    t0 = time.perf_counter()
-    address = f"localhost:{free_port()}"
-    join_processes(start_processes(
-        [(par_rank, (rank, world, address, backend, out_dir))
-         for rank in range(world)]), PAR_TIMEOUT_S, out_dir)
-    ranks = []
-    for rank in range(world):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
-            ranks.append(json.load(fh))
-    seconds = time.perf_counter() - t0
+    ranks, seconds = started.join(PAR_TIMEOUT_S)
+    phase, backend, world = started.phase, started.backend, started.world
+    out_dir, parent_gib = started.out_dir, started.parent_gib
     failures = par_failures(ranks, world)
     label = f"{backend}, {world} ranks on " + (
         "one card" if backend == "gloo" else f"{world} cards")
@@ -6835,8 +7665,8 @@ def run_parallel(torch, graph) -> dict:
 
     The world of one first, in this process over a one-rank NCCL group
     (ring mode's K1 path with the same seed; the layouts without an
-    exchange), then PAR_WORLD gloo ranks spawned once on the one card
-    (:func:`run_parallel_world`): ring_gat_ranks (config #3 in ring mode,
+    exchange), then PAR_WORLD gloo ranks on the one card, started before
+    the world of one runs (:func:`par_world`, :func:`run_parallel_world`): ring_gat_ranks (config #3 in ring mode,
     rows sharded, K/V around the ring; digests equal, loss and F1 gaps to
     the world of one, the trained weights' embeddings against blocks
     mode's, rank 0's artifact served in a world of one through K1, hops
@@ -6850,10 +7680,11 @@ def run_parallel(torch, graph) -> dict:
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="smoke-par-")
+    gloo = None
     try:
         one_dir = os.path.join(tmp, "world1")
         os.makedirs(one_dir)
-        release_card_memory(torch)
+        gloo = par_world(torch, "parallel", "gloo", PAR_WORLD, tmp)
         t0 = time.perf_counter()
         one = par_world_one(torch, graph, one_dir)
         one["out_dir"] = one_dir
@@ -6868,15 +7699,17 @@ def run_parallel(torch, graph) -> dict:
         if ring["launches"] != expected or ring["sharded"]:
             raise AssertionError(f"ring world of one: launches "
                                  f"{ring['launches']} != {expected}")
-        launches = run_parallel_world(torch, "parallel", "gloo", PAR_WORLD,
-                                      tmp, one, graph)
+        launches = run_parallel_world(torch, gloo, one, graph)
         cards = torch.cuda.device_count()
         if cards > 1:
-            run_parallel_world(torch, "parallel_nccl_cards", "nccl", cards,
-                               tmp, one, graph)
+            run_parallel_world(torch, par_world(
+                torch, "parallel_nccl_cards", "nccl", cards, tmp), one,
+                graph)
         else:
             log("parallel_nccl_cards", cards=cards)
     finally:
+        if gloo is not None:
+            gloo.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
@@ -7113,10 +7946,19 @@ def tp_world_one(torch, graph, out_dir: str) -> dict:
         dist.destroy_process_group()
 
 
-def run_tp_world(torch, phase: str, backend: str, world: int,
-                 model_parallel: int, tmp: str, one: dict) -> dict:
+def tp_world(torch, phase: str, backend: str, world: int,
+             model_parallel: int, tmp: str) -> World:
     """``world`` ranks over ``backend`` as a ``(world / model_parallel x
-    model_parallel)`` grid, spawned once (:func:`tp_rank`), checked
+    model_parallel)`` grid (:func:`tp_rank`), started now."""
+    started = World(torch, tp_rank, lambda rank, address, out_dir: (
+        rank, world, model_parallel, address, backend, out_dir), phase,
+        backend, world, os.path.join(tmp, f"{phase}-world{world}"))
+    started.model_parallel = model_parallel
+    return started
+
+
+def run_tp_world(torch, started: World, one: dict) -> dict:
+    """The grid of ``started`` (:func:`tp_world`) joined and checked
     against the world of one (``one``): the grid as JAX lays out its
     mesh; in every mode equal digests of the replicated parameters and
     of the gathered state on every rank, the loss gap to the world of
@@ -7132,19 +7974,10 @@ def run_tp_world(torch, phase: str, backend: str, world: int,
         _gat_scorer_from_artifact,
     )
 
-    out_dir = os.path.join(tmp, f"{phase}-world{world}")
-    os.makedirs(out_dir)
-    parent_gib = release_card_memory(torch)
-    t0 = time.perf_counter()
-    address = f"localhost:{free_port()}"
-    join_processes(start_processes(
-        [(tp_rank, (rank, world, model_parallel, address, backend, out_dir))
-         for rank in range(world)]), TP_TIMEOUT_S, out_dir)
-    ranks = []
-    for rank in range(world):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
-            ranks.append(json.load(fh))
-    seconds = time.perf_counter() - t0
+    ranks, seconds = started.join(TP_TIMEOUT_S)
+    phase, backend, world = started.phase, started.backend, started.world
+    model_parallel, parent_gib = started.model_parallel, started.parent_gib
+    out_dir = started.out_dir
     n_data = world // model_parallel
     failures = [f"rank {r['rank']} grid {r['grid']}" for r in ranks
                 if r["grid"] != [r["rank"] // model_parallel,
@@ -7361,8 +8194,9 @@ def run_tensor_parallel(torch, graph, rows: list) -> dict:
 
     tp_world_one: config #3 in blocks and gather mode on a one-rank NCCL
     group in this process, the reference runs. tp_grid: TP_GRIDS' worlds
-    of gloo ranks spawned on the one card, one after the other
-    (:func:`run_tp_world`), logged as ``tp_grid``. tp_kernels: the path's
+    of gloo ranks on the one card, all started before the reference runs
+    and joined after them (:func:`tp_world`, :func:`run_tp_world`), logged
+    as ``tp_grid``. tp_kernels: the path's
     kernels at its new shapes (:func:`run_tp_kernels`). tp_nccl_cards:
     the 2 x 2 grid over NCCL with a rank a card where the machine has at
     least 4 cards; with fewer it is logged as waiting. Returns rank 0's
@@ -7370,10 +8204,14 @@ def run_tensor_parallel(torch, graph, rows: list) -> dict:
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="smoke-tp-")
+    grids = []
     try:
         one_dir = os.path.join(tmp, "world1")
         os.makedirs(one_dir)
-        release_card_memory(torch)
+        # Both grids' ranks run beside each other and the reference runs.
+        for world, model_parallel in TP_GRIDS:
+            grids.append(tp_world(torch, "tp_grid", "gloo", world,
+                                  model_parallel, tmp))
         t0 = time.perf_counter()
         one = tp_world_one(torch, graph, one_dir)
         failures = [f"{mode}: launches {r['launches']} != "
@@ -7384,18 +8222,19 @@ def run_tensor_parallel(torch, graph, rows: list) -> dict:
         log("tp_world_one", seconds=time.perf_counter() - t0, modes=one)
         if failures:
             raise AssertionError(f"tp_world_one: {failures}")
-        for world, model_parallel in TP_GRIDS:
-            launches = run_tp_world(torch, "tp_grid", "gloo", world,
-                                    model_parallel, tmp, one)
+        for started in grids:
+            launches = run_tp_world(torch, started, one)
         run_tp_kernels(torch, graph, rows)
         cards = torch.cuda.device_count()
         world, model_parallel = TP_GRIDS[-1]
         if cards >= world:
-            run_tp_world(torch, "tp_nccl_cards", "nccl", world,
-                         model_parallel, tmp, one)
+            run_tp_world(torch, tp_world(torch, "tp_nccl_cards", "nccl",
+                                         world, model_parallel, tmp), one)
         else:
             log("tp_nccl_cards", cards=cards)
     finally:
+        for started in grids:
+            started.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
@@ -7405,12 +8244,21 @@ def run_tensor_parallel(torch, graph, rows: list) -> dict:
 class OriginServer:
     """Config #5's origin: one directory over HTTP/1.1 with single-range
     support (the port's ``client/piece.parse_http_range``), answering as
-    ``tests/fileserver.py`` does; bodies go out with ``sendfile``."""
+    ``tests/fileserver.py`` does; bodies go out with ``sendfile``.
+    ``gets`` counts each path's GETs for content and ``served`` their
+    body bytes, ``probes`` its one-byte ``Range: bytes=0-0`` GETs (how the
+    HTTP source client learns a length and range support)."""
 
     def __init__(self, root: str, host: str = "127.0.0.1"):
+        import collections
+        import threading
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         from dragonfly2_tpu_torch.client.piece import parse_http_range
+
+        gets, probes, served = (collections.Counter() for _ in range(3))
+        self.gets, self.probes, self.served = gets, probes, served
+        lock = threading.Lock()
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -7440,6 +8288,14 @@ class OriginServer:
                 size = os.path.getsize(path)
                 start, length = 0, size
                 header = self.headers.get("Range")
+                with lock:
+                    if header == "bytes=0-0":
+                        probes[self.path] += 1
+                    else:
+                        gets[self.path] += 1
+                        served[self.path] += (
+                            parse_http_range(header, size).length
+                            if header else size)
                 if header:
                     rng = parse_http_range(header, size)
                     start, length = rng.start, rng.length
@@ -7464,8 +8320,9 @@ class OriginServer:
     def __enter__(self):
         import threading
 
-        self._thread = threading.Thread(target=self._server.serve_forever,
-                                        name="origin", daemon=True)
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, kwargs={"poll_interval": 0.05},
+            name="origin", daemon=True)
         self._thread.start()
         return self
 
@@ -8173,6 +9030,9 @@ def main() -> int:
     lifecycle_launches = run_lifecycle_gat(torch, artifacts, counts)
     manager_launches = run_manager_plane(torch, artifacts, mlp_artifact,
                                          counts)
+    # -- the daemon's edge and the cloud object stores, slice 22 -----------
+    edge_launches = run_edge(torch, artifacts, counts,
+                             torch.device("cuda", 0))
 
     # -- phase 5: train in gather mode, slice 2's path --------------------
     trainer, result, train_launches = run_train(
@@ -8399,6 +9259,7 @@ def main() -> int:
                    "lifecycle": lifecycle_launches[row["name"]],
                    "mlguard": mlguard_launches[row["name"]],
                    "manager_plane": manager_launches[row["name"]],
+                   "edge": edge_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "probe_loop": probe_launches[row["name"]],
                    "federated": federated_launches[row["name"]],

@@ -7,6 +7,12 @@ Usage::
         --internal-port 65003 --db ./manager.db \\
         --object-store-dir ./manager-objects [--model-gate] [--no-auth]
 
+``--object-store s3|oss|obs`` keeps the model registry in a cloud
+object store instead of ``--object-store-dir``; the store reads its
+credentials and endpoint from the environment (``AWS_ACCESS_KEY_ID``,
+``AWS_SECRET_ACCESS_KEY``, ``AWS_ENDPOINT_URL`` for S3 and
+S3-compatibles such as MinIO; ``OSS_*`` and ``OBS_*`` likewise).
+
 Serves the JWT/PAT-authenticated REST API (``manager/rest.py``) over
 :class:`~dragonfly2_tpu_torch.manager.ManagerService`: users and RBAC,
 cluster, scheduler, seed-peer, application and model CRUD, rollback,
@@ -21,8 +27,7 @@ Each listener prints one line with its port (``--port 0`` and
 It differs from JAX's on purpose: no ``ManagerMetrics`` (the card
 machine has no ``prometheus_client``), no durable job store, preheat or
 sync-peers service (the job plane is not ported: ``/api/v1/jobs`` answers
-503 or 400 as JAX's does when they are not wired), and only the
-filesystem object store. The manager computes nothing on a device: its
+503 or 400 as JAX's does when they are not wired). The manager computes nothing on a device: its
 ``--model-gate`` is the gate of the ``create_model`` calls that reach
 this database, which run on the trainer's side, on the card.
 """
@@ -53,9 +58,10 @@ def main(argv=None) -> int:
                              "dynconfig; unauthenticated — firewall it); "
                              "-1 disables")
     parser.add_argument("--db", default="./manager.db")
-    parser.add_argument("--object-store", default="fs", choices=["fs"],
-                        help="artifact backend (the S3, OSS and OBS "
-                             "stores are not ported)")
+    parser.add_argument("--object-store", default="fs",
+                        choices=["fs", "s3", "oss", "obs"],
+                        help="artifact backend; s3 reads AWS_* env vars "
+                             "(AWS_ENDPOINT_URL for MinIO-compatibles)")
     parser.add_argument("--object-store-dir", default="./manager-objects")
     parser.add_argument("--no-auth", action="store_true",
                         help="disable JWT/RBAC (internal single-box mode)")
@@ -88,7 +94,12 @@ def main(argv=None) -> int:
     from dragonfly2_tpu_torch.manager.rest import ManagerHTTPServer, RestApi
 
     db = Database(args.db)
-    object_store = FilesystemObjectStore(args.object_store_dir)
+    if args.object_store in ("s3", "oss", "obs"):
+        from dragonfly2_tpu_torch.manager.objectstore import new_object_store
+
+        object_store = new_object_store(args.object_store)
+    else:
+        object_store = FilesystemObjectStore(args.object_store_dir)
     validation = None
     if args.model_gate:
         from dragonfly2_tpu_torch.manager.validation import ValidationConfig

@@ -49,6 +49,11 @@ COPIES = [
     "manager/console/index.html", "manager/rest.py", "manager/client.py",
     "utils/tlsconf.py", "utils/otlp.py", "utils/reload.py",
     "client/uploadbench.py", "client/chaosbench.py", "client/qosbench.py",
+    "utils/awssig.py", "utils/hmacsig.py", "manager/objectstore.py",
+    "client/source_signedhttp.py", "client/source_s3.py",
+    "client/source_oss.py", "utils/registryauth.py", "client/source_oras.py",
+    "client/source_hdfs.py", "client/objectstorage_gateway.py",
+    "cmd/dfstore.py", "utils/certs.py", "client/proxy.py",
 ]
 
 

@@ -193,6 +193,19 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.client.chaosbench",
         "dragonfly2_tpu_torch.client.qosbench",
         "dragonfly2_tpu_torch.inference.guardbench",
+        # slice 22: the daemon's edge and the cloud object stores
+        "dragonfly2_tpu_torch.utils.awssig",
+        "dragonfly2_tpu_torch.utils.hmacsig",
+        "dragonfly2_tpu_torch.utils.registryauth",
+        "dragonfly2_tpu_torch.utils.certs",
+        "dragonfly2_tpu_torch.client.source_signedhttp",
+        "dragonfly2_tpu_torch.client.source_s3",
+        "dragonfly2_tpu_torch.client.source_oss",
+        "dragonfly2_tpu_torch.client.source_oras",
+        "dragonfly2_tpu_torch.client.source_hdfs",
+        "dragonfly2_tpu_torch.client.objectstorage_gateway",
+        "dragonfly2_tpu_torch.client.proxy",
+        "dragonfly2_tpu_torch.cmd.dfstore",
     }
     assert expected <= set(probe["imported"])
 
