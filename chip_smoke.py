@@ -260,7 +260,8 @@ Phases (any failure exits nonzero, before the final line):
    then mlguard, the slice 21 path: ``guardbench.run_mlguard_rung`` at
    the JAX rung's defaults — the rule-distilled MLP trained on the card
    and gated, three daemons on an in-process scheduler whose ``ml``
-   evaluator scores through ``LocalInferenceClient`` and the sidecar,
+   evaluator scores through ``InferenceClient`` over the port's wire and
+   the sidecar served on loopback (slice 23; before it, in process),
    and a NaN model published three ways: quarantined by the gate on the
    swarm's recorded traces, rejected by shadow and canary while the
    incumbent serves, and served live until the guard trips, escalates
@@ -304,6 +305,31 @@ Phases (any failure exits nonzero, before the final line):
    no dataset or segment left, no job error, every registry row with
    the announcer's host and scheduler id, the ``gat`` version active and
    its served scores within MODE_TOL of the plain twin's on the card;
+14c. rpc_plane, the slice 23 path (the RPC transport): (a) an
+   ``InferenceService`` on a gating registry served through
+   ``rpc.serve`` on loopback — config #3 v1 (blocks) and v2 (gather)
+   gated on the card, v2 and config #1's MLP installed, ModelInfer
+   through ``InferenceClient`` at 1, 16 and 64 rows equal to the
+   in-process call bit for bit with the registry's active version;
+   NOT_FOUND and INVALID_ARGUMENT with the in-process codes and details;
+   ``new_evaluator("ml", sidecar_target=...)`` choosing the in-process
+   ``MLEvaluator``'s parents on 100 decisions; 16-row ModelInfer ladders
+   at 1, 8 and 32 threads over the wire and in process and the host cost
+   of single calls (an empty health Check, a 64-row ModelInfer); a
+   registry rollback whose rebuild of v1 runs K1 — K1 and K2a exactly 2
+   passes × 2 layers each, the counts set to 0 just before the gates and
+   read after the rebuild; a shed (one lane at depth 1 behind a blocked
+   dispatch: RESOURCE_EXHAUSTED, counted, the rule's order, the breaker
+   closed); the server stopped: 4 connection attempts, UNAVAILABLE, the
+   rule's order, the breaker open; (b) ``python -m
+   dragonfly2_tpu_torch.cmd.inference`` and ``...cmd.trainer`` as
+   children on the card (started before phase 14): an announcer here
+   uploads 200 hosts' records to the trainer child over the wire, the
+   child trains and registers them, the sidecar child's watcher installs
+   the MLP and answers equal to a direct load of the registry row here;
+   config #3 v1 and v2 registered, v2 served, rolled back, and the
+   child's rebuilt v1 answering as (a)'s v1 did, bit for bit; both
+   children exit 0 on SIGTERM;
 15. federated training, the slice 12 path (BASELINE config #4), after a
    check that the profiler's kernel count sees K2a launches
    (profiler_check: of PROFILER_CHECK launches, how many it recorded):
@@ -713,6 +739,23 @@ PROBE_UPLOAD_CHUNK = 64 << 10
 PROBE_DOWNLOAD_TIMEOUT_S = 120
 PROBE_IP, PROBE_HOSTNAME, PROBE_PORT = "10.0.0.2", "scheduler-2", 8002
 PROBE_HOST_ID, PROBE_SCHEDULER_ID = "scheduler-host-2", 2
+# The RPC plane (slice 23), phase "rpc_plane": ModelInfer over the wire
+# at RPC_ROWS rows; RPC_DECISIONS evaluator decisions of ML_CANDIDATES;
+# 16-row ModelInfer ladders at RPC_LADDER_THREADS threads, RPC_LADDER_S
+# each; RPC_COST_CALLS sequential calls for the host cost per call; the
+# client's RPC_RETRIES retries on UNAVAILABLE (rpc/client.py's default);
+# the children's announcer uploads RPC_HOSTS hosts' RPC_TOPOLOGY probes
+# and RPC_DOWNLOADS downloads. The children have RPC_START_TIMEOUT_S to
+# print their serving lines and RPC_LOOP_TIMEOUT_S for each wait on them.
+RPC_ROWS = (1, 16, 64)
+RPC_DECISIONS = 100
+RPC_LADDER_THREADS = (1, 8, 32)
+RPC_LADDER_S = 1.0
+RPC_COST_CALLS = 500
+RPC_RETRIES = 3
+RPC_HOSTS, RPC_TOPOLOGY, RPC_DOWNLOADS = 200, 1000, 1000
+RPC_START_TIMEOUT_S = 180.0
+RPC_LOOP_TIMEOUT_S = 300.0
 # Federated training (slice 12, BASELINE config #4). Phase "federated"
 # runs the port's fedbench at the JAX bench's own settings
 # (run_federated_bench's defaults: 3 clusters x 300 decisions, a
@@ -4068,7 +4111,9 @@ def run_mlguard(torch, counts) -> dict:
     and gated on synthetic traces, the sidecar's watcher, three daemons
     pulling md5-checked blobs from a ``MultiBlobServer`` while their
     scheduler ranks parents through ``RemoteMLEvaluator`` →
-    ``LocalInferenceClient`` → the sidecar, then a NaN model quarantined
+    ``InferenceClient`` → the port's wire → the sidecar served through
+    ``rpc.serve`` (recorded: the rung must serve exactly the inference
+    spec), then a NaN model quarantined
     by the gate on the swarm's recorded traces, rejected by shadow and
     canary with the incumbent serving, and served live until the
     evaluator's guard trips, escalates and the watcher restores the good
@@ -4090,7 +4135,17 @@ def run_mlguard(torch, counts) -> dict:
                 served.update(mlguard_served(torch, self))
             super().stop()
 
+    import dragonfly2_tpu_torch.rpc as rpc
+
+    served_specs = []
+    real_serve = rpc.serve
+
+    def recording_serve(services, *args, **kwargs):
+        served_specs.extend(spec.name for spec, _ in services)
+        return real_serve(services, *args, **kwargs)
+
     sidecar.InferenceService = Observed
+    rpc.serve = recording_serve
     try:
         counts.reset()
         t0 = time.perf_counter()
@@ -4099,6 +4154,7 @@ def run_mlguard(torch, counts) -> dict:
         launches = counts.read()
     finally:
         sidecar.InferenceService = base
+        rpc.serve = real_serve
     stats = report["counters"]
     bound = report["rollback_bound_s"]
     shadow, guard = report["shadow_phase"], report["guard_phase"]
@@ -4143,6 +4199,8 @@ def run_mlguard(torch, counts) -> dict:
         "mlp_vs_f32_cpu": served.get("mlp_vs_f32_cpu",
                                      float("inf")) <= MLP_TOL,
         "no_kernel_launched": not any(launches.values()),
+        "served_over_the_wire": served_specs == [
+            sidecar.INFERENCE_SPEC.name],
     }
     log("mlguard", seconds=seconds, card=nvidia_smi(),
         reload_interval_s=report["reload_interval_s"],
@@ -4155,7 +4213,8 @@ def run_mlguard(torch, counts) -> dict:
         guard_quality_min=guard["quality_min"],
         guard_quality_samples=guard["quality_samples"],
         gate=report["gate"], counters=stats, registry=report["registry"],
-        served=served, mlp_tol=MLP_TOL, launches=launches,
+        served=served, served_specs=served_specs, mlp_tol=MLP_TOL,
+        launches=launches,
         error=report["error"], terms=terms)
     failed = [name for name, ok in terms.items() if not ok]
     if failed:
@@ -6118,6 +6177,598 @@ def run_probe_loop(torch, counts) -> dict:
         if recorder is not None:
             recorder.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+class ServingChildren:
+    """``python -m dragonfly2_tpu_torch.cmd.inference`` and
+    ``...cmd.trainer`` as child processes on the card, sharing one
+    registry (a sqlite file and an object directory under a temp dir).
+    They start early, so their import and CUDA start overlap earlier
+    phases; :meth:`targets` waits for each one's serving line. The
+    sidecar runs ``--no-shadow`` with ``--reload-interval 1``: a version
+    the registry activates is installed on the next poll, not canaried
+    first (the canary is the lifecycle phase's)."""
+
+    def __init__(self):
+        import tempfile
+
+        self.tmp = tempfile.mkdtemp(prefix="smoke-rpc-")
+        self.db = os.path.join(self.tmp, "manager.db")
+        self.objects = os.path.join(self.tmp, "objects")
+        common = ["--manager-db", self.db, "--object-store-dir",
+                  self.objects, "--host", "127.0.0.1", "--port", "0",
+                  "--device", "cuda"]
+        extra = {"inference": ["--reload-interval", "1", "--no-shadow"],
+                 "trainer": ["--data-dir", os.path.join(self.tmp,
+                                                        "trainer")]}
+        self.procs, self.err_paths, self._targets = {}, {}, None
+        self.t_started = time.perf_counter()
+        for name, args in extra.items():
+            self.err_paths[name] = os.path.join(self.tmp, f"{name}.err")
+            with open(self.err_paths[name], "w") as err:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     f"dragonfly2_tpu_torch.cmd.{name}", *common, *args],
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        self.codes = None
+
+    def stderr(self, name: str) -> str:
+        with open(self.err_paths[name]) as fh:
+            return fh.read()[-3000:]
+
+    def targets(self) -> dict:
+        """Each child's ``host:port`` from its serving line, and the
+        seconds from the start to that line being read."""
+        import threading
+
+        if self._targets is not None:
+            return self._targets
+        expect = {"inference": "inference sidecar serving on ",
+                  "trainer": "trainer serving on "}
+        targets = {}
+        for name, proc in self.procs.items():
+            watchdog = threading.Timer(RPC_START_TIMEOUT_S, proc.kill)
+            watchdog.start()
+            line = proc.stdout.readline()
+            watchdog.cancel()
+            if not line.startswith(expect[name]):
+                raise AssertionError(f"cmd.{name} did not start: {line!r}; "
+                                     f"stderr: {self.stderr(name)}")
+            targets[name] = line.rstrip().rsplit(" ", 1)[1]
+        targets["ready_seconds"] = time.perf_counter() - self.t_started
+        self._targets = targets
+        return targets
+
+    def check_alive(self) -> None:
+        for name, proc in self.procs.items():
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"cmd.{name} exited {proc.returncode}; stderr: "
+                    f"{self.stderr(name)}")
+
+    def stop(self) -> dict:
+        """SIGTERM (each command's graceful stop), SIGKILL after 30 s;
+        exit codes by name. Idempotent."""
+        import signal
+
+        if self.codes is None:
+            self.codes = {}
+            for name, proc in self.procs.items():
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            for name, proc in self.procs.items():
+                try:
+                    self.codes[name] = proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    self.codes[name] = proc.wait()
+                proc.stdout.close()
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        return self.codes
+
+
+class BlockingScorer:
+    """An MLP-shaped scorer whose dispatch waits for ``release``:
+    ``entered`` is set once one waits (the shed check's blocked lane)."""
+
+    max_batch = 64
+
+    def __init__(self):
+        import threading
+
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def score(self, features):
+        self.entered.set()
+        self.release.wait(60)
+        return np.asarray(features, np.float32).sum(axis=1)
+
+
+def call_rung(call, threads: int, seconds: float) -> dict:
+    """``threads`` threads calling ``call()`` back to back for
+    ``seconds``: p50/p99 ms and calls a second. Any failure fails."""
+    import threading
+
+    lat = [[] for _ in range(threads)]
+    errors = []
+    stop = threading.Event()
+    barrier = threading.Barrier(threads + 1)
+
+    def run(i: int) -> None:
+        barrier.wait()
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                call()
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(repr(exc))
+                return
+            lat[i].append((time.perf_counter() - t0) * 1e3)
+
+    workers = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    stop.set()
+    for w in workers:
+        w.join(timeout=60)
+    elapsed = time.perf_counter() - t0
+    ms = sorted(m for per in lat for m in per)
+    if errors or not ms or any(w.is_alive() for w in workers):
+        raise AssertionError(f"rung at {threads} threads failed: "
+                             f"{errors[:3]}")
+    return {"threads": threads, "requests": len(ms),
+            "p50_ms": ms[len(ms) // 2],
+            "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)],
+            "requests_per_sec": len(ms) / elapsed}
+
+
+def call_cost_us(call, n: int) -> dict:
+    """p50/p99 µs of ``n`` sequential calls (after 20 warm-up calls)."""
+    for _ in range(20):
+        call()
+    us = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        us.append((time.perf_counter() - t0) * 1e6)
+    us.sort()
+    return {"calls": n, "p50_us": us[n // 2],
+            "p99_us": us[min(int(n * 0.99), n - 1)]}
+
+
+def rpc_pairs(rows: int):
+    """Seeded ``gat`` request pairs of ``rows`` rows (config #3's hosts)."""
+    return np.random.default_rng(SEED + 26 + rows).integers(
+        0, N_HOSTS, (rows, 2)).astype(np.int32)
+
+
+def rpc_features(rows: int):
+    """Seeded MLP request rows."""
+    return np.random.default_rng(SEED + 27 + rows).uniform(
+        0, 100, (rows, 11)).astype(np.float32)
+
+
+def rpc_shed(evaluator_cls, client_cls) -> dict:
+    """A served service with one lane at queue depth 1 behind a blocked
+    dispatch: the wire evaluator's next decision must be shed
+    (RESOURCE_EXHAUSTED), counted, ranked by the rule, and leave the
+    breaker closed."""
+    import threading
+
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        INFERENCE_SPEC,
+        InferenceService,
+    )
+    from dragonfly2_tpu_torch.rpc import serve
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import BaseEvaluator
+
+    service = InferenceService(batch_lanes=1, batch_queue_depth=1)
+    scorer = BlockingScorer()
+    service.install_scorer("mlp", scorer, version="blocked")
+    server = serve([(INFERENCE_SPEC, service)])
+    client = client_cls(server.target, timeout=30)
+    evaluator = evaluator_cls(client)
+    rows = rpc_features(2)
+    held = [threading.Thread(target=client.model_infer_full,
+                             args=("mlp", rows), daemon=True)
+            for _ in range(2)]
+    try:
+        held[0].start()
+        if not scorer.entered.wait(30):
+            raise AssertionError("the blocked dispatch never started")
+        held[1].start()  # waits in the lane's queue: depth 1
+        with service._lock:
+            lanes = service._models["mlp"].batcher._lanes
+        wait_until("a request in the blocked lane's queue",
+                   lambda: sum(lane.queue.qsize() for lane in lanes) >= 1,
+                   timeout_s=30.0)
+        parents, child, total = seeded_decisions(SEED + 28, 1,
+                                                 ML_CANDIDATES)[0]
+        ranked = evaluator.evaluate_parents(parents, child, total)
+        rule = BaseEvaluator().evaluate_parents(parents, child, total)
+        return {"sheds": evaluator.shed_count,
+                "fallbacks": evaluator.fallback_count,
+                "rule_order": [p.id for p in ranked] == [p.id for p in rule],
+                "breaker_closed": evaluator._scorer._open_until == 0.0}
+    finally:
+        scorer.release.set()
+        for t in held:
+            t.join(timeout=30)
+        client.close()
+        server.stop()
+        service.stop()
+
+
+def rpc_in_process(torch, artifacts: dict, mlp_bytes: bytes, counts,
+                   tmp: str) -> dict:
+    """(a): the inference service in this process, served over the wire
+    on loopback. Returns the phase's fields, ``launches`` and
+    ``answers`` (the gat versions' scores over the wire, by (tag, rows))
+    and ``failures``."""
+    from dragonfly2_tpu_torch.inference.scorer import MLEvaluator
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        INFERENCE_SPEC,
+        CallContext,
+        InferenceClient,
+        InferenceService,
+        LocalInferenceClient,
+        ModelInferRequest,
+        RemoteMLEvaluator,
+        RpcAbort,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.service import untar_to_directory
+    from dragonfly2_tpu_torch.manager.validation import ValidationConfig
+    from dragonfly2_tpu_torch.rpc import ServiceClient, serve, wire
+    from dragonfly2_tpu_torch.rpc.health import (
+        HEALTH_SPEC,
+        HealthCheckRequest,
+    )
+    from dragonfly2_tpu_torch.rpc.status import RpcError, StatusCode
+    from dragonfly2_tpu_torch.scheduler.evaluator import new_evaluator
+    from dragonfly2_tpu_torch.scheduler.evaluator.base import BaseEvaluator
+
+    failures, fields, answers, steps = [], {}, {}, {}
+    dirs = {}
+    for tag, payload in (("blocks", artifacts["blocks"]),
+                         ("gather", artifacts["gather"]), ("mlp", mlp_bytes)):
+        dirs[tag] = os.path.join(tmp, f"artifact-{tag}")
+        untar_to_directory(payload, dirs[tag])
+    registry = ManagerService(
+        Database(), FilesystemObjectStore(os.path.join(tmp, "objects")),
+        validation=ValidationConfig())
+
+    def create(model_type, tag, **kw):
+        return registry.create_model(
+            f"rpc-{model_type}", model_type, "host", "127.0.0.1", "smoke",
+            {}, dirs[tag], **kw)
+
+    service = InferenceService(manager=registry, reload_interval=1.0,
+                               shadow_mode=False)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        counts.reset()
+        gat_v1 = create("gat", "blocks")
+        gat_v2 = create("gat", "gather")
+        mlp_row = create("mlp", "mlp", skip_validation=True)
+        service.reload_from_manager()
+        torch.cuda.synchronize()
+        steps["gates_and_install"] = time.perf_counter() - t0
+        server = serve([(INFERENCE_SPEC, service)])
+        service.set_health(server.health)
+        client = InferenceClient(server.target, timeout=30)
+        ctx = CallContext()
+
+        def wire_vs_local(name: str, tag: str, version: str) -> None:
+            for rows in RPC_ROWS:
+                x = rpc_pairs(rows) if name == "gat" else rpc_features(rows)
+                got, served = client.model_infer_full(name, x)
+                local = service.ModelInfer(ModelInferRequest(name, x), ctx)
+                if not (np.array_equal(got, local.outputs)
+                        and got.dtype == local.outputs.dtype
+                        and got.shape == (rows,)
+                        and np.isfinite(got).all()):
+                    failures.append(f"{tag} at {rows} rows: the wire's "
+                                    "scores differ from the in-process call")
+                if served != version or local.model_version != version:
+                    failures.append(f"{tag} served {served}, registry "
+                                    f"active {version}")
+                answers[(tag, rows)] = got
+
+        t0 = time.perf_counter()
+        wire_vs_local("gat", "gather", gat_v2.version)
+        wire_vs_local("mlp", "mlp", mlp_row.version)
+        steps["wire_vs_local"] = time.perf_counter() - t0
+
+        # -- the statuses: each the in-process abort's code and details ---
+        bad = {"NOT_FOUND": ("nope", rpc_features(2)),
+               "INVALID_ARGUMENT_empty": ("mlp", rpc_features(2)[:0]),
+               "INVALID_ARGUMENT_width": ("mlp", rpc_features(2)[:, :5])}
+        statuses = {}
+        for case, (name, x) in bad.items():
+            try:
+                service.ModelInfer(ModelInferRequest(name, x), ctx)
+                local = None
+            except RpcAbort as exc:
+                local = (exc.code.name, exc.details)
+            try:
+                client.model_infer_full(name, x)
+                got = None
+            except RpcError as exc:
+                got = (exc.code().name, exc.details())
+            statuses[case] = got[0] if got else None
+            if got is None or got != local or not case.startswith(got[0]):
+                failures.append(f"status {case}: wire {got}, local {local}")
+
+        # -- new_evaluator over the wire against the in-process MLEvaluator
+        t0 = time.perf_counter()
+        remote = new_evaluator("ml", sidecar_target=server.target)
+        remote.client.timeout = 30
+        with service._lock:
+            mlp_scorer = service._models["mlp"].scorer
+        local_ev = MLEvaluator(mlp_scorer)
+        same = 0
+        for parents, child, total in seeded_decisions(
+                SEED + 24, RPC_DECISIONS, ML_CANDIDATES):
+            a = [p.id for p in remote.evaluate_parents(parents, child, total)]
+            b = [p.id for p in local_ev.evaluate_parents(parents, child,
+                                                         total)]
+            same += a == b
+        if not (same == RPC_DECISIONS
+                and remote.scored_count == RPC_DECISIONS
+                and remote.fallback_count == 0
+                and remote.serving_version == mlp_row.version):
+            failures.append(f"remote evaluator: {same}/{RPC_DECISIONS} "
+                            f"decisions equal, {remote.fallback_count} "
+                            f"fallbacks, version {remote.serving_version}")
+        steps["evaluator"] = time.perf_counter() - t0
+
+        # -- the wire's host cost: a ladder and single calls --------------
+        t0 = time.perf_counter()
+        local_client = LocalInferenceClient(service)
+        x16 = rpc_features(REQUEST_ROWS)
+        ladder_rungs = {
+            "wire": [call_rung(lambda: client.model_infer_full("mlp", x16),
+                               n, RPC_LADDER_S)
+                     for n in RPC_LADDER_THREADS],
+            "in_process": [call_rung(
+                lambda: local_client.model_infer_full("mlp", x16), n,
+                RPC_LADDER_S) for n in RPC_LADDER_THREADS]}
+        health = ServiceClient(server.target, HEALTH_SPEC)
+        x64 = rpc_features(64)
+        cost = {
+            "empty_unary_wire": call_cost_us(
+                lambda: health.Check(HealthCheckRequest(), timeout=30),
+                RPC_COST_CALLS),
+            "model_infer_64_wire": call_cost_us(
+                lambda: client.model_infer_full("mlp", x64),
+                RPC_COST_CALLS),
+            "model_infer_64_in_process": call_cost_us(
+                lambda: local_client.model_infer_full("mlp", x64),
+                RPC_COST_CALLS)}
+        steps["ladder_and_cost"] = time.perf_counter() - t0
+
+        # -- a rollback rebuilds v1 (blocks) through K1 -------------------
+        t0 = time.perf_counter()
+        restored = registry.rollback("gat", reason="smoke rollback")
+        service.reload_from_manager()
+        torch.cuda.synchronize()
+        launches = counts.read()
+        steps["rollback_rebuild"] = time.perf_counter() - t0
+        if getattr(restored, "version", None) != gat_v1.version:
+            failures.append(f"the rollback restored {restored}")
+        wire_vs_local("gat", "blocks", gat_v1.version)
+
+        # -- a shed over the wire, then the server stopped ----------------
+        t0 = time.perf_counter()
+        shed = rpc_shed(RemoteMLEvaluator, InferenceClient)
+        if not (shed["sheds"] == 1 and shed["fallbacks"] == 1
+                and shed["rule_order"] and shed["breaker_closed"]):
+            failures.append(f"shed: {shed}")
+        server.stop()
+        attempts = []
+        connect = wire.connect
+
+        def counted(*args, **kw):
+            attempts.append(1)
+            return connect(*args, **kw)
+
+        wire.connect = counted
+        try:
+            parents, child, total = seeded_decisions(SEED + 29, 1,
+                                                     ML_CANDIDATES)[0]
+            ranked = remote.evaluate_parents(parents, child, total)
+        finally:
+            wire.connect = connect
+        rule = BaseEvaluator().evaluate_parents(parents, child, total)
+        unavailable = {
+            "attempts": len(attempts),
+            "fallbacks": remote.fallback_count,
+            "rule_order": [p.id for p in ranked] == [p.id for p in rule],
+            "breaker_open": remote._scorer._open_until > time.monotonic()}
+        if unavailable != {"attempts": 1 + RPC_RETRIES, "fallbacks": 1,
+                           "rule_order": True, "breaker_open": True}:
+            failures.append(f"after stop(): {unavailable}")
+        try:
+            client.model_infer_full("mlp", x16)
+            failures.append("a call after stop() was answered")
+        except RpcError as exc:
+            statuses["after_stop"] = exc.code().name
+            if exc.code() is not StatusCode.UNAVAILABLE:
+                failures.append(f"after stop(): {exc.code().name}")
+        steps["shed_and_unavailable"] = time.perf_counter() - t0
+        remote.client.close()
+        client.close()
+        fields.update(statuses=statuses, shed=shed, unavailable=unavailable,
+                      evaluator_same_decisions=same, ladder=ladder_rungs,
+                      call_cost=cost, step_seconds=steps)
+    finally:
+        if server is not None:
+            server.stop()
+        service.stop()
+    return {"fields": fields, "launches": launches, "answers": answers,
+            "failures": failures, "gat_dirs": dirs}
+
+
+def rpc_children(torch, children, answers: dict, dirs: dict,
+                 tmp: str) -> dict:
+    """(b): the two commands as children. This process's announcer
+    uploads RPC_HOSTS hosts' records to the trainer child over the wire;
+    the child trains on the card and registers the models; the sidecar
+    child's watcher installs the MLP, whose scores over the wire must
+    equal a direct load of the registry row here; then config #3 v1
+    (blocks) and v2 (gather) registered, v2 served and rolled back, and
+    the child's rebuilt v1 must answer as (a)'s v1 did."""
+    from dragonfly2_tpu_torch.cmd.scheduler import TrainerClient
+    from dragonfly2_tpu_torch.data import SyntheticCluster
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        InferenceClient,
+        ModelReadyRequest,
+        _scorer_from_artifact,
+    )
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.scheduler.announcer import Announcer
+    from dragonfly2_tpu_torch.scheduler.storage.storage import (
+        Storage,
+        StorageConfig,
+    )
+
+    failures, steps = [], {}
+    targets = children.targets()
+    t0 = time.perf_counter()
+    storage = Storage(os.path.join(tmp, "scheduler"),
+                      StorageConfig(max_size=1 << 20))
+    cluster = SyntheticCluster(n_hosts=RPC_HOSTS, seed=SEED + 25)
+    for rec in cluster.downloads(RPC_DOWNLOADS):
+        storage.create_download(rec)
+    for rec in cluster.topology(RPC_TOPOLOGY):
+        storage.create_network_topology(rec)
+    announcer = Announcer(
+        host_id="rpc-scheduler", ip="127.0.0.1", hostname="rpc-scheduler",
+        port=8002, storage=storage,
+        trainer_client=TrainerClient(targets["trainer"]))
+    response = announcer.train()
+    steps["upload"] = time.perf_counter() - t0
+    registry = ManagerService(Database(children.db),
+                              FilesystemObjectStore(children.objects))
+    client = InferenceClient(targets["inference"], timeout=30)
+
+    def served_version(name: str) -> str:
+        return client._client.ModelReady(ModelReadyRequest(name),
+                                         timeout=30).version
+
+    def wait_for(what: str, predicate) -> float:
+        t = time.perf_counter()
+        while not predicate():
+            children.check_alive()
+            if time.perf_counter() - t > RPC_LOOP_TIMEOUT_S:
+                raise AssertionError(
+                    f"rpc_plane: timed out waiting for {what}; trainer "
+                    f"stderr: {children.stderr('trainer')}; inference "
+                    f"stderr: {children.stderr('inference')}")
+            time.sleep(0.1)
+        return time.perf_counter() - t
+
+    steps["train_and_register"] = wait_for(
+        "the trainer child's MLP in the registry",
+        lambda: registry.get_active_model("mlp") is not None)
+    active = registry.get_active_model("mlp")
+    steps["sidecar_install"] = wait_for(
+        "the sidecar child's install of the MLP",
+        lambda: served_version("mlp") == active.version)
+    direct = _scorer_from_artifact(active.artifact)
+    mlp_equal = True
+    for rows in RPC_ROWS:
+        x = rpc_features(rows)
+        got, version = client.model_infer_full("mlp", x)
+        want = direct.score(x)
+        mlp_equal &= bool(np.array_equal(got, want)
+                          and version == active.version)
+    del direct
+    if not mlp_equal:
+        failures.append("the sidecar child's MLP scores differ from a "
+                        "direct load of the registry row")
+    registered = sorted(r.type for r in registry.list_models())
+
+    t0 = time.perf_counter()
+    rows_of = {}
+    for tag in ("blocks", "gather"):
+        rows_of[tag] = registry.create_model(
+            "rpc-gat", "gat", "host", "127.0.0.1", "smoke", {}, dirs[tag])
+    wait_for("the sidecar child's gat v2", lambda: served_version("gat")
+             == rows_of["gather"].version)
+    steps["gat_v2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    registry.rollback("gat", reason="smoke rollback over the wire")
+    wait_for("the sidecar child's rebuilt gat v1",
+             lambda: served_version("gat") == rows_of["blocks"].version)
+    steps["gat_rollback_rebuild"] = time.perf_counter() - t0
+    gat_equal = True
+    for rows in RPC_ROWS:
+        got, version = client.model_infer_full("gat", rpc_pairs(rows))
+        gat_equal &= bool(np.array_equal(got, answers[("blocks", rows)])
+                          and version == rows_of["blocks"].version)
+    if not gat_equal:
+        failures.append("the sidecar child's rebuilt v1 scores differ "
+                        "from (a)'s v1 over the wire")
+    client.close()
+    codes = children.stop()
+    if codes != {"inference": 0, "trainer": 0}:
+        failures.append(f"children exited {codes}")
+    return {"fields": {
+        "children_ready_seconds": targets["ready_seconds"],
+        "accepted_bytes": response.accepted_bytes,
+        "registered_types": registered, "mlp_equal_direct_load": mlp_equal,
+        "gat_v1_rebuild_equal": gat_equal, "exit_codes": codes,
+        "step_seconds": steps}, "failures": failures}
+
+
+def run_rpc_plane(torch, artifacts: dict, mlp_bytes: bytes, counts,
+                  children) -> dict:
+    """The RPC plane, slice 23's path: (a) :func:`rpc_in_process` —
+    the inference service served over the port's wire, its answers,
+    statuses, decisions, shed, breaker and host cost per call; K1 and K2a
+    exactly 2 passes × 2 layers each (v1's gate and rebuild, v2's gate
+    and install) with the counts set to 0 just before the gates and read
+    after the rebuild; (b) :func:`rpc_children` — the two commands as
+    children on the card. Returns the launches."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke-rpc-plane-")
+    t_phase = time.perf_counter()
+    try:
+        a = rpc_in_process(torch, artifacts, mlp_bytes, counts, tmp)
+        b = rpc_children(torch, children, a["answers"], a["gat_dirs"], tmp)
+    finally:
+        children.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = a["launches"]
+    want = {name: 0 for name in launches} | {
+        "graph_flash_attention": 2 * GAT_CFG["layers"],
+        "table_gather": 2 * GAT_CFG["layers"]}
+    failures = a["failures"] + b["failures"]
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    log("rpc_plane", seconds=time.perf_counter() - t_phase, card=nvidia_smi(),
+        in_process=a["fields"], children=b["fields"], launches=launches,
+        expected_launches=want, failures=failures)
+    if failures:
+        raise AssertionError(f"rpc_plane: {failures}; see the line above")
+    return launches
 
 
 def profiled_kernel_launches(torch, fn):
@@ -9209,12 +9860,23 @@ def main() -> int:
     finally:
         shutil.rmtree(record_tmp, ignore_errors=True)
 
-    # -- phase 14: the training orchestrator, slice 11's path ---------------
-    training_launches, training_predicted, training_evals = run_training(
-        torch, mlp_x, mlp_y, counts)
+    # The serving commands start now, as children on the card: their
+    # import and CUDA start overlap the next two phases; rpc_plane uses
+    # them.
+    serving_children = ServingChildren()
+    try:
+        # -- phase 14: the training orchestrator, slice 11's path -----------
+        training_launches, training_predicted, training_evals = (
+            run_training(torch, mlp_x, mlp_y, counts))
 
-    # -- phase 14b: the ML loop's collection half, slice 19 ------------------
-    probe_launches = run_probe_loop(torch, counts)
+        # -- phase 14b: the ML loop's collection half, slice 19 --------------
+        probe_launches = run_probe_loop(torch, counts)
+
+        # -- phase 14c: the RPC plane, slice 23 ------------------------------
+        rpc_launches = run_rpc_plane(torch, artifacts, mlp_artifact, counts,
+                                     serving_children)
+    finally:
+        serving_children.stop()
 
     # -- phase 15: federated training, config #4, slice 12 ------------------
     check_profiler_sees_kernels(torch)
@@ -9262,6 +9924,7 @@ def main() -> int:
                    "edge": edge_launches[row["name"]],
                    "training": training_launches[row["name"]],
                    "probe_loop": probe_launches[row["name"]],
+                   "rpc_plane": rpc_launches[row["name"]],
                    "federated": federated_launches[row["name"]],
                    "federated_config4": config4_launches[row["name"]],
                    "data_parallel": dp_launches[row["name"]],

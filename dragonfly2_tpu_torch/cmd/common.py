@@ -1,10 +1,10 @@
 """Shared CLI bootstrap (reference: cmd/dependency/dependency.go — config
 loading, logging init, monitoring) — port of ``dragonfly2_tpu/cmd/common.py``.
 
-The flags, the YAML layering, logging, tracing, the debug monitor and the
-shutdown wait are JAX's. Left out: the geo cluster identity and the
-multihost flags (no ported command takes them), and the Prometheus
-endpoint (:func:`start_metrics_server` answers None).
+The flags, the YAML layering, logging, tracing, the multihost flags, the
+debug monitor and the shutdown wait are JAX's. Left out: the geo cluster
+identity (no ported command takes it) and the Prometheus endpoint
+(:func:`start_metrics_server` answers None).
 """
 
 from __future__ import annotations
@@ -189,6 +189,38 @@ def parse_with_config(parser: argparse.ArgumentParser, argv=None):
             defaults[dest] = value
         parser.set_defaults(**defaults)
     return parser.parse_args(argv)
+
+
+def add_multihost_flags(parser: argparse.ArgumentParser) -> None:
+    """Flags for joining a multi-process training fleet (one
+    ``torch.distributed`` world; see ``parallel/multihost.py``)."""
+    parser.add_argument("--coordinator", default="",
+                        help="multi-host: coordinator host:port; every "
+                             "process given the same address trains in "
+                             "ONE process group (also via "
+                             "DF2_COORDINATOR_ADDRESS)")
+    parser.add_argument("--num-processes", type=int, default=0,
+                        help="multi-host: total processes in the fleet")
+    parser.add_argument("--process-id", type=int, default=-1,
+                        help="multi-host: this process's id [0, N)")
+
+
+def maybe_init_multihost(args):
+    """Join the process group when --coordinator (or the env) is set;
+    returns the default group the trainers take as ``group=``, or None
+    for the normal single-process path."""
+    from dragonfly2_tpu_torch.parallel import multihost
+
+    group = multihost.maybe_init_multihost(
+        getattr(args, "coordinator", ""),
+        getattr(args, "num_processes", 0),
+        getattr(args, "process_id", -1))
+    if group is None:
+        return None
+    dist = multihost.dist
+    print(f"multihost: process {dist.get_rank()}/{dist.get_world_size()}, "
+          f"backend {dist.get_backend()}", flush=True)
+    return group
 
 
 def start_debug_monitor(args):

@@ -18,9 +18,10 @@ cluster's scheduler config, with its on-disk cache under ``data_dir``.
 
 It differs from JAX's on purpose in one way: JAX's threads are daemons
 that never stop; :class:`ManagerLink.stop` ends the keepalive loop and the
-dynconfig ticker. The gRPC server (``build_scheduler``), the job plane's
-``RemoteJobWorker`` and the announcer's trainer client wait for the RPC
-layer (ROADMAP.md, Queue 1 item 4).
+dynconfig ticker. The announcer's trainer client is
+:class:`TrainerClient` (JAX's, over the port's wire); the scheduler's own
+RPC server (``build_scheduler``) and the job plane's ``RemoteJobWorker``
+wait for ``scheduler/rpcserver.py`` (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -39,6 +40,20 @@ logger = logging.getLogger(__name__)
 #: Keepalive ticks between two trace uploads: about once a minute at
 #: the default 5 s interval.
 TRACE_UPLOAD_TICKS = 12
+
+
+class TrainerClient:
+    """The announcer's trainer client: ``Train`` on a trainer service
+    (``python -m dragonfly2_tpu_torch.cmd.trainer``) over the wire."""
+
+    def __init__(self, target):
+        from dragonfly2_tpu_torch.rpc import ServiceClient
+        from dragonfly2_tpu_torch.trainer.service import TRAINER_SPEC
+
+        self.cli = ServiceClient(target, TRAINER_SPEC)
+
+    def train(self, requests):
+        return self.cli.Train(requests, timeout=3600)
 
 
 class _ManagerAdapter:

@@ -47,8 +47,10 @@ stragglers; ``adaptive_wait_s`` opens that window only when the lane's
 queue depth strictly grows, so the idle path keeps the zero-wait
 guarantee.
 
-The JAX package's ``infer.batch`` tracing span around each dispatch is
-not ported (the port has no tracer yet).
+With the process's tracer on (``utils/tracing.py``), each dispatch runs
+under one ``infer.batch`` span that parents into the first member's
+trace (the ModelInfer handler's ``rpc.server`` span, which continues the
+caller's) and links every coalesced member back to its own.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ class BatcherSaturatedError(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("features", "event", "result", "error", "t_enqueue")
+    __slots__ = ("features", "event", "result", "error", "t_enqueue",
+                 "trace_ctx")
 
     def __init__(self, features: np.ndarray):
         self.features = features
@@ -79,6 +82,14 @@ class _Pending:
         self.result: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
         self.t_enqueue = 0.0
+        # Caller's task trace (the ModelInfer handler thread carries the
+        # announcing scheduler's context): the lane's batch span links
+        # every member request back to its task trace. None when
+        # tracing is off — zero retained state.
+        from dragonfly2_tpu_torch.utils import tracing
+
+        self.trace_ctx = (tracing.current_trace_context()
+                          if tracing.default_tracer().enabled else None)
 
 
 class _Inflight:
@@ -260,8 +271,25 @@ class _Lane:
                 self._retire(self._stage_dispatch([pending]))
 
     def _stage_dispatch(self, group: List[_Pending]) -> Optional[_Inflight]:
-        """Assemble and dispatch one group (the JAX package's
-        ``_stage_dispatch_impl``; its span wrapper is not ported). Returns the in-flight record,
+        """Assemble and dispatch one group, under one ``infer.batch``
+        span that parents into the FIRST member's task trace and LINKS
+        every coalesced member back to its own — the sidecar half of
+        the task-lifecycle trace (docs/OBSERVABILITY.md)."""
+        from dragonfly2_tpu_torch.utils import tracing
+
+        tracer = tracing.default_tracer()
+        if not tracer.enabled:
+            return self._stage_dispatch_impl(group)
+        ctxs = [p.trace_ctx for p in group if p.trace_ctx is not None]
+        with tracer.span("infer.batch", remote_parent=ctxs[0] if ctxs
+                         else None, links=ctxs, requests=len(group),
+                         rows=sum(len(p.features) for p in group),
+                         lane=self.index):
+            return self._stage_dispatch_impl(group)
+
+    def _stage_dispatch_impl(self,
+                             group: List[_Pending]) -> Optional[_Inflight]:
+        """Assemble and dispatch one group. Returns the in-flight record,
         or None when there is nothing left to retire — the sync-scorer
         path fans results out right here (its scores exist the moment
         score() returns; parking them in the in-flight slot would make

@@ -2,9 +2,9 @@
 
 A REAL loopback swarm — in-process scheduler + three peer daemons + an
 HTTP origin — whose scheduling decisions flow through the full ML
-serving stack: ``RemoteMLEvaluator`` → ``LocalInferenceClient`` →
-inference sidecar (its MLP on the card) → manager model registry, with
-the live reload watcher running.
+serving stack: ``RemoteMLEvaluator`` → ``InferenceClient`` → the port's
+wire → inference sidecar (its MLP on the card) → manager model registry,
+with the live reload watcher running.
 Mid-swarm, a poisoned model (NaN weights — loadable, degenerate) is
 published THREE ways and must be a non-event every time:
 
@@ -33,14 +33,13 @@ counters prove guard-trip → quarantine → rollback fired.
 beside the best ``mlguard_run_*.json`` record under a state dir.
 
 The JAX package's rung (``dragonfly2_tpu.inference.guardbench``) in
-PyTorch, departing from it in three ways only: the evaluator reaches
-the sidecar through :class:`~dragonfly2_tpu_torch.inference.sidecar.
-LocalInferenceClient` in this process (the gRPC transport is not
-ported); ``device`` (``None``: the card) is where the distilled MLP
-trains, the gate builds candidates and the sidecar serves; and a fault
-of the card (:func:`~dragonfly2_tpu_torch.device.is_device_fault`)
-propagates instead of landing in ``report["error"]`` — a missing card
-is no verdict on the lifecycle.
+PyTorch, served over the port's wire where JAX serves over gRPC, and
+departing from it in two ways only: ``device`` (``None``: the card) is
+where the distilled MLP trains, the gate builds candidates and the
+sidecar serves; and a fault of the card
+(:func:`~dragonfly2_tpu_torch.device.is_device_fault`) propagates instead
+of landing in ``report["error"]`` — a missing card is no verdict on the
+lifecycle.
 """
 
 from __future__ import annotations
@@ -199,8 +198,9 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
     from dragonfly2_tpu_torch.device import is_device_fault
     from dragonfly2_tpu_torch.utils.servingstats import ServingStats
     from dragonfly2_tpu_torch.inference.sidecar import (
+        INFERENCE_SPEC,
+        InferenceClient,
         InferenceService,
-        LocalInferenceClient,
         RemoteMLEvaluator,
     )
     from dragonfly2_tpu_torch.manager import (
@@ -216,6 +216,7 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
         TraceLog,
         ValidationConfig,
     )
+    from dragonfly2_tpu_torch.rpc import serve
     from dragonfly2_tpu_torch.scheduler.resource.resource import Resource
     from dragonfly2_tpu_torch.scheduler.scheduling.core import (
         Scheduling,
@@ -263,6 +264,7 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
         reload_interval=reload_interval, canary_batches=canary_batches,
         canary_probe_grace_s=reload_interval, serving_stats=stats,
         reload_grace_s=2.0, device=device)
+    sidecar_server = None
     evaluator = None
     service = None
     daemons = []
@@ -286,6 +288,7 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
 
         sidecar.reload_from_manager()  # first load: direct install
         sidecar.serve_watcher()
+        sidecar_server = serve([(INFERENCE_SPEC, sidecar)])
 
         def quarantine_serving(reason: str):
             version = evaluator.serving_version
@@ -295,7 +298,7 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
                                        reason=f"evaluator guard: {reason}")
 
         evaluator = RemoteMLEvaluator(
-            LocalInferenceClient(sidecar),
+            InferenceClient(sidecar_server.target, timeout=5.0),
             stats=stats, guard_trip_limit=guard_trip_limit,
             on_quarantine=quarantine_serving, trace_log=trace_log,
             track_quality=True)
@@ -425,6 +428,13 @@ def run_mlguard_rung(seed: int = 0, reload_interval: float = 2.0,
                 d.stop()
             except Exception:  # noqa: BLE001 — teardown best effort
                 pass
+        if evaluator is not None:
+            try:
+                evaluator.client.close()
+            except Exception:  # noqa: BLE001
+                pass
+        if sidecar_server is not None:
+            sidecar_server.stop()
         sidecar.stop()
         if root is None:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -22,17 +22,18 @@ The ``*_from_artifact`` loaders turn a port model.tar
 given): ``mlp`` and ``cost`` artifacts share one checkpoint layout and
 one loader (:func:`_mlp_checkpoint_from_artifact`).
 
-The port has no gRPC: a method's ``context`` only needs
-``abort(code, details)`` taking a :class:`StatusCode` and raising, as
-gRPC's does; :class:`CallContext` is the in-process one
+The service is served over the port's wire as JAX's is over gRPC
+(``serve([(INFERENCE_SPEC, service)])``, ``rpc/service.py``): the same
+service name, methods and codec-tagged messages. A method's ``context``
+only needs ``abort(code, details)`` taking a :class:`StatusCode` and
+raising, as gRPC's does; :class:`CallContext` is the in-process one
 (``rpc/status.py``; re-exported here).
 
 :class:`RemoteMLEvaluator` is JAX's: the ``ml`` evaluator over a client
 of an inference service, with a circuit breaker and the serving version
-a guard trip escalates. Its client here is :class:`LocalInferenceClient`,
-the same calls on a service in this process; the gRPC
-``InferenceClient`` and serving on a port are not ported yet
-(ROADMAP.md, Queue 1 item 4).
+a guard trip escalates. Its client is :class:`InferenceClient` over the
+wire, or :class:`LocalInferenceClient`, the same calls on a service in
+this process.
 """
 
 from __future__ import annotations
@@ -66,12 +67,14 @@ from dragonfly2_tpu_torch.inference.scorer import (
 from dragonfly2_tpu_torch.models.graph_transformer import GraphTransformer
 from dragonfly2_tpu_torch.models.mlp import FEATURE_DIM, MLPBandwidthPredictor
 from dragonfly2_tpu_torch.parallel.mesh import LOCAL
+from dragonfly2_tpu_torch.rpc.codec import message
 from dragonfly2_tpu_torch.rpc.health import NOT_SERVING, SERVING
+from dragonfly2_tpu_torch.rpc.service import MethodKind, ServiceSpec
 from dragonfly2_tpu_torch.rpc.status import (  # noqa: F401 — re-exported
     CallContext,
     RpcAbort,
 )
-from dragonfly2_tpu_torch.rpc.status import StatusCode
+from dragonfly2_tpu_torch.rpc.status import RpcError, StatusCode
 from dragonfly2_tpu_torch.train.checkpoint import (
     gat_from_tree,
     gat_state_dict_from_flax,
@@ -89,6 +92,7 @@ MODEL_NAME_GAT = "gat"
 MODEL_NAME_COST = "cost"
 
 
+@message("inference.ModelInferRequest")
 @dataclass
 class ModelInferRequest:
     model_name: str = ""
@@ -96,6 +100,7 @@ class ModelInferRequest:
     inputs: Optional[np.ndarray] = None
 
 
+@message("inference.ModelInferResponse")
 @dataclass
 class ModelInferResponse:
     model_name: str = ""
@@ -103,35 +108,52 @@ class ModelInferResponse:
     outputs: Optional[np.ndarray] = None
 
 
+@message("inference.ModelReadyRequest")
 @dataclass
 class ModelReadyRequest:
     name: str = ""
 
 
+@message("inference.ModelReadyResponse")
 @dataclass
 class ModelReadyResponse:
     ready: bool = False
     version: str = ""
 
 
+@message("inference.ServerLiveRequest")
 @dataclass
 class ServerLiveRequest:
     pass
 
 
+@message("inference.ServerLiveResponse")
 @dataclass
 class ServerLiveResponse:
     live: bool = True
 
 
+@message("inference.ServerReadyRequest")
 @dataclass
 class ServerReadyRequest:
     pass
 
 
+@message("inference.ServerReadyResponse")
 @dataclass
 class ServerReadyResponse:
     ready: bool = False
+
+
+INFERENCE_SPEC = ServiceSpec(
+    name="df2.inference.GRPCInferenceService",
+    methods={
+        "ModelInfer": MethodKind.UNARY_UNARY,
+        "ModelReady": MethodKind.UNARY_UNARY,
+        "ServerLive": MethodKind.UNARY_UNARY,
+        "ServerReady": MethodKind.UNARY_UNARY,
+    },
+)
 
 
 @dataclass
@@ -786,12 +808,49 @@ class InferenceService:
         return ServerReadyResponse(ready=ready)
 
 
+class InferenceClient:
+    """Scheduler-side client (pkg/rpc/inference/client/client_v1.go:81-106
+    surface over the port's wire)."""
+
+    def __init__(self, target: str, timeout: float = 1.0):
+        from dragonfly2_tpu_torch.rpc.client import ServiceClient
+
+        self._client = ServiceClient(target, INFERENCE_SPEC)
+        self.timeout = timeout
+
+    def model_infer(self, model_name: str, inputs: np.ndarray) -> np.ndarray:
+        return self.model_infer_full(model_name, inputs)[0]
+
+    def model_infer_full(self, model_name: str,
+                         inputs: np.ndarray) -> tuple:
+        """(scores, serving model version) — the version is what a
+        guard-trip escalation quarantines back to the manager."""
+        resp = self._client.ModelInfer(
+            ModelInferRequest(model_name=model_name, inputs=inputs),
+            timeout=self.timeout,
+        )
+        return np.asarray(resp.outputs), resp.model_version
+
+    def model_ready(self, name: str) -> bool:
+        return bool(self._client.ModelReady(
+            ModelReadyRequest(name=name), timeout=self.timeout).ready)
+
+    def server_live(self) -> bool:
+        return bool(self._client.ServerLive(
+            ServerLiveRequest(), timeout=self.timeout).live)
+
+    def server_ready(self) -> bool:
+        return bool(self._client.ServerReady(
+            ServerReadyRequest(), timeout=self.timeout).ready)
+
+    def close(self) -> None:
+        self._client.close()
+
+
 class LocalInferenceClient:
-    """JAX's ``InferenceClient.model_infer_full`` on an
-    :class:`InferenceService` in this process: what a
-    :class:`RemoteMLEvaluator` scores through where the gRPC transport is
-    not ported. An abort raises :class:`RpcAbort` as a gRPC error would
-    raise its ``RpcError``."""
+    """:class:`InferenceClient`'s ``model_infer_full`` on an
+    :class:`InferenceService` in this process, without the wire. An abort
+    raises :class:`RpcAbort` where the wire raises :class:`RpcError`."""
 
     def __init__(self, service: InferenceService):
         self.service = service
@@ -810,8 +869,10 @@ class CircuitOpenError(RuntimeError):
 
 
 def _is_resource_exhausted(exc: Exception) -> bool:
-    """True when a call aborted with RESOURCE_EXHAUSTED (the service's
-    bounded-admission shed status)."""
+    """True when a call ended with RESOURCE_EXHAUSTED (the service's
+    bounded-admission shed status), over the wire or in process."""
+    if isinstance(exc, RpcError):
+        return exc.code() is StatusCode.RESOURCE_EXHAUSTED
     return (isinstance(exc, RpcAbort)
             and exc.code is StatusCode.RESOURCE_EXHAUSTED)
 

@@ -1,30 +1,40 @@
-"""Health service — port of ``dragonfly2_tpu/rpc/health.py``.
+"""DF2 health service, auto-mounted on every server — port of
+``dragonfly2_tpu/rpc/health.py``.
 
-Tracks per-service status; the empty service name is the whole server.
-The inference service flips it ``NOT_SERVING`` while a hot-reload grace
-window is open, so health-aware clients drain to a replica. The port has
-no codec: request and reply are plain dataclasses, as the sidecar's
-messages are.
+Plays the role of grpc.health.v1 in the reference's rpcserver shells
+(scheduler/rpcserver/rpcserver.go registers health + reflection) with the
+DF2 codec's messages. Tracks per-service status; the empty service name
+is the whole server. The inference service flips it ``NOT_SERVING``
+while a hot-reload grace window is open, so health-aware clients drain
+to a replica.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+
+from dragonfly2_tpu_torch.rpc.codec import message
+from dragonfly2_tpu_torch.rpc.service import MethodKind, ServiceSpec
 
 SERVING = "SERVING"
 NOT_SERVING = "NOT_SERVING"
 UNKNOWN = "SERVICE_UNKNOWN"
 
 
-@dataclass
+@message("health.CheckRequest")
 class HealthCheckRequest:
     service: str = ""
 
 
-@dataclass
+@message("health.CheckReply")
 class HealthCheckReply:
     status: str = SERVING
+
+
+HEALTH_SPEC = ServiceSpec(
+    name="df2.health.Health",
+    methods={"Check": MethodKind.UNARY_UNARY},
+)
 
 
 class HealthService:

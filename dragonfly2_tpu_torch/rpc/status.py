@@ -1,9 +1,12 @@
-"""RPC status codes and the in-process call context.
+"""RPC status codes, the wire's error and the in-process call context.
 
-The port has no gRPC: a service method's ``context`` only needs
-``abort(code, details)`` taking a :class:`StatusCode` and raising, as
-gRPC's does; :class:`CallContext` is the in-process one. The inference
-service and the trainer service abort through it.
+A service method's ``context`` needs ``abort(code, details)`` taking a
+:class:`StatusCode` and raising, as gRPC's does: :class:`CallContext` is
+the in-process one, and raises :class:`RpcAbort`; the wire's server
+context (``rpc/service.py``) raises the same. A call made over the wire
+(``rpc/client.py``) that ends with a status other than OK raises
+:class:`RpcError`, whose ``code()`` and ``details()`` are grpc's
+``RpcError`` methods, so callers port line for line.
 """
 
 from __future__ import annotations
@@ -34,12 +37,28 @@ class StatusCode(enum.Enum):
 
 
 class RpcAbort(Exception):
-    """Raised by :meth:`CallContext.abort`."""
+    """Raised by :meth:`CallContext.abort` (and the wire server's
+    ``abort``): ends the call with ``code`` and ``details``."""
 
     def __init__(self, code: StatusCode, details: str):
         super().__init__(f"{code.name}: {details}")
         self.code = code
         self.details = details
+
+
+class RpcError(Exception):
+    """A call over the wire that ended with a status other than OK."""
+
+    def __init__(self, code: StatusCode, details: str = ""):
+        super().__init__(f"{code.name}: {details}")
+        self._code = code
+        self._details = details
+
+    def code(self) -> StatusCode:
+        return self._code
+
+    def details(self) -> str:
+        return self._details
 
 
 class CallContext:

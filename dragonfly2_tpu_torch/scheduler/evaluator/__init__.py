@@ -57,17 +57,21 @@ def new_evaluator(algorithm: str = ALGORITHM_DEFAULT, *, scorer=None,
     :data:`PLUGIN_GROUP`. Anything else: :class:`BaseEvaluator`.
     ``guard_kwargs`` go to the evaluator's constructor.
 
-    The sidecar-backed evaluator (``sidecar_target``) needs the gRPC
-    transport, which is not ported yet (ROADMAP.md Queue 1 item 4, the
-    transport slice): it raises NotImplementedError rather than fall
-    back silently.
+    ``ml`` with a ``sidecar_target`` (``host:port`` of a served
+    inference service, ``python -m dragonfly2_tpu_torch.cmd.inference``)
+    is a :class:`~dragonfly2_tpu_torch.inference.sidecar.RemoteMLEvaluator`
+    over an ``InferenceClient`` on the port's wire; the service owns its
+    batcher, so the batcher knobs do not apply.
     """
-    if sidecar_target:
-        raise NotImplementedError(
-            "sidecar_target: the gRPC transport (InferenceClient, "
-            "RemoteMLEvaluator) is not ported yet (ROADMAP.md Queue 1 "
-            "item 4, the transport slice)")
     if algorithm == ALGORITHM_ML:
+        if sidecar_target:
+            from dragonfly2_tpu_torch.inference.sidecar import (
+                InferenceClient,
+                RemoteMLEvaluator,
+            )
+
+            return RemoteMLEvaluator(InferenceClient(sidecar_target),
+                                     **guard_kwargs)
         from dragonfly2_tpu_torch.inference.scorer import MLEvaluator
 
         if micro_batch and scorer is not None:

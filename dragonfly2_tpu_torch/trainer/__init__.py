@@ -2,7 +2,8 @@
 that turns them into registered models on the card, the ingest service
 that the scheduler's announcer streams its datasets to, and the
 crash-safe federated round coordinator — port of
-``dragonfly2_tpu/trainer`` without its gRPC transport."""
+``dragonfly2_tpu/trainer`` (``TRAINER_SPEC`` served over the port's
+wire, ``rpc/service.py``)."""
 
 from dragonfly2_tpu_torch.trainer.federation import (
     FederationConfig,
@@ -13,6 +14,7 @@ from dragonfly2_tpu_torch.trainer.federation import (
     endpoints_from_storage,
 )
 from dragonfly2_tpu_torch.trainer.service import (
+    TRAINER_SPEC,
     TrainCostRequest,
     TrainerService,
     TrainGnnRequest,
@@ -35,6 +37,7 @@ __all__ = [
     "LocalClusterEndpoint",
     "ModelRegistry",
     "RoundReport",
+    "TRAINER_SPEC",
     "TrainCostRequest",
     "TrainerService",
     "TrainerStorage",

@@ -1,5 +1,5 @@
 """Trainer service: client-streaming dataset ingest — port of
-``dragonfly2_tpu/trainer/service.py`` without its gRPC transport.
+``dragonfly2_tpu/trainer/service.py``.
 
 Reference counterpart: trainer/service/service_v1.go:59-162 — the first
 message identifies the source scheduler host, chunks append to per-host
@@ -7,12 +7,12 @@ dataset files by request type, and EOF kicks off training asynchronously.
 Our chunks additionally carry ``new_file`` marking rotated-file boundaries
 (each CSV segment has its own header; see trainer.storage).
 
-The five messages are plain dataclasses, as the inference service's are;
-``Train`` takes any iterator of requests and a context whose ``abort``
-takes a :class:`~dragonfly2_tpu_torch.rpc.status.StatusCode` and raises
-(:class:`~dragonfly2_tpu_torch.rpc.status.CallContext` in process). The
-service spec and serving it over gRPC are not ported yet (ROADMAP.md,
-Queue 1 item 4).
+The five messages carry JAX's codec tags, and ``TRAINER_SPEC`` is JAX's:
+``serve([(TRAINER_SPEC, service)])`` serves ``Train`` over the port's
+wire (``rpc/service.py``). ``Train`` takes any iterator of requests and a
+context whose ``abort`` takes a
+:class:`~dragonfly2_tpu_torch.rpc.status.StatusCode` and raises
+(:class:`~dragonfly2_tpu_torch.rpc.status.CallContext` in process).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import threading
 from dataclasses import dataclass
 from typing import Optional
 
+from dragonfly2_tpu_torch.rpc.codec import message
+from dragonfly2_tpu_torch.rpc.service import MethodKind, ServiceSpec
 from dragonfly2_tpu_torch.rpc.status import StatusCode
 from dragonfly2_tpu_torch.trainer.storage import (
     DOWNLOAD_PREFIX,
@@ -34,18 +36,21 @@ from dragonfly2_tpu_torch.trainer.training import Training
 logger = logging.getLogger(__name__)
 
 
+@message("trainer.TrainGnnRequest")
 @dataclass
 class TrainGnnRequest:
     dataset: bytes = b""
     new_file: bool = False
 
 
+@message("trainer.TrainMlpRequest")
 @dataclass
 class TrainMlpRequest:
     dataset: bytes = b""
     new_file: bool = False
 
 
+@message("trainer.TrainCostRequest")
 @dataclass
 class TrainCostRequest:
     """Replay-plane decision corpus chunks (scheduler storage's rotated
@@ -56,6 +61,7 @@ class TrainCostRequest:
     new_file: bool = False
 
 
+@message("trainer.TrainRequest")
 @dataclass
 class TrainRequest:
     host_id: str = ""
@@ -70,10 +76,17 @@ class TrainRequest:
     cost: Optional[TrainCostRequest] = None
 
 
+@message("trainer.TrainResponse")
 @dataclass
 class TrainResponse:
     host_id: str = ""
     accepted_bytes: int = 0
+
+
+TRAINER_SPEC = ServiceSpec(
+    name="df2.trainer.Trainer",
+    methods={"Train": MethodKind.STREAM_UNARY},
+)
 
 
 def _context_active(context) -> bool:
@@ -196,7 +209,10 @@ class TrainerService:
             # duplicate every delivered record. This was the
             # order-dependent test_failed_stream_rolls_back_segments
             # flake: load delayed cancellation processing past the
-            # drained receive queue.
+            # drained receive queue. The port's wire gives the same
+            # sequence: a client that half-closes after its last chunk
+            # (END) and hangs up before the reply ends the stream
+            # cleanly, and only is_active() sees it gone.
             if self.metrics:
                 self.metrics.train_request_failure.inc()
             self.storage.discard_files(sorted(set(written)))

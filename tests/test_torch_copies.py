@@ -54,6 +54,7 @@ COPIES = [
     "client/source_oss.py", "utils/registryauth.py", "client/source_oras.py",
     "client/source_hdfs.py", "client/objectstorage_gateway.py",
     "cmd/dfstore.py", "utils/certs.py", "client/proxy.py",
+    "rpc/codec.py",
 ]
 
 

@@ -577,8 +577,16 @@ def test_new_evaluator_every_algorithm(mlp, monkeypatch):
     for make in (new_evaluator, jax_new_evaluator):
         with pytest.raises(ValueError, match="CostScorer"):
             make("cost")
-    with pytest.raises(NotImplementedError, match="transport slice"):
-        new_evaluator("ml", scorer=scorer, sidecar_target="localhost:1")
+    from dragonfly2_tpu_torch.inference.sidecar import (
+        InferenceClient,
+        RemoteMLEvaluator,
+    )
+
+    remote = new_evaluator("ml", scorer=scorer, sidecar_target="localhost:1")
+    assert isinstance(remote, RemoteMLEvaluator)
+    assert isinstance(remote.client, InferenceClient)
+    assert remote.client._client.target == "localhost:1"
+    remote.client.close()
     batched = new_evaluator("ml", scorer=scorer, micro_batch=True,
                             batch_lanes=2, batch_queue_depth=4)
     assert isinstance(batched, MLEvaluator)

@@ -206,6 +206,14 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.client.objectstorage_gateway",
         "dragonfly2_tpu_torch.client.proxy",
         "dragonfly2_tpu_torch.cmd.dfstore",
+        # slice 23: the RPC transport and the two serving entry points
+        "dragonfly2_tpu_torch.rpc.codec",
+        "dragonfly2_tpu_torch.rpc.wire",
+        "dragonfly2_tpu_torch.rpc.service",
+        "dragonfly2_tpu_torch.rpc.client",
+        "dragonfly2_tpu_torch.rpc.status",
+        "dragonfly2_tpu_torch.cmd.inference",
+        "dragonfly2_tpu_torch.cmd.trainer",
     }
     assert expected <= set(probe["imported"])
 
@@ -223,9 +231,6 @@ def test_no_forbidden_module_loaded(probe, package):
 # every line of the port that names it. A call that reaches one of these
 # lines raises ModuleNotFoundError naming the module.
 NOT_PORTED = {
-    "dragonfly2_tpu_torch.rpc.client": {
-        "dragonfly2_tpu_torch/client/networktopology.py:75",
-    },
     "dragonfly2_tpu_torch.scheduler.rpcserver": {
         "dragonfly2_tpu_torch/client/networktopology.py:76",
         "dragonfly2_tpu_torch/client/networktopology.py:88",

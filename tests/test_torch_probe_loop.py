@@ -197,14 +197,16 @@ print(json.dumps({"error": error, "grpc": sorted(
 
 def test_grpc_probe_sync_needs_the_rpc_transport():
     """``GrpcProbeSync`` imports its transport when built: the module
-    loads without grpc, and building one fails until the port has an RPC
-    client."""
+    loads without grpc, the port's RPC client imports without grpc, and
+    building one fails until the port has the scheduler's RPC server
+    (its ``SCHEDULER_SPEC``)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _GRPC_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"error": "dragonfly2_tpu_torch.rpc.client", "grpc": []}
+    assert got == {"error": "dragonfly2_tpu_torch.scheduler.rpcserver",
+                   "grpc": []}
 
 
 # -- a port daemon probing live ------------------------------------------------
