@@ -24,7 +24,8 @@ config #4) through the crash-safe coordinator to a gated global model,
 and train configs #1-#3 and the orchestrator data-parallel over
 ``torch.distributed`` ranks, and fan a Llama-3-8B safetensors shard
 through the P2P client and scheduler into device memory (BASELINE
-config #5), and train config #3 in ring mode with its rows sharded over
+config #5), in this process and again through a scheduler, two daemons
+and dfget as processes over the port's wire, and train config #3 in ring mode with its rows sharded over
 ranks and run ring attention, the pipeline and the experts across
 ranks, and train config #3 tensor-parallel on (data, model) grids of
 ranks and place a safetensors tensor split across ranks, on one NVIDIA
@@ -389,7 +390,26 @@ Phases (any failure exits nonzero, before the final line):
    host-to-device rates — plus the pinned staging allocation, the
    sink's write share, peak memory, ``native.available()``, the piece
    size and count and a timeline; fewer layers only if the disk is
-   short, and everything deleted after);
+   short, and everything deleted after) and p2p_processes (the same file
+   through ``artifacts/hbm_fanout.py``'s process topology:
+   ``python -m dragonfly2_tpu_torch.cmd.scheduler --algorithm ml``
+   over an inference child on the card (``cmd.inference``, started
+   before phase 16, its registry's active MLP the trained config #1
+   one) with ``--seed-peer``, a ``cmd.dfdaemon --type super`` seed and
+   a ``--type normal`` peer; ``cmd.dfget --daemon`` through the peer
+   warms the mesh (exit 0, the file's sha256 equal to the origin's,
+   deleted at once); then a peer in this process on
+   ``GrpcSchedulerClient`` runs ``download_to_hbm`` onto cuda:0 with
+   every launch count set to 0 just before and read just after. It
+   fails if a tensor's bytes differ from the origin's digests, if the
+   measured peer's pieces did not come from both daemons, if the origin
+   served more than the file's bytes once, if the scheduler child's
+   ``serving`` block shows no ML score or any rule fallback, shed or
+   guard trip, if ``cmd.dfcache`` import / stat / export / delete
+   through the peer's daemon surface do not round-trip, if a child does
+   not exit 0 on SIGTERM, or if a kernel launched; it prints the
+   seconds to the last tensor, the download MB/s, each child's start
+   seconds, the layers and the bytes);
 18. sequence, pipeline and expert parallelism, the slice 15 paths (each
    over a process group; no kernel may launch on them): first the world
    of one in this process over a one-rank NCCL group (config #3 in ring
@@ -6179,6 +6199,81 @@ def run_probe_loop(torch, counts) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+class SmokeChild:
+    """A port command as a child process started from the checkout root:
+    stderr in a file, stdout read up to the line that says it serves
+    (``ready``), then drained on a thread. ``start_s`` is the seconds from
+    the start to that line being read."""
+
+    def __init__(self, name: str, module: str, args: list, tmp: str):
+        self.name = name
+        self.err_path = os.path.join(tmp, f"{name}.err")
+        self.t_started = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", module, *map(str, args)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        self.lines, self.target, self.start_s, self.code = [], None, None, None
+        self._terminated = False
+
+    def terminate(self) -> None:
+        """SIGTERM without waiting: the command's graceful stop. Sent
+        once: a second one can land after the interpreter restored the
+        default handler on its way out, and kill it."""
+        import signal
+
+        if not self._terminated and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        self._terminated = True
+
+    def stderr(self) -> str:
+        with open(self.err_path) as fh:
+            return fh.read()[-3000:]
+
+    def ready(self, expect: str) -> str:
+        """Read stdout up to the line starting ``expect``; its last word
+        (``host:port``) is the target."""
+        import threading
+
+        watchdog = threading.Timer(RPC_START_TIMEOUT_S, self.proc.kill)
+        watchdog.start()
+        try:
+            while True:
+                line = self.proc.stdout.readline()
+                if not line:
+                    raise AssertionError(
+                        f"{self.name} did not start: {self.lines}; "
+                        f"stderr: {self.stderr()}")
+                self.lines.append(line.rstrip())
+                if line.startswith(expect):
+                    break
+        finally:
+            watchdog.cancel()
+        self.start_s = time.perf_counter() - self.t_started
+        self.target = self.lines[-1].rsplit(" ", 1)[1]
+        threading.Thread(target=self.proc.stdout.read, daemon=True,
+                         name=f"{self.name}-stdout").start()
+        return self.target
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"cmd.{self.name} exited "
+                                 f"{self.proc.returncode}; stderr: "
+                                 f"{self.stderr()}")
+
+    def stop(self) -> int:
+        """SIGTERM (the command's graceful stop), SIGKILL after 30 s; the
+        exit code. Idempotent."""
+        if self.code is None:
+            self.terminate()
+            try:
+                self.code = self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.code = self.proc.wait()
+        return self.code
+
+
 class ServingChildren:
     """``python -m dragonfly2_tpu_torch.cmd.inference`` and
     ``...cmd.trainer`` as child processes on the card, sharing one
@@ -6188,6 +6283,9 @@ class ServingChildren:
     sidecar runs ``--no-shadow`` with ``--reload-interval 1``: a version
     the registry activates is installed on the next poll, not canaried
     first (the canary is the lifecycle phase's)."""
+
+    EXPECT = {"inference": "inference sidecar serving on ",
+              "trainer": "trainer serving on "}
 
     def __init__(self):
         import tempfile
@@ -6201,68 +6299,39 @@ class ServingChildren:
         extra = {"inference": ["--reload-interval", "1", "--no-shadow"],
                  "trainer": ["--data-dir", os.path.join(self.tmp,
                                                         "trainer")]}
-        self.procs, self.err_paths, self._targets = {}, {}, None
+        self._targets = None
         self.t_started = time.perf_counter()
-        for name, args in extra.items():
-            self.err_paths[name] = os.path.join(self.tmp, f"{name}.err")
-            with open(self.err_paths[name], "w") as err:
-                self.procs[name] = subprocess.Popen(
-                    [sys.executable, "-m",
-                     f"dragonfly2_tpu_torch.cmd.{name}", *common, *args],
-                    cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        self.children = {
+            name: SmokeChild(name, f"dragonfly2_tpu_torch.cmd.{name}",
+                             common + args, self.tmp)
+            for name, args in extra.items()}
         self.codes = None
 
     def stderr(self, name: str) -> str:
-        with open(self.err_paths[name]) as fh:
-            return fh.read()[-3000:]
+        return self.children[name].stderr()
 
     def targets(self) -> dict:
         """Each child's ``host:port`` from its serving line, and the
         seconds from the start to that line being read."""
-        import threading
-
-        if self._targets is not None:
-            return self._targets
-        expect = {"inference": "inference sidecar serving on ",
-                  "trainer": "trainer serving on "}
-        targets = {}
-        for name, proc in self.procs.items():
-            watchdog = threading.Timer(RPC_START_TIMEOUT_S, proc.kill)
-            watchdog.start()
-            line = proc.stdout.readline()
-            watchdog.cancel()
-            if not line.startswith(expect[name]):
-                raise AssertionError(f"cmd.{name} did not start: {line!r}; "
-                                     f"stderr: {self.stderr(name)}")
-            targets[name] = line.rstrip().rsplit(" ", 1)[1]
-        targets["ready_seconds"] = time.perf_counter() - self.t_started
-        self._targets = targets
-        return targets
+        if self._targets is None:
+            targets = {name: child.ready(self.EXPECT[name])
+                       for name, child in self.children.items()}
+            targets["ready_seconds"] = time.perf_counter() - self.t_started
+            self._targets = targets
+        return self._targets
 
     def check_alive(self) -> None:
-        for name, proc in self.procs.items():
-            if proc.poll() is not None:
-                raise AssertionError(
-                    f"cmd.{name} exited {proc.returncode}; stderr: "
-                    f"{self.stderr(name)}")
+        for child in self.children.values():
+            child.check_alive()
 
     def stop(self) -> dict:
         """SIGTERM (each command's graceful stop), SIGKILL after 30 s;
         exit codes by name. Idempotent."""
-        import signal
-
         if self.codes is None:
-            self.codes = {}
-            for name, proc in self.procs.items():
-                if proc.poll() is None:
-                    proc.send_signal(signal.SIGTERM)
-            for name, proc in self.procs.items():
-                try:
-                    self.codes[name] = proc.wait(timeout=30)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    self.codes[name] = proc.wait()
-                proc.stdout.close()
+            for child in self.children.values():
+                child.terminate()
+            self.codes = {name: child.stop()
+                          for name, child in self.children.items()}
             shutil.rmtree(self.tmp, ignore_errors=True)
         return self.codes
 
@@ -9277,8 +9346,9 @@ def run_hbm_fanout(torch, counts, dev, origin: FanoutOrigin | None = None
     origin → the in-process scheduler, a SUPER_SEED daemon and a warmed
     peer → a third daemon's ``download_to_hbm`` onto ``dev``. Launch
     counts are set to 0 just before the download and read just after.
-    ``origin`` is the file's writer, started earlier (None: start it
-    now); the phase waits for it and deletes it at the end."""
+    ``origin`` is the file's writer, started earlier, which the caller
+    closes (None: start one now and delete it at the end); the phase
+    waits for it and deletes its daemons' storage."""
     import hashlib
     import threading
 
@@ -9292,7 +9362,8 @@ def run_hbm_fanout(torch, counts, dev, origin: FanoutOrigin | None = None
 
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
-    origin = origin if origin is not None else FanoutOrigin()
+    own_origin = origin is None
+    origin = FanoutOrigin() if own_origin else origin
     tmp = origin.tmp
     daemons = []
     try:
@@ -9439,7 +9510,344 @@ def run_hbm_fanout(torch, counts, dev, origin: FanoutOrigin | None = None
     finally:
         for d in reversed(daemons):
             d.stop()
-        origin.close()
+        if own_origin:
+            origin.close()
+        else:
+            for name in ("seed-1", "peer-warm", "peer-hbm", "datasets"):
+                shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+
+
+# -- config #5 as processes, slice 24 -----------------------------------------
+
+#: Seconds the sidecar child may take to have the registry's MLP ready.
+P2P_READY_TIMEOUT_S = 300.0
+#: Bytes of the file dfcache imports, exports and deletes through peer-a.
+P2P_DFCACHE_BYTES = 8 << 20
+
+
+class P2PSidecar:
+    """The inference command as a child on the card for config #5 in
+    processes, over a registry of its own (a sqlite file and an object
+    directory under a temp dir) whose active ``mlp`` is ``mlp_bytes``.
+    Started before data parallelism, so that its import and CUDA start
+    hide behind that phase; :meth:`ready` waits for its serving line and
+    for the MLP to be ready."""
+
+    def __init__(self, mlp_bytes: bytes):
+        import tempfile
+
+        from dragonfly2_tpu_torch.manager import (
+            Database,
+            FilesystemObjectStore,
+            ManagerService,
+        )
+        from dragonfly2_tpu_torch.train.checkpoint import untar_to_directory
+
+        self.tmp = tempfile.mkdtemp(prefix="smoke-p2p-sidecar-")
+        db = os.path.join(self.tmp, "manager.db")
+        objects = os.path.join(self.tmp, "objects")
+        model_dir = os.path.join(self.tmp, "mlp")
+        untar_to_directory(mlp_bytes, model_dir)
+        registry = ManagerService(Database(db), FilesystemObjectStore(objects))
+        self.version = registry.create_model(
+            model_id="p2p-mlp", model_type="mlp", host_id="smoke",
+            ip="127.0.0.1", hostname="smoke", evaluation={},
+            artifact_dir=model_dir).version
+        self.child = SmokeChild(
+            "inference", "dragonfly2_tpu_torch.cmd.inference",
+            ["--manager-db", db, "--object-store-dir", objects, "--host",
+             "127.0.0.1", "--port", "0", "--device", "cuda",
+             "--reload-interval", "1", "--no-shadow"], self.tmp)
+
+    def ready(self) -> str:
+        from dragonfly2_tpu_torch.inference.sidecar import (
+            InferenceClient,
+            ModelReadyRequest,
+        )
+
+        target = self.child.ready("inference sidecar serving on ")
+        client = InferenceClient(target, timeout=30)
+        try:
+            wait_until("the sidecar child's MLP", lambda: (
+                self.child.check_alive() or client._client.ModelReady(
+                    ModelReadyRequest("mlp"), timeout=30).version
+                == self.version), P2P_READY_TIMEOUT_S)
+        finally:
+            client.close()
+        return target
+
+    def close(self) -> int:
+        code = self.child.stop()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return code
+
+
+def piece_parent_client(target: str):
+    """The scheduler's wire client of ``dragonfly2_tpu_torch``, noting
+    the parents each scheduling decision offers this peer (``offered``)
+    and counting the parent of each piece it reports (``parents``). A
+    peer id is ``<ip>-<pid>-<uuid>``: the pid names the daemon."""
+    import collections
+
+    from dragonfly2_tpu_torch.scheduler.rpcserver import GrpcSchedulerClient
+
+    class PieceParentClient(GrpcSchedulerClient):
+        def __init__(self):
+            super().__init__(target)
+            self.parents = collections.Counter()
+            self.offered = []
+
+        def register_peer(self, req, channel=None):
+            if channel is not None:
+                put = channel.decisions.put
+
+                def noting_put(item, *args, **kwargs):
+                    if hasattr(item, "parents"):
+                        self.offered.append([p.peer_id
+                                             for p in item.parents])
+                    return put(item, *args, **kwargs)
+
+                channel.decisions.put = noting_put
+            return super().register_peer(req, channel)
+
+        def download_piece_finished(self, report) -> None:
+            self.parents[report.parent_id] += 1
+            super().download_piece_finished(report)
+
+        def download_pieces_finished(self, reports) -> None:
+            reports = list(reports)
+            for report in reports:
+                self.parents[report.parent_id] += 1
+            super().download_pieces_finished(reports)
+
+    return PieceParentClient()
+
+
+def fetch_debug_vars(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return json.loads(resp.read())
+
+
+def file_sha256(path: str) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    with open(path, "rb") as fh:
+        while chunk := fh.read(FANOUT_CHUNK):
+            digest.update(chunk)
+    return digest.hexdigest()
+
+
+def p2p_dfcache(tmp: str, daemon_target: str) -> dict:
+    """``python -m dragonfly2_tpu_torch.cmd.dfcache`` import, stat,
+    export, delete and stat again through a daemon's RPC surface: exit
+    codes, and whether the export equals the import."""
+    src, out = os.path.join(tmp, "dfcache-in"), os.path.join(tmp,
+                                                            "dfcache-out")
+    data = np.random.default_rng((SEED, 24)).bytes(P2P_DFCACHE_BYTES)
+    with open(src, "wb") as fh:
+        fh.write(data)
+    codes = {}
+    for step, argv in (("import", ["import", "p2p-cid", "--path", src]),
+                       ("stat", ["stat", "p2p-cid"]),
+                       ("export", ["export", "p2p-cid", "--path", out]),
+                       ("delete", ["delete", "p2p-cid"]),
+                       ("stat_after", ["stat", "p2p-cid"])):
+        run = subprocess.run(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.dfcache", *argv,
+             "--daemon", daemon_target], cwd=ROOT, capture_output=True,
+            text=True, timeout=RPC_START_TIMEOUT_S)
+        codes[step] = run.returncode
+    with open(out, "rb") as fh:
+        same = fh.read() == data
+    return {"codes": codes, "export_equals_import": same}
+
+
+def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
+                      sidecar: P2PSidecar) -> dict:
+    """BASELINE config #5 as processes, ``artifacts/hbm_fanout.py``'s
+    topology through the port's entry points: ``cmd.scheduler`` (``--algorithm
+    ml`` over the sidecar child, ``--seed-peer``), a ``cmd.dfdaemon
+    --type super`` seed and a ``--type normal`` peer as children; a
+    ``cmd.dfget --daemon`` warm-up through the peer; then a peer in this
+    process on ``GrpcSchedulerClient`` whose ``download_to_hbm`` fills
+    cuda:0, with the launch counts set to 0 just before and read just
+    after. ``origin`` is config #5's file (the phase leaves it to its
+    owner); the sidecar is stopped here. Returns the launches."""
+    import hashlib
+    import tempfile
+    import threading
+
+    from dragonfly2_tpu_torch.client.daemon import Daemon, DaemonConfig
+    from dragonfly2_tpu_torch.client.hbm_sink import download_to_hbm
+    from dragonfly2_tpu_torch.client.piece import compute_piece_size
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-p2p-", dir=origin.tmp)
+    children, failures, daemon = [], [], None
+    sidecar_code = None
+    try:
+        digests = origin.wait()[0]
+        length = os.path.getsize(origin.path)
+        origin_sha = {}
+        hasher = threading.Thread(
+            target=lambda: origin_sha.update(sha=file_sha256(origin.path)),
+            daemon=True, name="origin-sha256")
+        hasher.start()
+        t0 = time.perf_counter()
+        sidecar_target = sidecar.ready()
+        sidecar_wait_s = time.perf_counter() - t0
+        ports = {name: free_port()
+                 for name in ("scheduler", "seed", "peer", "pprof")}
+        scheduler = SmokeChild(
+            "scheduler", "dragonfly2_tpu_torch.cmd.scheduler",
+            ["--host", "127.0.0.1", "--port", ports["scheduler"],
+             "--data-dir", os.path.join(tmp, "scheduler-data"),
+             "--algorithm", "ml", "--inference-sidecar", sidecar_target,
+             "--seed-peer", f"127.0.0.1:{ports['seed']}",
+             "--pprof-port", ports["pprof"]], tmp)
+        children.append(scheduler)
+        scheduler.ready("scheduler serving on ")
+        for name, kind in (("seed-1", "super"), ("peer-a", "normal")):
+            key = name.split("-")[0]
+            children.append(SmokeChild(
+                name, "dragonfly2_tpu_torch.cmd.dfdaemon",
+                ["--scheduler", f"127.0.0.1:{ports['scheduler']}",
+                 "--rpc-port", ports[key],
+                 "--storage-dir", os.path.join(tmp, name),
+                 "--hostname", name, "--type", kind], tmp))
+        for child in children[1:]:
+            child.ready("daemon rpc on ")
+        start_s = {c.name: c.start_s for c in children}
+
+        with OriginServer(origin.dir) as server:
+            url = server.url("model.safetensors")
+            # Warm the mesh: peer-a pulls the file through the scheduler,
+            # seeded at seed-1, so the measured peer finds it on both.
+            warm_path = os.path.join(tmp, "warm.safetensors")
+            t0 = time.perf_counter()
+            warm = subprocess.run(
+                [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.dfget", url,
+                 "-O", warm_path, "--daemon", f"127.0.0.1:{ports['peer']}"],
+                cwd=ROOT, capture_output=True, text=True,
+                timeout=FANOUT_TIMEOUT_S)
+            warm_s = time.perf_counter() - t0
+            if warm.returncode != 0:
+                raise AssertionError(f"warm dfget exited {warm.returncode}: "
+                                     f"{warm.stdout} {warm.stderr[-2000:]}")
+            hasher.join()
+            warm_same = file_sha256(warm_path) == origin_sha["sha"]
+            os.unlink(warm_path)
+            if not warm_same:
+                failures.append("the warm file's sha256 differs from the "
+                                "origin's")
+
+            client = piece_parent_client(f"127.0.0.1:{ports['scheduler']}")
+            daemon = Daemon(client, DaemonConfig(
+                storage_root=os.path.join(tmp, "hbm-peer"),
+                hostname="hbm-peer"))
+            daemon.start()
+            release_card_memory(torch)
+            box = {}
+            counts.reset()
+            t_start = time.perf_counter()
+            tensors = download_to_hbm(daemon, url, device=dev,
+                                      timeout=FANOUT_TIMEOUT_S,
+                                      on_sink=lambda s: box.update(sink=s))
+            t_last_tensor = time.perf_counter() - t_start
+            launches = counts.read()
+            gets = dict(server.gets)
+            served = dict(server.served)
+        sink = box["sink"]
+        t_last_piece = sink.written_at - t_start
+
+        # 1. Every tensor on the card, bf16 at its shape, its bytes equal
+        # to the digest made when the file was written.
+        for name, shape in origin.specs:
+            t = tensors[name]
+            back = t.reshape(-1).view(torch.uint8).cpu().numpy()
+            if (t.device != dev or t.dtype != torch.bfloat16
+                    or tuple(t.shape) != shape
+                    or hashlib.sha256(back).hexdigest() != digests[name]):
+                failures.append(f"{name}: {t.device} {t.dtype} "
+                                f"{tuple(t.shape)} or its bytes differ")
+        if set(tensors) != set(digests):
+            failures.append("extra or missing tensors")
+        del tensors
+        # 2. Parents on both daemons: the scheduler child offered the
+        # measured peer a parent on each (a peer id carries its daemon's
+        # pid). Which parent serves a piece is the first one whose
+        # metadata sync lists it; those counts are reported beside.
+        pids = {str(c.proc.pid): c.name for c in children}
+
+        def daemon_of(peer_id: str) -> str:
+            parts = peer_id.split("-")
+            return pids.get(parts[1] if len(parts) > 2 else "",
+                            peer_id or "origin")
+
+        offered = sorted({daemon_of(p) for ps in client.offered for p in ps})
+        by_daemon = {}
+        for peer_id, n in client.parents.items():
+            by_daemon[daemon_of(peer_id)] = by_daemon.get(
+                daemon_of(peer_id), 0) + n
+        if offered != ["peer-a", "seed-1"]:
+            failures.append(f"the measured peer's parents {offered} are not "
+                            "on both daemons")
+        if not set(by_daemon) <= {"peer-a", "seed-1"}:
+            failures.append(f"pieces from {by_daemon}, not the daemons")
+        # 3. The origin served the file's bytes once: seed-1's
+        # back-to-source of the warm-up.
+        if served.get("/model.safetensors") != length:
+            failures.append(f"the origin served {served} bytes of a "
+                            f"{length}-byte file")
+        # 4. The sidecar child scored the parent decisions over the wire.
+        blocks = fetch_debug_vars(f"http://127.0.0.1:{ports['pprof']}/debug/vars")
+        serving = blocks["serving"]
+        scheduler_stats = client.stats().stats
+        if not (serving["ml_scored"] >= 1 and serving["ml_fallbacks"] == 0
+                and serving["ml_sheds"] == 0
+                and serving["ml_guard_trips"] == 0):
+            failures.append(f"the scheduler's ML scoring {serving}")
+        daemon.stop()
+        daemon = None
+        # 5. dfcache round trip through peer-a's daemon surface.
+        dfcache = p2p_dfcache(tmp, f"127.0.0.1:{ports['peer']}")
+        if dfcache != {"codes": {"import": 0, "stat": 0, "export": 0,
+                                 "delete": 0, "stat_after": 1},
+                       "export_equals_import": True}:
+            failures.append(f"dfcache through peer-a: {dfcache}")
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        # 6. Each child exits 0 on SIGTERM, daemons first.
+        codes = {c.name: c.stop() for c in reversed(children)}
+        sidecar_code = sidecar.close()
+        codes["inference"] = sidecar_code
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(codes.values()):
+        failures.append(f"children's exit codes {codes}")
+    # 7. No kernel launched in this process on the path.
+    if any(launches.values()):
+        failures.append(f"a kernel launched on the path: {launches}")
+    log("p2p_processes", card=nvidia_smi(), layers=origin.layers,
+        bytes=length, tensors=len(origin.specs),
+        piece_size=compute_piece_size(length), start_s=start_s,
+        sidecar_wait_s=sidecar_wait_s,
+        warm_download_s=warm_s, t_last_piece_s=t_last_piece,
+        t_last_tensor_s=t_last_tensor, download_MBps=length / 1e6
+        / t_last_piece, parents_offered=offered,
+        pieces_by_parent=by_daemon, decisions_offered=len(client.offered),
+        origin_gets=gets, origin_served=served, serving=serving,
+        scheduler_decisions=scheduler_stats["decisions"],
+        scheduler_back_to_source=scheduler_stats["back_to_source"],
+        dfcache=dfcache, exit_codes=codes, launches=launches,
+        failures=failures, seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError(f"p2p_processes: {failures}; see the line "
+                             "above")
+    return launches
 
 
 def expect_abort(service, request, code, context) -> None:
@@ -9885,18 +10293,25 @@ def main() -> int:
 
     # -- phase 16: data parallelism, slice 13 -------------------------------
     # Config #5's origin file is written meanwhile: the host work of
-    # hbm_fanout, hidden behind this phase's wait on its ranks.
+    # hbm_fanout, hidden behind this phase's wait on its ranks; so is the
+    # start of p2p_processes' inference child on the card.
     fanout_origin = FanoutOrigin()
+    p2p_sidecar = None
     try:
+        p2p_sidecar = P2PSidecar(mlp_artifact_bytes)
         dp_launches = run_data_parallel(torch, mlp_x, mlp_y, {
             "evaluations": training_evals, "predicted": training_predicted})
 
-        # -- phase 17: BASELINE config #5, slice 14 -------------------------
+        # -- phase 17: BASELINE config #5, slices 14 and 24 ------------------
         card0 = torch.device("cuda", 0)
         run_hbm_sink_small(torch, card0)
         fanout_launches = run_hbm_fanout(torch, counts, card0,
                                          fanout_origin)
+        p2p_launches = run_p2p_processes(torch, counts, card0,
+                                         fanout_origin, p2p_sidecar)
     finally:
+        if p2p_sidecar is not None:
+            p2p_sidecar.close()
         fanout_origin.close()
 
     # -- phase 18: sequence, pipeline and expert parallelism, slice 15 ------
@@ -9929,6 +10344,7 @@ def main() -> int:
                    "federated_config4": config4_launches[row["name"]],
                    "data_parallel": dp_launches[row["name"]],
                    "hbm_fanout": fanout_launches[row["name"]],
+                   "p2p_processes": p2p_launches[row["name"]],
                    **{path: par[row["name"]]
                       for path, par in par_launches.items()},
                    "tensor_parallel": tp_launches[row["name"]]}

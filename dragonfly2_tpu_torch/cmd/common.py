@@ -2,9 +2,9 @@
 loading, logging init, monitoring) — port of ``dragonfly2_tpu/cmd/common.py``.
 
 The flags, the YAML layering, logging, tracing, the multihost flags, the
-debug monitor and the shutdown wait are JAX's. Left out: the geo cluster
-identity (no ported command takes it) and the Prometheus endpoint
-(:func:`start_metrics_server` answers None).
+debug monitor, the geo cluster identity and the shutdown wait are JAX's.
+Left out: the Prometheus endpoint (:func:`start_metrics_server` answers
+None).
 """
 
 from __future__ import annotations
@@ -88,6 +88,16 @@ def add_observability_flags(parser: argparse.ArgumentParser) -> None:
                         help="max concurrently buffered traces awaiting "
                              "a tail verdict (oldest evicted, counted "
                              "in the observability stats block)")
+
+
+def init_observability_identity(cluster_id: str) -> None:
+    """Stamp this process's geo cluster onto the observability plane
+    (docs/GEO.md): /debug/vars grows a ``cluster`` key. No-op for "" —
+    cluster-blind processes keep byte-identical output."""
+    if cluster_id:
+        from dragonfly2_tpu_torch.utils import debugmon
+
+        debugmon.set_cluster_id(cluster_id)
 
 
 #: Services whose process contains the task-lifecycle verdict sites

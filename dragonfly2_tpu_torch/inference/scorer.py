@@ -519,6 +519,11 @@ class CostScorer:
         scorer's row-stable blocked forward."""
         return -self._scorer.score_corpus(features)
 
+    def close(self) -> None:
+        close = getattr(self._scorer, "close", None)
+        if close is not None:
+            close()
+
 
 class LearnedCostEvaluator:
     """The ``cost`` evaluator algorithm — learned piece-cost ranking and
@@ -563,6 +568,17 @@ class LearnedCostEvaluator:
         # so steady-state filters are dict hits. Cleared on overflow.
         self._bad_node_cache: dict = {}
         self._bad_node_cache_size = bad_node_cache_size
+
+    @property
+    def serving_version(self) -> str:
+        """The registry version of the cost model: what the scheduler's
+        reload watcher compares with the registry's active one."""
+        return getattr(self._scorer, "version", "")
+
+    def close(self) -> None:
+        close = getattr(self._scorer, "close", None)
+        if close is not None:
+            close()
 
     def _fallback_ranked(self, parents, child, total_piece_count):
         self.fallback_count += 1

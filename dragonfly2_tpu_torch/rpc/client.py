@@ -345,27 +345,38 @@ class ServiceClient:
 
 def _send_stream(call: _Call, request_iterator, failed=None) -> None:
     """Send every request of ``request_iterator``, then END. A request
-    iterator that raises cuts the connection, so the server sees a
-    cancelled stream, and the call fails UNKNOWN as grpc's does."""
-    try:
-        for request in request_iterator:
-            call.send_request(call.encode(request), end=False)
-        call.send_end()
-    except RpcError as err:  # a request over the cap
+    iterator that raises — an ``OSError`` of its own included — cuts the
+    connection, so the server sees a cancelled stream, and the call fails
+    UNKNOWN as grpc's does; a socket error while sending means the server
+    ended the call early, and its trailer says why."""
+    def fail(err: RpcError) -> None:
         if failed is not None:
             failed.append(err)  # before the abort the reader will see
         call.abort()
         if failed is None:
-            raise
-    except OSError:
-        pass  # the server ended the call early; its trailer says why
-    except Exception:  # noqa: BLE001 — the caller's iterator failed
-        err = RpcError(StatusCode.UNKNOWN, "Exception iterating requests!")
-        if failed is not None:
-            failed.append(err)
-        call.abort()
-        if failed is None:
             raise err from None
+
+    requests = iter(request_iterator)
+    while True:
+        try:
+            request = next(requests)
+        except StopIteration:
+            break
+        except Exception:  # noqa: BLE001 — the caller's iterator failed
+            fail(RpcError(StatusCode.UNKNOWN,
+                          "Exception iterating requests!"))
+            return
+        try:
+            call.send_request(call.encode(request), end=False)
+        except RpcError as err:  # a request over the cap
+            fail(err)
+            return
+        except OSError:
+            return
+    try:
+        call.send_end()
+    except OSError:
+        pass
 
 
 class HashRing:

@@ -13,8 +13,10 @@ registers its ``batcher_stats`` as ``inference_batcher_stats``.
                       versions, and every registered block
   GET /healthy        liveness
 
-The JAX package's thread dump, sampling profiler, ``?full=1`` heap
-count and cluster label are not ported.
+A process stamped with a geo cluster (:func:`set_cluster_id`, from
+``cmd/common.init_observability_identity``) adds a ``cluster`` key. The
+JAX package's thread dump, sampling profiler and ``?full=1`` heap count
+are not ported.
 """
 
 from __future__ import annotations
@@ -31,8 +33,21 @@ from dragonfly2_tpu_torch.utils.httpserver import ThreadedHTTPService
 
 _START_TIME = time.time()
 
+# Geo cluster identity of this process ("" = cluster-blind). Set once at
+# service startup (cmd/common.init_observability_identity).
+_CLUSTER_ID = ""
+
 _VARS: dict = {}
 _VARS_LOCK = threading.Lock()
+
+
+def set_cluster_id(cluster_id: str) -> None:
+    global _CLUSTER_ID
+    _CLUSTER_ID = cluster_id or ""
+
+
+def cluster_id() -> str:
+    return _CLUSTER_ID
 
 
 def register_debug_var(name: str, fn) -> None:
@@ -48,6 +63,10 @@ def process_vars() -> dict:
         "gc_counts": gc.get_count(),
         "python": sys.version.split()[0],
     }
+    if _CLUSTER_ID:
+        # Only cluster-labeled processes grow the key: cluster-blind
+        # /debug/vars output stays byte-identical.
+        out["cluster"] = _CLUSTER_ID
     try:
         import resource
 

@@ -11,8 +11,11 @@ tracing reach for, held against the JAX package on the CPU.
   JAX package's ``spans_to_request`` builds from the same records;
 - the chaos ladder (``client/chaosbench``): ``build_fault_plan`` fires
   as JAX's does, one fault rung at small blobs ends byte-exact, and the
-  kill rungs, which need processes the port does not have, raise
-  ``ModuleNotFoundError`` naming the missing module;
+  two kill rungs — a scheduler replica process (``scheduler.replica``)
+  and a daemon process (``client.daemon_proc``) killed mid-swarm — end
+  green with JAX's report keys, their seeded KILL rules firing as JAX's;
+- probe anti-entropy between two ``cmd.scheduler`` processes
+  (``--replica-peer``): a probe fed into one shows on the other;
 - ``utils/reload.ConfigWatcher``: the same callbacks as JAX's for a
   change, a bad edit and another change.
 """
@@ -280,16 +283,168 @@ def test_fault_rung_small_blobs_byte_exact(tmp_path):
     assert out["all_rungs_full_success"]
 
 
-@pytest.mark.parametrize("rung,module", [
-    ("run_scheduler_kill_rung", "dragonfly2_tpu_torch.scheduler.rpcserver"),
-    ("run_daemon_kill_rung", "dragonfly2_tpu_torch.scheduler.rpcserver"),
-])
-def test_kill_rungs_need_the_grpc_scheduler(rung, module):
+#: The kill rungs at test size (each about 6 and 13 s on the CPU).
+KILL_RUNGS = {
+    "run_scheduler_kill_rung": dict(tasks=6, size_bytes=1 << 20,
+                                    piece_size=64 << 10, seed=3),
+    "run_daemon_kill_rung": dict(seed=0),
+}
+
+
+@pytest.fixture(scope="module")
+def kill_rung_reports(tmp_path_factory):
+    """rung → {"port": report, "jax": report}. The two packages' rungs
+    run side by side (their fault planes and counters are separate
+    module globals); each rung's processes are its own package's."""
     from dragonfly2_tpu_torch.client import chaosbench as port_chaos
 
-    with pytest.raises(ModuleNotFoundError) as info:
-        getattr(port_chaos, rung)()
-    assert info.value.name == module
+    reports = {rung: {} for rung in KILL_RUNGS}
+
+    def run(pkg, chaos, rung):
+        root = tmp_path_factory.mktemp(f"{rung}-{pkg}")
+        try:
+            reports[rung][pkg] = getattr(chaos, rung)(
+                root=str(root), **KILL_RUNGS[rung])
+        except Exception as exc:  # noqa: BLE001 — reported by the test
+            reports[rung][pkg] = {"error": repr(exc)}
+
+    for rung in KILL_RUNGS:
+        threads = [threading.Thread(target=run, args=(pkg, chaos, rung))
+                   for pkg, chaos in (("port", port_chaos),
+                                      ("jax", jax_chaos))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=240)
+    return reports
+
+
+@pytest.mark.parametrize("rung", sorted(KILL_RUNGS))
+def test_kill_rung_green_with_jax_report_keys(kill_rung_reports, rung):
+    """``run_scheduler_kill_rung`` SIGKILLs a ``scheduler.replica``
+    process mid-swarm; ``run_daemon_kill_rung`` SIGKILLs a
+    ``client.daemon_proc`` process mid-download and restarts it. Both run
+    through the port's processes to a green verdict, with the report JAX's
+    rung gives."""
+    port, ref = kill_rung_reports[rung]["port"], kill_rung_reports[rung]["jax"]
+    assert "error" not in port, port
+    assert "error" not in ref, ref
+    assert sorted(port) == sorted(ref)
+    assert port["verdict_pass"], json.dumps(port, indent=1, default=str)
+    assert port["success_rate"] == 1.0 and port["killed"]
+    if rung == "run_scheduler_kill_rung":
+        assert port["degraded_to_source"] == 0 and port["failovers"] >= 1
+        assert port["reroute_p99_ms"] <= port["reroute_bound_s"] * 1e3
+    else:
+        assert 0.3 <= port["killed"]["fraction"] <= 0.9
+        assert port["resume"]["ok"] and port["resume"]["resumed_pieces"] > 0
+        assert port["resume"]["bytes_fresh"] <= port["refetch_bound_bytes"]
+        assert port["reseed"]["child_ok"]
+        assert port["recovery_counters"]["seed_tasks_reannounced"] >= 1
+
+
+@pytest.mark.parametrize("site,rule", [
+    ("scheduler.process", dict(every_nth=1, after=0.0, max_fires=1)),
+    ("daemon.process", dict(every_nth=1, max_fires=1)),
+])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_kill_rule_fires_as_jax(site, rule, seed):
+    """The rungs' seeded KILL rules: the same seed fires on the same
+    visit, once, in both packages."""
+    from dragonfly2_tpu.utils import faultplan as jax_faultplan
+    from dragonfly2_tpu_torch.utils import faultplan
+
+    fired = []
+    for fp in (faultplan, jax_faultplan):
+        plan = fp.FaultPlan(seed=seed)
+        plan.add(site, fp.FaultKind.KILL, **rule)
+        fired.append([fp.should_kill(plan, site, context=f"v{i}")
+                      for i in range(20)])
+        fired[-1].append(plan.snapshot())
+    assert fired[0] == fired[1]
+    assert fired[0][:20].count(True) == 1
+
+
+# ----------------------------------------------------------------------
+# Probe anti-entropy across scheduler processes
+# ----------------------------------------------------------------------
+
+
+def test_probes_replicate_between_scheduler_processes(tmp_path):
+    """Two ``python -m dragonfly2_tpu_torch.cmd.scheduler`` processes
+    peered with ``--replica-peer``: a probe fed into A over its
+    ``SyncProbes`` stream shows on B within a sync tick, read through B's
+    ``SyncReplicaProbes``."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    from dragonfly2_tpu_torch.scheduler.resource import Host
+    from dragonfly2_tpu_torch.scheduler.rpcserver import GrpcSchedulerClient
+    from dragonfly2_tpu_torch.scheduler.service import ProbeResult
+    from dragonfly2_tpu_torch.schema.records import Network
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    ports = [free_port(), free_port()]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.scheduler",
+         "--host", "127.0.0.1", "--port", str(ports[i]),
+         "--data-dir", str(tmp_path / f"data-{i}"),
+         "--replica-peer", f"127.0.0.1:{ports[1 - i]}",
+         "--replica-sync-interval", "0.5"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=env, cwd=repo) for i in (0, 1)]
+    a = b = None
+    try:
+        for proc in procs:
+            watchdog = threading.Timer(120, proc.kill)
+            watchdog.start()
+            line = proc.stdout.readline()
+            watchdog.cancel()
+            assert line.startswith("scheduler serving on "), line
+        a = GrpcSchedulerClient(f"127.0.0.1:{ports[0]}")
+        b = GrpcSchedulerClient(f"127.0.0.1:{ports[1]}")
+        for client in (a, b):
+            for h in ("h-src", "h-dst"):
+                client.announce_host(Host(id=h, hostname=h, ip="127.0.0.1",
+                                          network=Network(idc="x")))
+        sync = a.probe_sync("h-src")
+        reported = sync.sync("h-src", lambda targets: (
+            [ProbeResult(t.host_id, 0.017) for t in targets], []))
+        sync.close()
+        assert reported >= 1
+        deadline = time.monotonic() + 20.0
+        rtts = []
+        while time.monotonic() < deadline and not rtts:
+            delta = b.sync_replica_probes({}, since=0.0)
+            rtts = [edge["probes"][0]["rtt"]
+                    for edge in delta.get("edges", [])
+                    if (edge["src"], edge["dst"]) == ("h-src", "h-dst")]
+            time.sleep(0.25)
+        assert rtts == [pytest.approx(0.017)]
+    finally:
+        for client in (a, b):
+            if client is not None:
+                client.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        codes = []
+        for proc in procs:
+            try:
+                codes.append(proc.wait(timeout=20))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+            proc.stdout.close()
+    assert codes == [0, 0]
 
 
 # ----------------------------------------------------------------------

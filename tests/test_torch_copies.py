@@ -3,6 +3,10 @@ its ``dragonfly2_tpu`` original with only the package prefix changed
 (``dragonfly2_tpu`` → ``dragonfly2_tpu_torch``), so a fix to the JAX
 package shows up here as a difference to carry over.
 
+The RPC surfaces in :data:`WIRE_COPIES` differ in one more way only:
+where JAX's code imports ``grpc`` for its status codes and error, the
+port's imports ``StatusCode`` and ``RpcError`` from ``rpc/status.py``.
+
 Modules whose port differs on purpose are not listed: the scheduler's
 dataset storage (no parquet export), the daemon's metrics (no
 prometheus_client), its host telemetry (``/proc`` instead of psutil),
@@ -55,7 +59,11 @@ COPIES = [
     "client/source_hdfs.py", "client/objectstorage_gateway.py",
     "cmd/dfstore.py", "utils/certs.py", "client/proxy.py",
     "rpc/codec.py",
+    "scheduler/replica.py", "client/daemon_proc.py", "cmd/dfget.py",
+    "cmd/dfcache.py", "cmd/dfdaemon.py",
 ]
+
+WIRE_COPIES = ["scheduler/rpcserver.py", "client/rpcserver.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -64,4 +72,25 @@ def test_copy_differs_only_in_the_package_prefix(path):
         want = _PREFIX.sub("dragonfly2_tpu_torch", f.read())
     with open(os.path.join(REPO, "dragonfly2_tpu_torch", path)) as f:
         got = f.read()
+    assert got == want, f"{path} differs from its JAX original"
+
+
+def _status_swapped(text: str) -> str:
+    """JAX's grpc status names as the port spells them."""
+    text = re.sub(r"(?m)^(\s*)import grpc$",
+                  r"\1from dragonfly2_tpu_torch.rpc.status import "
+                  r"RpcError, StatusCode", text)
+    return text.replace("grpc.StatusCode", "StatusCode").replace(
+        "grpc.RpcError", "RpcError")
+
+
+@pytest.mark.parametrize("path", WIRE_COPIES)
+def test_wire_copy_differs_only_in_prefix_and_status_names(path):
+    with open(os.path.join(REPO, "dragonfly2_tpu", path)) as f:
+        text = f.read()
+    assert "import grpc" in text
+    want = _status_swapped(_PREFIX.sub("dragonfly2_tpu_torch", text))
+    with open(os.path.join(REPO, "dragonfly2_tpu_torch", path)) as f:
+        got = f.read()
+    assert "import grpc" not in got and "grpc." not in got
     assert got == want, f"{path} differs from its JAX original"

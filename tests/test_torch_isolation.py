@@ -226,25 +226,11 @@ def test_no_forbidden_module_loaded(probe, package):
     assert hits == [], hits
 
 
-# Modules of the JAX package the port does not have yet (ROADMAP.md,
-# Queue 1 item 4: they need grpc, or processes that serve it), each with
-# every line of the port that names it. A call that reaches one of these
-# lines raises ModuleNotFoundError naming the module.
-NOT_PORTED = {
-    "dragonfly2_tpu_torch.scheduler.rpcserver": {
-        "dragonfly2_tpu_torch/client/networktopology.py:76",
-        "dragonfly2_tpu_torch/client/networktopology.py:88",
-        "dragonfly2_tpu_torch/scheduler/networktopology/antientropy.py:48",
-        "dragonfly2_tpu_torch/client/chaosbench.py:329",
-        "dragonfly2_tpu_torch/client/chaosbench.py:751",
-    },
-    "dragonfly2_tpu_torch.scheduler.replica": {
-        "dragonfly2_tpu_torch/client/chaosbench.py:285",
-    },
-    "dragonfly2_tpu_torch.client.daemon_proc": {
-        "dragonfly2_tpu_torch/client/chaosbench.py:591",
-    },
-}
+# Modules of the JAX package the port does not have yet, each with every
+# line of the port that names it: none since the scheduler's and the
+# daemon's RPC surfaces were ported. A line naming a module that does not
+# exist fails the test below.
+NOT_PORTED: dict = {}
 
 
 def _module_file(name: str):

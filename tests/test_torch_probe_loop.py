@@ -185,28 +185,24 @@ def test_probe_metrics_counted(listener):
 _GRPC_PROBE = """
 import json, sys
 from dragonfly2_tpu_torch.client.networktopology import GrpcProbeSync
-try:
-    GrpcProbeSync("127.0.0.1:1")
-    error = None
-except ModuleNotFoundError as exc:
-    error = exc.name
-print(json.dumps({"error": error, "grpc": sorted(
+sync = GrpcProbeSync("127.0.0.1:1")
+sync.close()
+print(json.dumps({"built": type(sync).__name__, "grpc": sorted(
     m for m in sys.modules if m.split(".")[0] == "grpc")}))
 """
 
 
-def test_grpc_probe_sync_needs_the_rpc_transport():
-    """``GrpcProbeSync`` imports its transport when built: the module
-    loads without grpc, the port's RPC client imports without grpc, and
-    building one fails until the port has the scheduler's RPC server
-    (its ``SCHEDULER_SPEC``)."""
+def test_grpc_probe_sync_builds_without_grpc():
+    """``GrpcProbeSync`` imports its transport when built — the port's
+    RPC client and ``scheduler/rpcserver.py`` — and none of it loads
+    grpc. (The probe cycle over the wire is
+    ``tests/test_torch_scheduler_wire.py``'s.)"""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _GRPC_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"error": "dragonfly2_tpu_torch.scheduler.rpcserver",
-                   "grpc": []}
+    assert got == {"built": "GrpcProbeSync", "grpc": []}
 
 
 # -- a port daemon probing live ------------------------------------------------

@@ -487,16 +487,22 @@ def test_message_over_the_cap_is_resource_exhausted(side):
         server.stop()
 
 
-def test_client_iterator_failure_cancels_the_stream(servers, cli):
-    """A request iterator that raises fails the call (UNKNOWN, as grpc)
-    and the server sees the stream end uncleanly."""
+@pytest.mark.parametrize("error", [RuntimeError, FileNotFoundError])
+def test_client_iterator_failure_cancels_the_stream(servers, cli, error):
+    """A request iterator that raises fails the call at once (UNKNOWN,
+    as grpc) and the server sees the stream end uncleanly — an
+    ``OSError`` of the iterator's own (a file it reads is missing) too,
+    which is not the socket's."""
     def dying():
         yield EchoRequest[0](text="a")
-        raise RuntimeError("connection dropped")
+        raise error("connection dropped")
 
+    begin = time.monotonic()
     with pytest.raises(RpcError) as err:
         cli.Collect(dying(), timeout=5)
+    assert time.monotonic() - begin < 2.0
     assert err.value.code() is StatusCode.UNKNOWN
+    assert err.value.details() == "Exception iterating requests!"
     assert cli.Say(EchoRequest[0](text="still")).text == "still"
 
 
