@@ -771,6 +771,14 @@ RPC_ROWS = (1, 16, 64)
 RPC_DECISIONS = 100
 RPC_LADDER_THREADS = (1, 8, 32)
 RPC_LADDER_S = 1.0
+# F4's first profile: the port's sampling profiler (utils/debugmon.py)
+# for RPC_PROFILE_S on a thread of its own while RPC_PROFILE_THREADS
+# threads call the wire as the ladder's rung does; its RPC_PROFILE_TOP
+# hottest stacks are printed, RPC_PROFILE_FRAMES leaf-most frames each.
+RPC_PROFILE_S = 2.0
+RPC_PROFILE_THREADS = 8
+RPC_PROFILE_TOP = 10
+RPC_PROFILE_FRAMES = 12
 RPC_COST_CALLS = 500
 RPC_RETRIES = 3
 RPC_HOSTS, RPC_TOPOLOGY, RPC_DOWNLOADS = 200, 1000, 1000
@@ -4375,12 +4383,13 @@ class TimedHTTP:
                 "p99_ms": ms[min(int(len(ms) * 0.99), len(ms) - 1)]}
 
 
-def start_manager(tmp: str, store_args=None, env=None):
+def start_manager(tmp: str, store_args=None, env=None, extra_args=()):
     """``python -m dragonfly2_tpu_torch.cmd.manager`` in a child process
     (auth and the model gate on, both listeners on free loopback ports)
     → (process, public port, internal port), read from its stdout.
     ``store_args`` replace the filesystem store's flags; ``env`` is the
-    child's environment (None: this process's)."""
+    child's environment (None: this process's); ``extra_args`` are
+    appended to its flags."""
     err = open(os.path.join(tmp, "manager.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.manager",
@@ -4388,8 +4397,8 @@ def start_manager(tmp: str, store_args=None, env=None):
          "--db", os.path.join(tmp, "manager.db"),
          *(store_args or ["--object-store-dir",
                           os.path.join(tmp, "objects")]),
-         "--model-gate"], cwd=ROOT, stdout=subprocess.PIPE, stderr=err,
-        text=True, env=env)
+         "--model-gate", *map(str, extra_args)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=err, text=True, env=env)
     err.close()
     # A child that hangs before printing is killed, so readline returns.
     import threading
@@ -6396,6 +6405,85 @@ def call_rung(call, threads: int, seconds: float) -> dict:
             "requests_per_sec": len(ms) / elapsed}
 
 
+def wire_frames() -> set:
+    """(file name, function) of every function defined in the port's
+    ``rpc/`` and ``inference/`` modules: how a sampled frame, which names
+    its file without its directory, is told to run there."""
+    import ast
+
+    import dragonfly2_tpu_torch
+
+    frames = set()
+    base = os.path.dirname(dragonfly2_tpu_torch.__file__)
+    for sub in ("rpc", "inference"):
+        for name in sorted(os.listdir(os.path.join(base, sub))):
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(base, sub, name)) as fh:
+                tree = ast.parse(fh.read())
+            frames.update((name, node.name) for node in ast.walk(tree)
+                          if isinstance(node, (ast.FunctionDef,
+                                               ast.AsyncFunctionDef)))
+    return frames
+
+
+def split_profile(report: str, frames: set) -> dict:
+    """``debugmon.sample_profile``'s report parsed: its sampling rounds,
+    and each stack (root;...;leaf of ``file:line:function`` frames) with
+    its count and side — "callers" when a frame is ``call_rung``'s
+    worker, else "server" when a frame runs in ``rpc/`` or
+    ``inference/``, else "other". A sample is a thread's stack whether
+    it runs or waits. Fails on a line that does not parse."""
+    import re
+
+    lines = report.splitlines()
+    head = re.match(r"# (\d+) sampling rounds over ([\d.]+)s", lines[0])
+    if head is None or lines[1] != "# count  stack (root;...;leaf)":
+        raise AssertionError(f"profile header: {lines[:2]}")
+    stacks = []
+    for line in lines[2:]:
+        count, _, stack = line.strip().partition("  ")
+        parts = [f.split(":") for f in stack.split(";")]
+        if not count.isdigit() or any(len(f) != 3 for f in parts):
+            raise AssertionError(f"profile line: {line!r}")
+        called = {(f[0], f[2]) for f in parts}
+        side = ("callers" if ("chip_smoke.py", "run") in called
+                else "server" if called & frames else "other")
+        stacks.append({"count": int(count), "side": side,
+                       "through_wire": bool(called & frames),
+                       "stack": ";".join(
+                           stack.split(";")[-RPC_PROFILE_FRAMES:])})
+    return {"rounds": int(head.group(1)), "stacks": stacks}
+
+
+def profiled_rung(call) -> dict:
+    """:func:`call_rung` at RPC_PROFILE_THREADS threads for RPC_PROFILE_S
+    while ``debugmon.sample_profile(RPC_PROFILE_S)`` samples every
+    thread on a thread of its own: the rung, the parsed profile's
+    RPC_PROFILE_TOP hottest stacks, and the samples by side."""
+    import threading
+
+    from dragonfly2_tpu_torch.utils.debugmon import sample_profile
+
+    box = {}
+    sampler = threading.Thread(
+        target=lambda: box.update(report=sample_profile(RPC_PROFILE_S)),
+        name="wire-profile")
+    sampler.start()
+    rung = call_rung(call, RPC_PROFILE_THREADS, RPC_PROFILE_S)
+    sampler.join()
+    profile = split_profile(box["report"], wire_frames())
+    by_side = {}
+    for st in profile["stacks"]:
+        by_side[st["side"]] = by_side.get(st["side"], 0) + st["count"]
+    return {"rung": rung, "rounds": profile["rounds"],
+            "samples_by_side": by_side,
+            "stacks": len(profile["stacks"]),
+            "through_wire": sum(st["through_wire"]
+                                for st in profile["stacks"]),
+            "top": profile["stacks"][:RPC_PROFILE_TOP]}
+
+
 def call_cost_us(call, n: int) -> dict:
     """p50/p99 µs of ``n`` sequential calls (after 20 warm-up calls)."""
     for _ in range(20):
@@ -6613,6 +6701,12 @@ def rpc_in_process(torch, artifacts: dict, mlp_bytes: bytes, counts,
             "in_process": [call_rung(
                 lambda: local_client.model_infer_full("mlp", x16), n,
                 RPC_LADDER_S) for n in RPC_LADDER_THREADS]}
+        wire_profile = profiled_rung(
+            lambda: client.model_infer_full("mlp", x16))
+        log("rpc_wire_profile", card=nvidia_smi(), **wire_profile)
+        if not wire_profile["through_wire"]:
+            failures.append("no sampled stack runs through rpc/ or "
+                            "inference/")
         health = ServiceClient(server.target, HEALTH_SPEC)
         x64 = rpc_features(64)
         cost = {
@@ -6680,6 +6774,9 @@ def rpc_in_process(torch, artifacts: dict, mlp_bytes: bytes, counts,
         client.close()
         fields.update(statuses=statuses, shed=shed, unavailable=unavailable,
                       evaluator_same_decisions=same, ladder=ladder_rungs,
+                      profiled_rung=wire_profile["rung"],
+                      profile_samples_by_side=wire_profile[
+                          "samples_by_side"],
                       call_cost=cost, step_seconds=steps)
     finally:
         if server is not None:
@@ -9595,6 +9692,7 @@ def piece_parent_client(target: str):
         def __init__(self):
             super().__init__(target)
             self.parents = collections.Counter()
+            self.parent_bytes = collections.Counter()
             self.offered = []
 
         def register_peer(self, req, channel=None):
@@ -9612,15 +9710,61 @@ def piece_parent_client(target: str):
 
         def download_piece_finished(self, report) -> None:
             self.parents[report.parent_id] += 1
+            self.parent_bytes[report.parent_id] += report.length
             super().download_piece_finished(report)
 
         def download_pieces_finished(self, reports) -> None:
             reports = list(reports)
             for report in reports:
                 self.parents[report.parent_id] += 1
+                self.parent_bytes[report.parent_id] += report.length
             super().download_pieces_finished(reports)
 
     return PieceParentClient()
+
+
+def prom_samples(text: str) -> list:
+    """Prometheus text format 0.0.4 → [(name, labels, value)]: comment
+    lines skipped, label values unescaped. Fails on a line that does not
+    parse."""
+    import re
+
+    sample = re.compile(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)",?')
+    unescape = {"\\\\": "\\", '\\"': '"', "\\n": "\n"}
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"metrics line: {line!r}")
+        labels, rest = {}, m.group(2) or ""
+        while rest:
+            lm = label.match(rest)
+            if lm is None:
+                raise AssertionError(f"metrics labels: {line!r}")
+            labels[lm.group(1)] = re.sub(
+                r"\\[\\\"n]", lambda e: unescape[e.group(0)],
+                lm.group(2))
+            rest = rest[lm.end():]
+        out.append((m.group(1), labels, float(m.group(3))))
+    return out
+
+
+def prom_sum(samples: list, name: str, **labels) -> float:
+    """Sum of ``name``'s samples whose labels include ``labels``."""
+    return sum(v for n, ls, v in samples if n == name
+               and all(ls.get(k) == want for k, want in labels.items()))
+
+
+def scrape(port: int) -> list:
+    """A child's ``/metrics`` on loopback, parsed."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        return prom_samples(resp.read().decode())
 
 
 def fetch_debug_vars(url: str) -> dict:
@@ -9665,17 +9809,80 @@ def p2p_dfcache(tmp: str, daemon_target: str) -> dict:
     return {"codes": codes, "export_equals_import": same}
 
 
+def p2p_preheat(http, base: str, token: str, url: str) -> dict:
+    """``POST /api/v1/jobs`` a preheat of ``url`` on the manager child's
+    public listener, then poll its group until it leaves PENDING: its
+    seconds and its state."""
+    t0 = time.perf_counter()
+    ids = http.call("POST", f"{base}/api/v1/jobs",
+                    {"type": "preheat", "args": {"url": url}}, token)["ids"]
+    if len(ids) != 1:
+        raise AssertionError(f"preheat groups {ids}")
+    status = {"state": "PENDING"}
+    while status["state"] == "PENDING":
+        if time.perf_counter() - t0 > FANOUT_TIMEOUT_S:
+            raise AssertionError(f"preheat still pending: {status}")
+        time.sleep(0.1)
+        status = http.call("GET", f"{base}/api/v1/jobs/{ids[0]}", None,
+                           token)
+    return {"seconds": time.perf_counter() - t0, "state": status["state"],
+            "status": status}
+
+
+def p2p_scrapes(ports: dict, length: int, seed_got: int) -> tuple:
+    """The scheduler child's, the manager child's and seed-1's
+    ``/metrics``: (the values the phase checks, failures)."""
+    sched = scrape(ports["scheduler_metrics"])
+    mgr = scrape(ports["manager_metrics"])
+    seed = scrape(ports["seed_metrics"])
+    got = {
+        "scheduler_register_peer": prom_sum(
+            sched, "dragonfly_scheduler_register_peer_total"),
+        "scheduler_download_peer_finished": prom_sum(
+            sched, "dragonfly_scheduler_download_peer_finished_total"),
+        "scheduler_resource_hosts": prom_sum(
+            sched, "dragonfly_scheduler_resource_hosts"),
+        "scheduler_traffic_bytes": prom_sum(
+            sched, "dragonfly_scheduler_traffic_bytes_total"),
+        "scheduler_serving_leaves": sorted(
+            {n for n, _, _ in sched if n.startswith("df2_serving_")}),
+        "seed_upload_traffic_bytes": prom_sum(
+            seed, "dragonfly_dfdaemon_upload_traffic_bytes_total"),
+        "seed_bytes_to_children": seed_got,
+        "manager_keepalive": prom_sum(
+            mgr, "dragonfly_manager_keepalive_total"),
+        "manager_post_requests": prom_sum(
+            mgr, "dragonfly_manager_request_total", method="POST")}
+    want = {"scheduler_register_peer": 3,
+            "scheduler_download_peer_finished": 3,
+            "scheduler_resource_hosts": 3,
+            "scheduler_traffic_bytes": length,
+            "seed_upload_traffic_bytes": seed_got,
+            "manager_keepalive": 1, "manager_post_requests": 2}
+    failures = [f"/metrics {key} {got[key]} < {floor}"
+                for key, floor in want.items() if got[key] < floor]
+    if not got["scheduler_serving_leaves"]:
+        failures.append("the scheduler child's /metrics has no df2_serving_ "
+                        "leaf")
+    return got, failures
+
+
 def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
                       sidecar: P2PSidecar) -> dict:
     """BASELINE config #5 as processes, ``artifacts/hbm_fanout.py``'s
-    topology through the port's entry points: ``cmd.scheduler`` (``--algorithm
-    ml`` over the sidecar child, ``--seed-peer``), a ``cmd.dfdaemon
-    --type super`` seed and a ``--type normal`` peer as children; a
-    ``cmd.dfget --daemon`` warm-up through the peer; then a peer in this
-    process on ``GrpcSchedulerClient`` whose ``download_to_hbm`` fills
-    cuda:0, with the launch counts set to 0 just before and read just
-    after. ``origin`` is config #5's file (the phase leaves it to its
-    owner); the sidecar is stopped here. Returns the launches."""
+    topology through the port's entry points: the manager
+    (``cmd.manager``, auth on), ``cmd.scheduler`` (``--algorithm ml``
+    over the sidecar child, ``--seed-peer``, ``--manager`` with its job
+    worker), a ``cmd.dfdaemon --type super`` seed and a ``--type normal``
+    peer as children, each with ``--metrics-port``. A REST preheat on the
+    manager, which the scheduler child's job worker takes, has the seed
+    back-source the file; a ``cmd.dfget --daemon`` warm-up through the
+    peer; then a peer in this process on ``GrpcSchedulerClient`` whose
+    ``download_to_hbm`` fills cuda:0, with the launch counts set to 0
+    just before and read just after; a ``sync_peers`` job and the three
+    children's ``/metrics``. ``origin`` is config #5's file (the phase
+    leaves it to its owner); the sidecar is stopped here. Returns the
+    launches."""
     import hashlib
     import tempfile
     import threading
@@ -9683,11 +9890,17 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
     from dragonfly2_tpu_torch.client.daemon import Daemon, DaemonConfig
     from dragonfly2_tpu_torch.client.hbm_sink import download_to_hbm
     from dragonfly2_tpu_torch.client.piece import compute_piece_size
+    from dragonfly2_tpu_torch.rpc import ServiceClient
+    from dragonfly2_tpu_torch.scheduler.rpcserver import (
+        SCHEDULER_SPEC,
+        Empty,
+    )
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="smoke-p2p-", dir=origin.tmp)
-    children, failures, daemon = [], [], None
+    children, failures, daemon, manager = [], [], None, None
     sidecar_code = None
+    http = TimedHTTP()
     try:
         digests = origin.wait()[0]
         length = os.path.getsize(origin.path)
@@ -9700,16 +9913,29 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
         sidecar_target = sidecar.ready()
         sidecar_wait_s = time.perf_counter() - t0
         ports = {name: free_port()
-                 for name in ("scheduler", "seed", "peer", "pprof")}
+                 for name in ("scheduler", "seed", "peer", "pprof",
+                              "scheduler_metrics", "seed_metrics",
+                              "peer_metrics", "manager_metrics")}
+        t0 = time.perf_counter()
+        manager, public, internal = start_manager(
+            tmp, extra_args=["--metrics-port", ports["manager_metrics"]])
+        manager_start_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{public}"
+        token = "Bearer " + http.call(
+            "POST", f"{base}/api/v1/users/signin",
+            {"name": "root", "password": "dragonfly"})["token"]
         scheduler = SmokeChild(
             "scheduler", "dragonfly2_tpu_torch.cmd.scheduler",
             ["--host", "127.0.0.1", "--port", ports["scheduler"],
              "--data-dir", os.path.join(tmp, "scheduler-data"),
              "--algorithm", "ml", "--inference-sidecar", sidecar_target,
              "--seed-peer", f"127.0.0.1:{ports['seed']}",
+             "--manager", f"127.0.0.1:{internal}",
+             "--advertise-ip", "127.0.0.1", "--job-poll-interval", "0.2",
+             "--metrics-port", ports["scheduler_metrics"],
              "--pprof-port", ports["pprof"]], tmp)
         children.append(scheduler)
-        scheduler.ready("scheduler serving on ")
+        scheduler.ready("job worker polling queues ")
         for name, kind in (("seed-1", "super"), ("peer-a", "normal")):
             key = name.split("-")[0]
             children.append(SmokeChild(
@@ -9717,15 +9943,25 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
                 ["--scheduler", f"127.0.0.1:{ports['scheduler']}",
                  "--rpc-port", ports[key],
                  "--storage-dir", os.path.join(tmp, name),
-                 "--hostname", name, "--type", kind], tmp))
+                 "--hostname", name, "--type", kind,
+                 "--metrics-port", ports[f"{key}_metrics"]], tmp))
         for child in children[1:]:
             child.ready("daemon rpc on ")
         start_s = {c.name: c.start_s for c in children}
 
         with OriginServer(origin.dir) as server:
             url = server.url("model.safetensors")
-            # Warm the mesh: peer-a pulls the file through the scheduler,
-            # seeded at seed-1, so the measured peer finds it on both.
+            # The preheat: the manager posts a job to the scheduler
+            # child's queue, its worker has seed-1 back-source the file.
+            preheat = p2p_preheat(http, base, token, url)
+            served_before_warm = dict(server.served)
+            if preheat["state"] != "SUCCESS":
+                failures.append(f"preheat {preheat['status']}")
+            if served_before_warm.get("/model.safetensors") != length:
+                failures.append(f"before the warm-up the origin served "
+                                f"{served_before_warm} of {length} bytes")
+            # Warm the mesh: peer-a pulls the file through the scheduler
+            # from seed-1, so the measured peer finds it on both.
             warm_path = os.path.join(tmp, "warm.safetensors")
             t0 = time.perf_counter()
             warm = subprocess.run(
@@ -9788,17 +10024,19 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
                             peer_id or "origin")
 
         offered = sorted({daemon_of(p) for ps in client.offered for p in ps})
-        by_daemon = {}
+        by_daemon, bytes_by_daemon = {}, {}
         for peer_id, n in client.parents.items():
             by_daemon[daemon_of(peer_id)] = by_daemon.get(
                 daemon_of(peer_id), 0) + n
+            bytes_by_daemon[daemon_of(peer_id)] = bytes_by_daemon.get(
+                daemon_of(peer_id), 0) + client.parent_bytes[peer_id]
         if offered != ["peer-a", "seed-1"]:
             failures.append(f"the measured peer's parents {offered} are not "
                             "on both daemons")
         if not set(by_daemon) <= {"peer-a", "seed-1"}:
             failures.append(f"pieces from {by_daemon}, not the daemons")
         # 3. The origin served the file's bytes once: seed-1's
-        # back-to-source of the warm-up.
+        # back-to-source of the preheat, none after it.
         if served.get("/model.safetensors") != length:
             failures.append(f"the origin served {served} bytes of a "
                             f"{length}-byte file")
@@ -9810,9 +10048,35 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
                 and serving["ml_sheds"] == 0
                 and serving["ml_guard_trips"] == 0):
             failures.append(f"the scheduler's ML scoring {serving}")
+        # 5. sync_peers merges the hosts the scheduler child lists, seed-1
+        # and peer-a among them.
+        sync = http.call("POST", f"{base}/api/v1/jobs",
+                         {"type": "sync_peers"}, token)
+        peers = http.call("GET", f"{base}/api/v1/peers", None, token)
+        lister = ServiceClient(f"127.0.0.1:{ports['scheduler']}",
+                               SCHEDULER_SPEC)
+        try:
+            listed = lister.ListHosts(Empty(), timeout=30).hosts
+        finally:
+            lister.close()
+        fields = ("host_id", "hostname", "ip", "port", "download_port")
+        merged = sorted(tuple(p[k] for k in fields) for p in peers)
+        if not (sync["state"] == "SUCCESS" and not sync["errors"]
+                and merged == sorted(tuple(h[k] for k in fields)
+                                     for h in listed)
+                and {"seed-1", "peer-a"} <= {p["hostname"] for p in peers}):
+            failures.append(f"sync_peers {sync}: merged {merged}, the "
+                            f"scheduler lists {listed}")
+        # 6. The children's /metrics: seed-1 uploaded at least what its
+        # children got from it — peer-a's whole warm-up (its only
+        # parent: the origin served nothing after the preheat) and the
+        # measured peer's pieces from seed-1.
+        scraped, scrape_failures = p2p_scrapes(
+            ports, length, length + bytes_by_daemon.get("seed-1", 0))
+        failures += scrape_failures
         daemon.stop()
         daemon = None
-        # 5. dfcache round trip through peer-a's daemon surface.
+        # 7. dfcache round trip through peer-a's daemon surface.
         dfcache = p2p_dfcache(tmp, f"127.0.0.1:{ports['peer']}")
         if dfcache != {"codes": {"import": 0, "stat": 0, "export": 0,
                                  "delete": 0, "stat_after": 1},
@@ -9821,27 +10085,36 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
     finally:
         if daemon is not None:
             daemon.stop()
-        # 6. Each child exits 0 on SIGTERM, daemons first.
+        # 8. Each child exits 0 on SIGTERM, daemons first, the manager
+        # last.
         codes = {c.name: c.stop() for c in reversed(children)}
         sidecar_code = sidecar.close()
         codes["inference"] = sidecar_code
+        if manager is not None:
+            codes["manager"] = stop_manager(manager)
         shutil.rmtree(tmp, ignore_errors=True)
     if any(codes.values()):
         failures.append(f"children's exit codes {codes}")
-    # 7. No kernel launched in this process on the path.
+    # 9. No kernel launched in this process on the path.
     if any(launches.values()):
         failures.append(f"a kernel launched on the path: {launches}")
     log("p2p_processes", card=nvidia_smi(), layers=origin.layers,
         bytes=length, tensors=len(origin.specs),
         piece_size=compute_piece_size(length), start_s=start_s,
-        sidecar_wait_s=sidecar_wait_s,
+        sidecar_wait_s=sidecar_wait_s, manager_start_s=manager_start_s,
+        preheat_s=preheat["seconds"], preheat_state=preheat["state"],
+        origin_served_before_warm=served_before_warm,
         warm_download_s=warm_s, t_last_piece_s=t_last_piece,
         t_last_tensor_s=t_last_tensor, download_MBps=length / 1e6
         / t_last_piece, parents_offered=offered,
-        pieces_by_parent=by_daemon, decisions_offered=len(client.offered),
+        pieces_by_parent=by_daemon, bytes_by_parent=bytes_by_daemon,
+        decisions_offered=len(client.offered),
         origin_gets=gets, origin_served=served, serving=serving,
         scheduler_decisions=scheduler_stats["decisions"],
         scheduler_back_to_source=scheduler_stats["back_to_source"],
+        sync_peers_merged=sync["merged_peers"],
+        sync_peers_hosts=sorted(p["hostname"] for p in peers),
+        scraped=scraped, manager_rest=http.percentiles(),
         dfcache=dfcache, exit_codes=codes, launches=launches,
         failures=failures, seconds=time.perf_counter() - t_phase)
     if failures:

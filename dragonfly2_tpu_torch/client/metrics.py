@@ -1,89 +1,22 @@
-"""Daemon (dfdaemon) metrics.
+"""Daemon (dfdaemon) Prometheus metrics.
 
 Reference counterpart: client/daemon/metrics/metrics.go — proxy request
 counts, piece/task download outcomes, and traffic split by seed-peer vs
 peer role. Private registry per daemon instance (many daemons share a
 process in the harness).
-
-Port of ``dragonfly2_tpu/client/metrics.py`` without ``prometheus_client``,
-which the port does not import: the same families, names and labels as
-in-process counters and gauges (``inc``, ``dec``, ``set``, ``labels``,
-and ``get`` to read one). ``registry`` maps each family's full name to
-it; the port has no Prometheus exposition.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Tuple
+from dragonfly2_tpu_torch.utils.prom import CollectorRegistry, Counter, Gauge
 
 NAMESPACE = "dragonfly"
 SUBSYSTEM = "dfdaemon"
 
 
-class _Value:
-    """One series: a float under a lock."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._value = 0.0
-
-    def inc(self, amount: float = 1.0) -> None:
-        with self._lock:
-            self._value += amount
-
-    def get(self) -> float:
-        with self._lock:
-            return self._value
-
-
-class Counter(_Value):
-    """A counter family; with ``labelnames``, one series per label set."""
-
-    def __init__(self, name: str, documentation: str, labelnames=(),
-                 namespace: str = "", subsystem: str = "",
-                 registry: Dict[str, object] | None = None):
-        super().__init__()
-        self.name = "_".join(p for p in (namespace, subsystem, name) if p)
-        self.documentation = documentation
-        self.labelnames = tuple(labelnames)
-        self._children: Dict[Tuple[str, ...], _Value] = {}
-        if registry is not None:
-            registry[self.name] = self
-
-    def labels(self, **labels) -> "_Value":
-        key = tuple(str(labels[n]) for n in self.labelnames)
-        with self._lock:
-            child = self._children.get(key)
-            if child is None:
-                child = self._children[key] = type(self)._child()
-            return child
-
-    @staticmethod
-    def _child() -> _Value:
-        return _Value()
-
-
-class _GaugeValue(_Value):
-    def dec(self, amount: float = 1.0) -> None:
-        self.inc(-amount)
-
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
-
-
-class Gauge(Counter, _GaugeValue):
-    """A gauge family: a counter that can also go down or be set."""
-
-    @staticmethod
-    def _child() -> _Value:
-        return _GaugeValue()
-
-
 class DaemonMetrics:
     def __init__(self, version: str = ""):
-        self.registry: Dict[str, object] = {}
+        self.registry = CollectorRegistry()
         ns, sub = NAMESPACE, SUBSYSTEM
         self.download_task_count = Counter(
             "download_task_total", "Started download tasks.",

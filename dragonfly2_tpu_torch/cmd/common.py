@@ -2,9 +2,8 @@
 loading, logging init, monitoring) — port of ``dragonfly2_tpu/cmd/common.py``.
 
 The flags, the YAML layering, logging, tracing, the multihost flags, the
-debug monitor, the geo cluster identity and the shutdown wait are JAX's.
-Left out: the Prometheus endpoint (:func:`start_metrics_server` answers
-None).
+debug monitor, the Prometheus endpoint (on ``utils/prom.py``), the geo
+cluster identity and the shutdown wait are JAX's.
 """
 
 from __future__ import annotations
@@ -92,8 +91,9 @@ def add_observability_flags(parser: argparse.ArgumentParser) -> None:
 
 def init_observability_identity(cluster_id: str) -> None:
     """Stamp this process's geo cluster onto the observability plane
-    (docs/GEO.md): /debug/vars grows a ``cluster`` key. No-op for "" —
-    cluster-blind processes keep byte-identical output."""
+    (docs/GEO.md): /debug/vars grows a ``cluster`` key and every
+    Prometheus metric a ``cluster`` label. No-op for "" — cluster-blind
+    processes keep byte-identical output."""
     if cluster_id:
         from dragonfly2_tpu_torch.utils import debugmon
 
@@ -248,12 +248,30 @@ def start_debug_monitor(args):
 
 
 def start_metrics_server(args, registry=None):
-    """The /metrics endpoint of JAX's ``start_metrics_server`` is not
-    ported: it serves prometheus_client's registries, and the card
-    machine has no ``prometheus_client``. Always returns None, so a
-    command's ``if metrics_server: metrics_server.stop()`` still reads
-    the same; ``--metrics-port`` is accepted and ignored."""
-    return None
+    """Start the /metrics endpoint when --metrics-port was given.
+
+    Every endpoint also carries the debug-vars bridge
+    (utils/prombridge.py): the service's native collectors (when it has
+    a registry) plus every registered stats block — data_plane /
+    scheduler / recovery / serving / observability / … — in Prometheus
+    text format. Services without native collectors pass no registry
+    and still get a fully populated endpoint.
+
+    Returns the MetricsServer or None; callers print its address.
+    """
+    if getattr(args, "metrics_port", -1) < 0:
+        return None
+    from dragonfly2_tpu_torch.utils import prombridge
+    from dragonfly2_tpu_torch.utils.metricsserver import MetricsServer
+
+    if registry is None:
+        registry = prombridge.bridge_registry()
+    else:
+        prombridge.attach(registry)
+    server = MetricsServer(registry, host="0.0.0.0", port=args.metrics_port)
+    server.start()
+    print(f"metrics on {server.address}/metrics", flush=True)
+    return server
 
 
 def install_shutdown_handlers() -> threading.Event:

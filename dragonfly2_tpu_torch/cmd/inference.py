@@ -18,9 +18,9 @@ once the listener is bound (``--port 0`` picks a free port). A scheduler
 points its evaluator at that target:
 ``new_evaluator("ml", sidecar_target=...)``.
 
-It differs from JAX's in two ways: ``--device``, and no Prometheus
-endpoint (``--metrics-port`` is accepted and ignored; the card machine
-has no ``prometheus_client``).
+``--metrics-port`` serves the debug-vars bridge on ``/metrics`` (the
+batcher and serving stats blocks). It differs from JAX's in one way:
+``--device``.
 """
 
 from __future__ import annotations
@@ -134,6 +134,8 @@ def main(argv=None) -> int:
     from dragonfly2_tpu_torch.utils.debugmon import register_debug_var
 
     register_debug_var("inference_batcher_stats", service.batcher_stats)
+    # No native prometheus collectors here — the bridged registry
+    # exports the batcher/serving stats blocks at /metrics.
     metrics_server = start_metrics_server(args)
     debug_monitor = start_debug_monitor(args)
     server = serve([(INFERENCE_SPEC, service)],

@@ -16,18 +16,21 @@ S3-compatibles such as MinIO; ``OSS_*`` and ``OBS_*`` likewise).
 Serves the JWT/PAT-authenticated REST API (``manager/rest.py``) over
 :class:`~dragonfly2_tpu_torch.manager.ManagerService`: users and RBAC,
 cluster, scheduler, seed-peer, application and model CRUD, rollback,
-and, on the separately bound internal listener, instance registration,
-keepalive, dynconfig answers, quarantine escalations and trace uploads.
+preheat and sync-peers jobs, and, on the separately bound internal
+listener, instance registration, keepalive, dynconfig answers,
+quarantine escalations, trace uploads and the job plane's lease, renew
+and complete. Jobs live in the database (``manager/jobplane.py``):
+schedulers started with ``--manager`` lease their queues' jobs over the
+internal listener; sync-peers calls each active scheduler's
+``ListHosts`` over the wire. ``--metrics-port`` serves ``ManagerMetrics``
+and the debug-vars bridge on ``/metrics``.
 A sweep thread expires silent instances every half ``keepalive_ttl``.
 Auth is on by default (a ``root``/``dragonfly`` account is seeded like
 the reference's database seed); ``--no-auth`` runs unauthenticated.
 Each listener prints one line with its port (``--port 0`` and
 ``--internal-port 0`` pick free ones).
 
-It differs from JAX's on purpose: no ``ManagerMetrics`` (the card
-machine has no ``prometheus_client``), no durable job store, preheat or
-sync-peers service (the job plane is not ported: ``/api/v1/jobs`` answers
-503 or 400 as JAX's does when they are not wired). The manager computes nothing on a device: its
+The manager computes nothing on a device and loads no torch: its
 ``--model-gate`` is the gate of the ``create_model`` calls that reach
 this database, which run on the trainer's side, on the card.
 """
@@ -85,14 +88,22 @@ def main(argv=None) -> int:
     init_logging(args.verbose, args.log_dir, service="manager")
     init_tracing(args, "manager")
 
+    from dragonfly2_tpu_torch import __version__
     from dragonfly2_tpu_torch.manager import (
         Database,
         FilesystemObjectStore,
         ManagerService,
     )
     from dragonfly2_tpu_torch.manager.auth import AuthService
+    from dragonfly2_tpu_torch.manager.jobplane import DurableJobStore
+    from dragonfly2_tpu_torch.manager.jobs import (
+        PreheatService,
+        SyncPeersService,
+    )
+    from dragonfly2_tpu_torch.manager.metrics import ManagerMetrics
     from dragonfly2_tpu_torch.manager.rest import ManagerHTTPServer, RestApi
 
+    metrics = ManagerMetrics(version=__version__)
     db = Database(args.db)
     if args.object_store in ("s3", "oss", "obs"):
         from dragonfly2_tpu_torch.manager.objectstore import new_object_store
@@ -106,9 +117,20 @@ def main(argv=None) -> int:
 
         validation = ValidationConfig(
             min_rank_correlation=args.model_gate_min_correlation)
-    service = ManagerService(db, object_store, validation=validation)
+    service = ManagerService(db, object_store, metrics=metrics,
+                             validation=validation)
     auth = None if args.no_auth else AuthService(db, secret=args.jwt_secret)
-    api = RestApi(service, auth=auth)
+    # Durable cross-process job plane: preheat jobs land in the DB and
+    # standalone schedulers lease them over the internal surface
+    # (scheduler/jobworker.py RemoteJobWorker) with machinery-style
+    # retry/dead-letter semantics.
+    jobstore = DurableJobStore(db)
+    api = RestApi(service, auth=auth,
+                  preheat=PreheatService(jobstore, service),
+                  # rpc mode: pulls ListHosts from each registered
+                  # scheduler directly — works across processes.
+                  sync_peers=SyncPeersService(None, service, mode="rpc"),
+                  jobstore=jobstore)
     server = ManagerHTTPServer(api, host=args.host, port=args.port)
     server.start()
     print(f"manager serving on {args.host}:{server.port} "
@@ -121,7 +143,7 @@ def main(argv=None) -> int:
         internal_server.start()
         print(f"manager internal surface on "
               f"{args.host}:{internal_server.port}", flush=True)
-    metrics_server = start_metrics_server(args)
+    metrics_server = start_metrics_server(args, metrics.registry)
     debug_monitor = start_debug_monitor(args)
 
     stop = threading.Event()

@@ -24,6 +24,16 @@ scheduler config, with its on-disk cache under ``data_dir``; it works
 on any :class:`~dragonfly2_tpu_torch.scheduler.service.SchedulerService`,
 also one a test or a phase builds in its own process.
 
+With ``--manager``, a
+:class:`~dragonfly2_tpu_torch.scheduler.jobworker.RemoteJobWorker`
+leases the manager's preheat and sync-peers jobs of the queues
+``global``, ``schedulers`` and ``scheduler_<id>`` every
+``--job-poll-interval`` seconds, where ``<id>`` is the registered row's
+id (the queue the manager's preheat posts to), and runs them against the
+service. ``--metrics-port`` serves ``SchedulerMetrics`` (live host, task
+and peer gauges over the resource model) and the debug-vars bridge on
+``/metrics``.
+
 It differs from JAX's on purpose in these ways:
 
 - ``--device`` (default ``cuda``) is where ``--algorithm cost`` loads the
@@ -34,10 +44,7 @@ It differs from JAX's on purpose in these ways:
   card (``device.is_device_fault``) is raised instead.
 - JAX's manager threads are daemons that never stop;
   :class:`ManagerLink.stop` ends the keepalive loop and the dynconfig
-  ticker.
-- No ``SchedulerMetrics`` (the Prometheus collectors: the card machine
-  has no ``prometheus_client``), and no job worker: the job plane is not
-  ported, so ``--job-poll-interval`` is accepted and nothing polls.
+  ticker, and the job worker is stopped at shutdown.
 """
 
 from __future__ import annotations
@@ -320,8 +327,10 @@ def _watch_cost_registry(service, registry, interval_s: float = 60.0,
 def build_scheduler(args):
     """(service, server): the scheduler assembled from ``main``'s
     arguments and serving on ``args.host:args.port``."""
+    from dragonfly2_tpu_torch import __version__
     from dragonfly2_tpu_torch.rpc import serve
     from dragonfly2_tpu_torch.scheduler.evaluator import new_evaluator
+    from dragonfly2_tpu_torch.scheduler.metrics import SchedulerMetrics
     from dragonfly2_tpu_torch.scheduler.networktopology.store import (
         NetworkTopologyConfig,
         NetworkTopologyStore,
@@ -419,6 +428,7 @@ def build_scheduler(args):
             NetworkTopologyConfig(
                 persist_path=f"{args.data_dir}/topology_state.json"),
             resource=resource, storage=storage),
+        metrics=SchedulerMetrics(resource=resource, version=__version__),
         seed_peer_client=seed_peer_client,
     )
     resource.serve()
@@ -552,11 +562,11 @@ def main(argv=None) -> int:
                         help="geo cluster (site) this scheduler runs in "
                              "(docs/GEO.md) — a STRING site identity, "
                              "distinct from the manager's integer "
-                             "--cluster-id; tags /debug/vars and traces; "
-                             "omit for cluster-blind")
+                             "--cluster-id; tags /debug/vars, /metrics "
+                             "and traces; omit for cluster-blind")
     parser.add_argument("--job-poll-interval", type=float, default=1.0,
                         help="seconds between job-plane lease polls "
-                             "(accepted; the job plane is not ported)")
+                             "(with --manager)")
     parser.add_argument("--replica-peer", default=None, action="append",
                         help="host:port of a peer scheduler replica "
                              "(repeatable); enables probe anti-entropy")
@@ -596,10 +606,10 @@ def main(argv=None) -> int:
 
     service, server = build_scheduler(args)
     print(f"scheduler serving on {server.target}", flush=True)
-    metrics_server = start_metrics_server(args)
-    start_debug_monitor(args)
+    metrics_server = start_metrics_server(args, service.metrics.registry)
+    debug_monitor = start_debug_monitor(args)
 
-    link = None
+    link = job_worker = None
     if args.manager:
         # Advertise a routable address, never the bind address — daemons
         # receive this via dynconfig and 0.0.0.0 would point them at
@@ -614,14 +624,27 @@ def main(argv=None) -> int:
         print(f"registered with manager as scheduler {link.scheduler_id} "
               f"(cluster {link.cluster_id})", flush=True)
 
+        # Consume manager-initiated jobs (preheat, sync-peers) from the
+        # durable cross-process plane (scheduler/job/job.go:49 Serve).
+        from dragonfly2_tpu_torch.scheduler.jobworker import RemoteJobWorker
+
+        job_worker = RemoteJobWorker(link.client, service, link.scheduler_id,
+                                     poll_interval=args.job_poll_interval)
+        job_worker.serve()
+        print(f"job worker polling queues {job_worker.queues}", flush=True)
+
     if args.trainer:
         _start_announcer(args, service)
 
     wait_for_shutdown()
+    if job_worker is not None:
+        job_worker.stop()
     if link is not None:
         link.stop()
     if metrics_server:
         metrics_server.stop()
+    if debug_monitor:
+        debug_monitor.stop()
     server.stop()
     return 0
 

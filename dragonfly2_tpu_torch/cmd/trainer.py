@@ -17,9 +17,9 @@ card and without ``--device cpu`` it exits at start with
 the CPU. It prints ``trainer serving on <host:port>`` once the listener is
 bound (``--port 0`` picks a free port).
 
-It differs from JAX's in three ways: ``--device``; no ``TrainerMetrics``
-and no Prometheus endpoint (the card machine has no
-``prometheus_client``; ``--metrics-port`` is accepted and ignored); and
+``--metrics-port`` serves ``TrainerMetrics`` (streams, dataset bytes,
+cycles, job durations and throughput) and the debug-vars bridge on
+``/metrics``. It differs from JAX's in two ways: ``--device``; and
 ``--profile-dir`` runs each training cycle under ``torch.profiler``,
 writing one Chrome trace a cycle there, where JAX traces its step loops
 with ``jax.profiler``.
@@ -87,7 +87,8 @@ def main(argv=None) -> int:
                              "every interval, hosts with NEW closed "
                              "dataset segments are retrained + "
                              "registered without waiting for the next "
-                             "announcer stream EOF (0 = off)")
+                             "announcer stream EOF (0 = off; cycles and "
+                             "skips counted in TrainerMetrics)")
     parser.add_argument("--profile-dir", default="",
                         help="run each training cycle under "
                              "torch.profiler; one Chrome trace a cycle "
@@ -124,6 +125,7 @@ def main(argv=None) -> int:
     # Joining a fleet precedes any training in the process.
     fleet_group = maybe_init_multihost(args)
 
+    from dragonfly2_tpu_torch import __version__
     from dragonfly2_tpu_torch.rpc import serve
     from dragonfly2_tpu_torch.trainer import (
         TRAINER_SPEC,
@@ -131,6 +133,7 @@ def main(argv=None) -> int:
         TrainerStorage,
         Training,
     )
+    from dragonfly2_tpu_torch.trainer.metrics import TrainerMetrics
 
     registry = None
     if args.manager_db:
@@ -144,16 +147,17 @@ def main(argv=None) -> int:
             Database(args.manager_db),
             FilesystemObjectStore(args.object_store_dir), device=device)
     storage = TrainerStorage(args.data_dir)
+    metrics = TrainerMetrics(version=__version__)
     training_config = None
     if args.train_gat:
         from dragonfly2_tpu_torch.trainer.training import TrainingConfig
 
         training_config = TrainingConfig(train_gat_model=True)
     training = Training(storage, registry, config=training_config,
-                        device=device, group=fleet_group)
+                        metrics=metrics, device=device, group=fleet_group)
     if args.profile_dir:
         training = ProfiledTraining(training, args.profile_dir, device)
-    service = TrainerService(storage, training)
+    service = TrainerService(storage, training, metrics=metrics)
     server = serve([(TRAINER_SPEC, service)], host=args.host, port=args.port)
     print(f"trainer serving on {server.target}", flush=True)
     if args.federated_quorum > 0:
@@ -199,7 +203,7 @@ def main(argv=None) -> int:
         service.start_cycle_driver(args.train_interval)
         print(f"interval cycle driver running every "
               f"{args.train_interval:g}s", flush=True)
-    metrics_server = start_metrics_server(args)
+    metrics_server = start_metrics_server(args, metrics.registry)
     debug_monitor = start_debug_monitor(args)
     wait_for_shutdown()
     service.stop_cycle_driver()

@@ -17,9 +17,9 @@ The cluster half (upstream: UpdateScheduler :290, UpdateSeedPeer :180,
 ListSchedulers :500, KeepAlive :968) is JAX's: scheduler and seed-peer
 cluster CRUD, instance upserts, keepalive with its expiry sweep, the
 searcher's dynconfig answer behind a read-through cache, and
-applications. It differs on purpose in one way: there are no
-prometheus counters (``metrics``), since the card machine has no
-``prometheus_client``. The artifact's unpacking is
+applications, with JAX's ``metrics`` hooks (a ``ManagerMetrics`` or
+None: keepalives, searcher calls and ingested models). The artifact's
+unpacking is
 ``train.checkpoint.untar_to_directory``, reached through
 :func:`untar_to_directory` here. The module loads no torch: the
 manager's own process (``cmd/manager.py``) builds nothing on a device.
@@ -95,13 +95,14 @@ class ManagerService:
     answers the inference service polls)."""
 
     def __init__(self, database: Database, object_store: ObjectStore,
-                 keepalive_ttl: float = DEFAULT_KEEPALIVE_TTL,
+                 keepalive_ttl: float = DEFAULT_KEEPALIVE_TTL, metrics=None,
                  cache_ttl: float = 5.0, validation=None,
                  serving_stats=None, device=None):
         self.db = database
         self.store = object_store
         self.searcher = Searcher()
         self.keepalive_ttl = keepalive_ttl
+        self.metrics = metrics  # ManagerMetrics or None
         # None keeps the reference's direct-activate behaviour
         # (model.go:109-150) for deployments without a serving path to
         # protect.
@@ -203,6 +204,8 @@ class ManagerService:
         )
         if row is None:
             raise ManagerError(f"{source_type} {hostname}/{ip} not registered")
+        if self.metrics:
+            self.metrics.keepalive_count.inc()
         self.db.update(table, row.id, state=STATE_ACTIVE,
                        last_keepalive=time.time())
         # Invalidate AFTER the write and only on a state flip —
@@ -251,6 +254,8 @@ class ManagerService:
                 [STATE_ACTIVE],
             )
         }
+        if self.metrics:
+            self.metrics.search_scheduler_cluster_count.inc()
         ranked = self.searcher.find_scheduler_clusters(
             clusters, ip, hostname, conditions,
             has_active_schedulers=lambda c: counts.get(c.id, 0) > 0,
@@ -353,6 +358,8 @@ class ManagerService:
                  file_key, now, now],
             )
             row_id = int(cur.lastrowid)
+        if self.metrics:
+            self.metrics.model_created_count.labels(type=model_type).inc()
         if gate is None:
             logger.info("model %s type=%s version=%s activated",
                         model_id, model_type, version)

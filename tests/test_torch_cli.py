@@ -3,7 +3,10 @@
 and ``client.daemon_proc`` — held to JAX's: the same options (the port's
 scheduler adds ``--device``), ``_parse_whitelist``'s entries, and the
 exit codes and outputs of dfget's and dfcache's flags run in process
-against each package's own stack.
+against each package's own stack. Then each service command of the port
+run in process with ``--metrics-port``: its ``/metrics`` carries its own
+families and the debug-vars bridge, and ``cmd.scheduler --manager``
+starts the job worker on its registered row's queue.
 """
 
 from __future__ import annotations
@@ -330,3 +333,134 @@ def test_dfget_through_a_daemon_as_jax(tmp_path, capsys):
             daemon.stop()
         got.append(lines)
     assert got[0] == got[1] == [(0, "mesh", True), (0, "cache", True)]
+
+
+# -- /metrics on every entry point, and the scheduler's job worker ----------
+
+def _port_scheduler_wire(root):
+    """The port's scheduler served over its wire in this process."""
+    from dragonfly2_tpu_torch.rpc import serve
+    from dragonfly2_tpu_torch.scheduler.rpcserver import (
+        SCHEDULER_SPEC,
+        SchedulerRpcService,
+    )
+    from tests.test_torch_p2p import port_scheduler
+
+    return serve([(SCHEDULER_SPEC, SchedulerRpcService(
+        port_scheduler(root)))])
+
+
+def _port_manager_internal(root):
+    """The port's manager with its job plane, its internal surface served
+    in this process."""
+    from dragonfly2_tpu_torch.manager import (
+        Database,
+        FilesystemObjectStore,
+        ManagerService,
+    )
+    from dragonfly2_tpu_torch.manager.jobplane import DurableJobStore
+    from dragonfly2_tpu_torch.manager.rest import ManagerHTTPServer, RestApi
+
+    db = Database()
+    api = RestApi(ManagerService(db, FilesystemObjectStore(
+        str(root / "objects"))), jobstore=DurableJobStore(db))
+    http = ManagerHTTPServer(api, host="127.0.0.1", port=0,
+                             surface="internal")
+    http.start()
+    return http
+
+
+#: entry point → (argv after the common ones, the family its /metrics
+#: must carry, the helper server it needs)
+ENTRY_POINTS = {
+    "cmd.scheduler": (["--host", "127.0.0.1", "--data-dir", "{root}/s",
+                       "--advertise-ip", "127.0.0.1",
+                       "--job-poll-interval", "0.1", "--port", "{free}",
+                       "--manager", "{manager}"],
+                      "dragonfly_scheduler_resource_hosts", "manager"),
+    "cmd.manager": (["--host", "127.0.0.1", "--port", "0",
+                     "--internal-port", "0", "--db", "{root}/m.db",
+                     "--object-store-dir", "{root}/objects"],
+                    "dragonfly_manager_version", None),
+    "cmd.trainer": (["--host", "127.0.0.1", "--port", "0", "--device",
+                     "cpu", "--data-dir", "{root}/t"],
+                    "dragonfly_trainer_version", None),
+    "cmd.inference": (["--host", "127.0.0.1", "--port", "0", "--device",
+                       "cpu", "--manager-db", "{root}/m.db",
+                       "--object-store-dir", "{root}/objects"],
+                      "df2_process_threads", None),
+    "cmd.dfdaemon": (["--scheduler", "{scheduler}", "--rpc-port", "0",
+                      "--storage-dir", "{root}/d", "--hostname", "cli-d"],
+                     "dragonfly_dfdaemon_version", "scheduler"),
+}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get_metrics(port: int, timeout_s: float = 60.0) -> str:
+    import time
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
+                return resp.read().decode()
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+@pytest.mark.parametrize("command", list(ENTRY_POINTS))
+def test_entry_point_serves_metrics(command, tmp_path, monkeypatch, capsys):
+    """``main`` in a thread of this process with its shutdown wait on an
+    event: ``--metrics-port`` serves the command's own families and the
+    debug-vars bridge; ``cmd.scheduler --manager`` prints the job
+    worker's queues, its registered row's among them."""
+    import threading
+
+    argv, family, helper = ENTRY_POINTS[command]
+    stop = threading.Event()
+    module = mod("port", command)
+    monkeypatch.setattr(module, "wait_for_shutdown",
+                        lambda event=None: stop.wait())
+    if hasattr(module, "install_shutdown_handlers"):
+        monkeypatch.setattr(module, "install_shutdown_handlers",
+                            lambda: stop)
+    server = None
+    fill = {"root": str(tmp_path), "free": str(_free_port())}
+    if helper == "manager":
+        server = _port_manager_internal(tmp_path)
+        fill["manager"] = f"127.0.0.1:{server.port}"
+    elif helper == "scheduler":
+        server = _port_scheduler_wire(tmp_path)
+        fill["scheduler"] = server.target
+    metrics_port = _free_port()
+    args = [a.format(**fill) for a in argv] + [
+        "--metrics-port", str(metrics_port)]
+    box = {}
+    thread = threading.Thread(
+        target=lambda: box.update(rc=module.main(args)), daemon=True)
+    thread.start()
+    try:
+        text = _get_metrics(metrics_port)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        if server is not None:
+            server.stop()
+    out = capsys.readouterr().out
+    assert box.get("rc") == 0 and not thread.is_alive()
+    assert f"metrics on 0.0.0.0:{metrics_port}/metrics" in out
+    assert f"\n{family}" in text and "# TYPE df2_process_threads gauge" in text
+    if command == "cmd.scheduler":
+        assert ("job worker polling queues ['global', 'schedulers', "
+                "'scheduler_1']") in out

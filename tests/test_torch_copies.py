@@ -6,11 +6,15 @@ package shows up here as a difference to carry over.
 The RPC surfaces in :data:`WIRE_COPIES` differ in one more way only:
 where JAX's code imports ``grpc`` for its status codes and error, the
 port's imports ``StatusCode`` and ``RpcError`` from ``rpc/status.py``.
+The metrics modules in :data:`PROM_COPIES` likewise differ only where
+JAX's import from ``prometheus_client`` (or its ``core`` and
+``exposition`` modules): the port's import the same names from
+``utils/prom.py``.
 
 Modules whose port differs on purpose are not listed: the scheduler's
-dataset storage (no parquet export), the daemon's metrics (no
-prometheus_client), its host telemetry (``/proc`` instead of psutil),
-the device sink, and the earlier slices' partial copies.
+dataset storage (no parquet export), the daemon's host telemetry
+(``/proc`` instead of psutil), the device sink, and the earlier slices'
+partial copies.
 """
 
 import os
@@ -61,9 +65,14 @@ COPIES = [
     "rpc/codec.py",
     "scheduler/replica.py", "client/daemon_proc.py", "cmd/dfget.py",
     "cmd/dfcache.py", "cmd/dfdaemon.py",
+    "manager/jobs.py", "manager/jobplane.py", "scheduler/jobworker.py",
 ]
 
 WIRE_COPIES = ["scheduler/rpcserver.py", "client/rpcserver.py"]
+
+PROM_COPIES = ["client/metrics.py", "scheduler/metrics.py",
+               "trainer/metrics.py", "manager/metrics.py",
+               "utils/metricsserver.py", "utils/prombridge.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -93,4 +102,23 @@ def test_wire_copy_differs_only_in_prefix_and_status_names(path):
     with open(os.path.join(REPO, "dragonfly2_tpu_torch", path)) as f:
         got = f.read()
     assert "import grpc" not in got and "grpc." not in got
+    assert got == want, f"{path} differs from its JAX original"
+
+
+def _prom_swapped(text: str) -> str:
+    """JAX's prometheus_client imports as the port spells them."""
+    return re.sub(r"(?m)^from prometheus_client(\.core|\.exposition)? import",
+                  "from dragonfly2_tpu_torch.utils.prom import", text)
+
+
+@pytest.mark.parametrize("path", PROM_COPIES)
+def test_prom_copy_differs_only_in_prefix_and_import_lines(path):
+    with open(os.path.join(REPO, "dragonfly2_tpu", path)) as f:
+        text = f.read()
+    assert "from prometheus_client" in text
+    want = _prom_swapped(_PREFIX.sub("dragonfly2_tpu_torch", text))
+    with open(os.path.join(REPO, "dragonfly2_tpu_torch", path)) as f:
+        got = f.read()
+    assert "import prometheus_client" not in got
+    assert "from prometheus_client" not in got
     assert got == want, f"{path} differs from its JAX original"

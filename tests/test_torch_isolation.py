@@ -214,6 +214,16 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.rpc.status",
         "dragonfly2_tpu_torch.cmd.inference",
         "dragonfly2_tpu_torch.cmd.trainer",
+        # slice 25: the job plane and the metrics plane
+        "dragonfly2_tpu_torch.manager.jobs",
+        "dragonfly2_tpu_torch.manager.jobplane",
+        "dragonfly2_tpu_torch.scheduler.jobworker",
+        "dragonfly2_tpu_torch.utils.prom",
+        "dragonfly2_tpu_torch.utils.metricsserver",
+        "dragonfly2_tpu_torch.utils.prombridge",
+        "dragonfly2_tpu_torch.scheduler.metrics",
+        "dragonfly2_tpu_torch.trainer.metrics",
+        "dragonfly2_tpu_torch.manager.metrics",
     }
     assert expected <= set(probe["imported"])
 

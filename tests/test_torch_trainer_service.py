@@ -45,7 +45,6 @@ from dragonfly2_tpu.train import MLPTrainConfig as JaxMLPConfig
 from dragonfly2_tpu.trainer import training as jax_training
 from dragonfly2_tpu_torch import schema as port_schema
 from dragonfly2_tpu_torch import trainer as port_trainer
-from dragonfly2_tpu_torch.client.metrics import Counter
 from dragonfly2_tpu_torch.data import SyntheticCluster
 from dragonfly2_tpu_torch.rpc.status import CallContext, RpcAbort, StatusCode
 from dragonfly2_tpu_torch.scheduler import announcer as port_announcer
@@ -427,25 +426,14 @@ class StubTraining:
         return _Outcome()
 
 
-class PortTrainerMetrics:
-    """The trainer metrics the service reports into, as the port's
-    in-process counters (the JAX package's are prometheus counters)."""
-
-    def __init__(self):
-        for name in ("train_request_count", "train_request_failure",
-                     "train_cycles", "train_cycle_skips",
-                     "federated_rounds", "federated_updates_screened"):
-            setattr(self, name, Counter(name, ""))
-        self.dataset_bytes = Counter("dataset_bytes", "",
-                                     labelnames=("type",))
-
-
 def metrics_for(pkg: Pkg):
+    """The package's ``TrainerMetrics`` (JAX's on prometheus_client, the
+    port's on ``utils/prom.py``)."""
     if pkg.name == "jax":
         from dragonfly2_tpu.trainer.metrics import TrainerMetrics
-
-        return TrainerMetrics()
-    return PortTrainerMetrics()
+    else:
+        from dragonfly2_tpu_torch.trainer.metrics import TrainerMetrics
+    return TrainerMetrics()
 
 
 def counter(metric) -> float:
