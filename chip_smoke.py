@@ -65,7 +65,7 @@ Phases (any failure exits nonzero, before the final line):
    Every kernel's launch count is set to 0 just before and read just
    after; each must have launched;
 5. train: config #3 trained in gather mode (``GATTrainer.fit``, the body
-   of ``train_gat``; 8 epochs, 60 s cap) with the launch counts set to 0
+   of ``train_gat``; 6 epochs, 60 s cap) with the launch counts set to 0
    just before and read just after — the gather and scatter-add kernels
    must have launched exactly once a layer a forward and a backward, no
    other kernel at all, the loss must be finite and fall — then the
@@ -190,10 +190,10 @@ Phases (any failure exits nonzero, before the final line):
    ``cost`` regret within bound, no swarm error; the gate's validation,
    regret, rank agreement, bad-node counts, decision latency, the train
    errors and the seconds of record, train, gate and A/B), swarm_ladder
-   (``run_swarm_ladder`` at 100, 1 000 and 5 000 peers: no swarm error;
+   (``run_swarm_ladder`` at 100 and 1 000 peers: no swarm error;
    the p99 ratio's 4 x bound printed, not gated) and recorder_overhead
-   (the guard's announce p99 with the recorder on against off; its
-   1.05 x bound printed, not gated);
+   (the guard's announce p99 with the recorder on against off, without
+   its retry; its 1.05 x bound printed, not gated);
 13. the serving plane, the slice 10 paths: after the main path's
    requests, microbatch_gat (config #3's pair scorer behind the
    micro-batcher: the 8- and 32-thread rungs, and the replies of 32
@@ -359,7 +359,7 @@ Phases (any failure exits nonzero, before the final line):
    card over gloo, each checking all_reduce and broadcast on a CUDA
    tensor, then training config #2 with sampling on the device and on
    the host, config #1, config #3 in blocks and in gather mode cut to
-   one epoch at WORLD_GAT_BATCH (29 steps), and ``Training.train`` on
+   one epoch at WORLD_GAT_BATCH (7 steps), and ``Training.train`` on
    the training phase's records
    with ``group=`` the world: both ranks' parameter digests equal, gaps
    to the world-of-one runs within the CPU tests' limits, each rank's
@@ -417,7 +417,7 @@ Phases (any failure exits nonzero, before the final line):
    without an exchange), then PAR_WORLD gloo ranks spawned once on the
    one card: ring_gat_ranks (config #3 in ring mode, rows padded to
    20 480 and sharded 10 240 a rank, K/V blocks around the ring, the
-   embeddings all-gathered for the pair head, one epoch of 29 steps at
+   embeddings all-gathered for the pair head, one epoch of 7 steps at
    batch WORLD_GAT_BATCH:
    equal digests, the loss and F1 gaps to the world of one, the trained
    weights' embeddings against blocks mode's, rank 0's artifact served
@@ -455,6 +455,29 @@ Phases (any failure exits nonzero, before the final line):
    hbm_sink_sharded (``HBMSink(shard_for=...)`` on a 2-way split: each
    rank's block bit-equal to the file's rows, its bytes alone on the
    card).
+
+Phase 20, slice 26: fleet_benches (the chaos ladder at its defaults
+with success 1.0 at every rung and goodput retention at least 0.70; the
+scheduler kill rung, a ``scheduler.replica`` child SIGKILLed mid-swarm,
+and the daemon kill rung, a ``daemon_proc`` child SIGKILLed mid-download
+at 0.3-0.9 of its bytes and restarted, both at success 1.0; the fan-out
+ladder at FLEET_FANOUT_RUNGS of FLEET_FANOUT_SHARD_BYTES shards as
+process fleets, amplification, the TTLB ratio and the preheated rung's
+origin share within their bounds; a geo rung over the 3 default sites
+with WAN amplification within 1 + #sites and bridge grants; a cluster
+rung of FLEET_CLUSTER_PEERS peers over 4 replicas, one SIGKILLed, every
+peer decided and the re-route p99 within REROUTE_BOUND_S; the
+observability stage's rung, its disrupted task captured with its critical
+path, ``python -m dragonfly2_tpu_torch.cmd.tracetool``
+as a child equal to ``analyze_dirs`` in process, and every debug-vars
+block scraped — every launch count 0) and columnar (JAX's scale proof at
+10M rows on the port's parquet codec: write, ingest, one shuffled epoch
+with every row once and a restart's first batch equal, GraphSAGE on the
+card over the read-back edges with K2a launched once a forward and one
+sampled batch's gather bit-equal to its twin at [10 000, 8] f32, timed
+beside ``index_select`` as the K2a row's ``at_columnar``, the MLP on the
+card over the streamed pair examples with its eval MAE below the train
+mean's, and the scheduler storage's parquet export equal to its CSV).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -552,20 +575,21 @@ LONG_T = 32_768
 PADDED_HEAD_DIMS = (24, 96)
 # The memory class of that tier: below one head's dense [T, T] f32 scores.
 DENSE_SCORES_BYTES = LONG_T * LONG_T * 4
-# The train phase: artifacts/gat_bench.py:36-43 with a short run: 8
-# epochs (472 steps). Where a run leaves the majority-class plateau, and
-# then its second drop, move by tens of steps with rounding, so a short
-# run gives the two modes different F1 (after 2 epochs 0 and 0.60, after
-# 4 0.9994 and 0.70); after 6, 8 and 12 epochs, and at seeds 1 and 2,
-# both measured the same F1 (PERF.md).
+# The train phase: artifacts/gat_bench.py:36-43 with a short run: 6
+# epochs (354 steps). Where a run leaves the majority-class
+# plateau, and then its second drop, move by tens of steps with rounding,
+# so a short run gives the two modes different F1 (after 2 epochs 0 and
+# 0.60, after 4 0.9994 and 0.70); after 6, 8 and 12 epochs, and at seeds
+# 1 and 2, both measured the same F1 (PERF.md).
 TRAIN_CFG = dict(hidden=128, embed=64, layers=2, heads=4, neighbor_cap=64,
-                 edge_batch_size=8192, eval_fraction=0.02, epochs=8,
+                 edge_batch_size=8192, eval_fraction=0.02, epochs=6,
                  max_seconds=60)
-# The worlds of ring_gat_ranks and tp_grid, and their world-of-one
-# references, train config #3 for one epoch at twice this batch: 29
-# steps instead of 59. Their step is a full-graph pass whatever the
-# batch, so the spawned worlds' runs take about half as long.
-WORLD_GAT_BATCH = 2 * TRAIN_CFG["edge_batch_size"]
+# The worlds of ring_gat_ranks and tp_grid, the data-parallel GAT jobs,
+# and their world-of-one references, train config #3 for one epoch at
+# eight times this batch: 7 steps instead of 59. Their step is a
+# full-graph pass whatever the batch, so the runs take about an eighth
+# of the steps' time.
+WORLD_GAT_BATCH = 8 * TRAIN_CFG["edge_batch_size"]
 # Blocks mode trains the same run (rows padded to the 1024-row chunks)
 # and must land within the CPU parity tests' F1 and accuracy band
 # (tests/test_torch_train.py) of gather mode's on the same split.
@@ -639,7 +663,7 @@ REPLAY_WORKERS = 1
 RECORD_PEERS = 600
 RECORD_WORKERS = 4
 RECORD_SEGMENT = 200
-SWARM_LADDER_SIZES = (100, 1000, 5000)
+SWARM_LADDER_SIZES = (100, 1000)
 SWARM_LADDER_WORKERS = 8
 # Request sizes held bit-identical to score_corpus: one row, the bucket
 # edges of the JAX package's scorer (8 … 64) and a row past each.
@@ -845,6 +869,41 @@ FANOUT_COPIES = 4
 FANOUT_DISK_SLACK = 1 << 30
 FANOUT_TIMEOUT_S = 900
 FANOUT_SAMPLE_S = 0.25
+# The fleet benches (slice 26), phase "fleet_benches": the P2P stack's
+# host benches as process fleets beside the card, no kernel on their
+# path. The chaos ladder and both kill rungs at their defaults; the
+# fan-out ladder cut from JAX's bench stage (rungs 4, 16, 32 of 64 MiB
+# shards) to FLEET_FANOUT_RUNGS of FLEET_FANOUT_SHARD_BYTES; the geo rung
+# at FLEET_GEO_PER_SITE daemons a site over the 3 default sites; the
+# cluster rung cut from 100 000 peers to FLEET_CLUSTER_PEERS (the largest
+# whose rung took at most 25 s on an 8-core CPU host) over
+# FLEET_CLUSTER_REPLICAS replicas, one SIGKILLed; the observability
+# stage's rung with the tracetool command run as a child over its traces.
+# The stage's overhead guards and the geo partition rung run alone
+# (tests/obs_guards_alone.py, tests/geo_partition_alone.py).
+FLEET_FANOUT_RUNGS = (4, 16)
+FLEET_FANOUT_SHARD_BYTES = 16 << 20
+FLEET_GEO_PER_SITE = 2
+FLEET_CLUSTER_PEERS = 5000
+FLEET_CLUSTER_REPLICAS = 4
+FLEET_CHILD_TIMEOUT_S = 120
+# The columnar layer (slice 26), phase "columnar": JAX's scale proof
+# (artifacts/scale_proof.py:66-215) at its own COLUMNAR_ROWS probe edges
+# over COLUMNAR_HOSTS hosts in COLUMNAR_SHARDS parquet shards of 262 144-
+# row groups, on the port's codec: ingest, one shuffled epoch at
+# COLUMNAR_STREAM_BATCH, GraphSAGE on the card over the read-back edges
+# (K2a, config #2's widths at batch 8192), the pair examples streamed at
+# COLUMNAR_PAIR_BATCH into the MLP on the card, and the scheduler
+# storage's export of COLUMNAR_EXPORT_RECORDS Download records. The
+# training caps are cut from the scale proof's 90 s and 45 s.
+COLUMNAR_ROWS = 10_000_000
+COLUMNAR_HOSTS = 10_000
+COLUMNAR_SHARDS = 16
+COLUMNAR_STREAM_BATCH = 65_536
+COLUMNAR_PAIR_BATCH = 262_144
+COLUMNAR_GNN_SECONDS = 10.0
+COLUMNAR_MLP_SECONDS = 5.0
+COLUMNAR_EXPORT_RECORDS = 2000
 # Each row of the kernels line → the __global__ functions of its
 # sources, read from the profiler's kernel names.
 KERNEL_FUNCTIONS = {
@@ -3413,16 +3472,17 @@ def run_swarm_ladder_phase() -> None:
 
 
 def run_recorder_overhead_phase() -> None:
-    """recorder_overhead: ``run_recorder_overhead_guard()`` — announce p99
-    with the recorder on against off, best of the interleaved
-    repetitions, and its retry; printed with the 1.05 x bound's verdict,
-    which decides nothing here (a limit on the host's speed)."""
+    """recorder_overhead: ``run_recorder_overhead_guard(retry_reps=0)`` —
+    announce p99 with the recorder on against off, best of the
+    interleaved repetitions, without the guard's retry at more
+    repetitions; printed with the 1.05 x bound's verdict, which decides
+    nothing here (a limit on the host's speed)."""
     from dragonfly2_tpu_torch.scheduler.loadbench import (
         run_recorder_overhead_guard,
     )
 
     t0 = time.perf_counter()
-    guard = run_recorder_overhead_guard()
+    guard = run_recorder_overhead_guard(retry_reps=0)
     log("recorder_overhead", **guard, bound_decides_exit=False,
         seconds=time.perf_counter() - t0)
 
@@ -7341,7 +7401,7 @@ def run_federated_config4(torch, counts) -> dict:
 def dp_configs() -> dict:
     """The data-parallel phases' jobs: config #2 (both sampling paths)
     and config #1 as their phases train them, config #3 cut to one epoch
-    at WORLD_GAT_BATCH (29 steps, as the ring and TP worlds train it),
+    at WORLD_GAT_BATCH (7 steps, as the ring and TP worlds train it),
     each without a wall-clock cap (a cap would add a collective a step:
     the ranks must agree when to stop)."""
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
@@ -7871,7 +7931,7 @@ PAR_F32_TOL = 1e-4
 
 
 def ring_gat_config():
-    """Config #3 in ring mode cut to one epoch at WORLD_GAT_BATCH (29
+    """Config #3 in ring mode cut to one epoch at WORLD_GAT_BATCH (7
     steps), with no wall-clock cap."""
     from dragonfly2_tpu_torch.train.gat_trainer import GATTrainConfig
 
@@ -8537,7 +8597,7 @@ def run_parallel(torch, graph) -> dict:
 # (world, model axis): 1 x 2, then 2 x 2. Each trains in blocks mode (K1
 # forward and backward on a rank's head share, 2 heads of 32, its query
 # rows against every row's K/V) and in gather mode (K2a and K2b on the
-# share's 256-byte [k|v] rows), cut to one epoch at WORLD_GAT_BATCH (29
+# share's 256-byte [k|v] rows), cut to one epoch at WORLD_GAT_BATCH (7
 # steps) as ring_gat_ranks is, with no wall-clock cap.
 TP_GRIDS = ((2, 2), (4, 2))
 TP_MODES = ("blocks", "gather")
@@ -10123,6 +10183,404 @@ def run_p2p_processes(torch, counts, dev, origin: FanoutOrigin,
     return launches
 
 
+def run_fleet_benches(counts) -> dict:
+    """fleet_benches: the chaos ladder, both kill rungs, the fan-out
+    ladder, a geo rung, a cluster rung with a replica killed and the
+    observability stage's tail-capture rung, each as process fleets or
+    daemons of the port's stack and
+    schedulers, with every launch count set to 0 just before and read just
+    after — no kernel may launch. Each bench's verdict must hold (below);
+    each one's seconds are logged. Returns the launches."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.client import (
+        chaosbench,
+        fanoutbench,
+        geobench,
+        obsbench,
+    )
+    from dragonfly2_tpu_torch.scheduler import clusterbench
+    from dragonfly2_tpu_torch.tracetool import analyze_dirs
+
+    counts.reset()
+    seconds, failed = {}, []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # The chaos ladder: every rung at success 1.0, goodput retention at
+    # the largest fault rate at least GOODPUT_RETENTION_BOUND.
+    chaos = timed("chaos_ladder", chaosbench.run_chaos_ladder)
+    if not chaos["verdict_pass"]:
+        failed.append("chaos_ladder")
+    # The kill rungs: a scheduler.replica child SIGKILLed mid-swarm, a
+    # daemon_proc child SIGKILLed mid-download and restarted.
+    sched_kill = timed("scheduler_kill", chaosbench.run_scheduler_kill_rung)
+    if not (sched_kill["verdict_pass"] and sched_kill["success_rate"] == 1.0
+            and sched_kill["killed"]):
+        failed.append("scheduler_kill")
+    daemon_kill = timed("daemon_kill", chaosbench.run_daemon_kill_rung)
+    killed = daemon_kill.get("killed") or {}
+    if not (daemon_kill["verdict_pass"]
+            and daemon_kill["success_rate"] == 1.0
+            and 0.3 <= killed.get("fraction", -1.0) <= 0.9):
+        failed.append("daemon_kill")
+    # Fan-out: amplification within AMPLIFICATION_BOUND, TTLB(16) /
+    # TTLB(4) within TTLB_RATIO_BOUND, the preheated rung's origin bytes
+    # within PREHEAT_ORIGIN_FRACTION_BOUND of the checkpoint.
+    fanout = timed("fanout", lambda: fanoutbench.run_fanout_ladder(
+        rungs=FLEET_FANOUT_RUNGS, shard_bytes=FLEET_FANOUT_SHARD_BYTES,
+        seed=SEED))
+    if not fanout.get("verdict_pass"):
+        failed.append("fanout")
+    # Geo: every download, WAN bytes within 1 + #sites checkpoints, the
+    # bridge claims granted.
+    geo_blobs = fanoutbench.make_checkpoint(
+        geobench.DEFAULT_SHARDS, geobench.DEFAULT_SHARD_BYTES, SEED)
+    geo = timed("geo", lambda: geobench.run_geo_rung(
+        FLEET_GEO_PER_SITE, geo_blobs, seed=SEED))
+    del geo_blobs
+    if not (geo["success_rate"] == 1.0
+            and geo["wan_amplification"] <= geo["wan_amplification_bound"]
+            == geobench.wan_amplification_bound(len(geobench.DEFAULT_SITES))
+            and geo["bridge_grants"] > 0):
+        failed.append("geo")
+    # Cluster: every driven peer decided, re-route p99 within
+    # REROUTE_BOUND_S across the replica kill.
+    cluster = timed("cluster", lambda: clusterbench.run_cluster_rung(
+        FLEET_CLUSTER_PEERS, replicas=FLEET_CLUSTER_REPLICAS,
+        kill_replica=True))
+    if not (cluster["completed"] == cluster["samples"] == FLEET_CLUSTER_PEERS
+            and cluster["success_rate"] == 1.0 and cluster["killed"]
+            and cluster["reroute_p99_ms"]
+            <= clusterbench.REROUTE_BOUND_S * 1e3):
+        failed.append("cluster")
+    # Observability: run_obs_stage's tail-capture rung (kept on disk for
+    # the command), the tracetool command as a child over the rung's
+    # traces, then every debug-vars block scraped. The stage's two
+    # overhead guards run alone (tests/obs_guards_alone.py).
+    obs_tmp = tempfile.mkdtemp(prefix="smoke-obs-")
+    try:
+        rung = timed("obs_rung", lambda: obsbench.run_obs_rung(
+            seed=SEED, root=obs_tmp))
+        trace_dir = os.path.join(obs_tmp, "traces")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.cmd.tracetool",
+             "analyze", "--json", trace_dir], cwd=ROOT, capture_output=True,
+            text=True, timeout=FLEET_CHILD_TIMEOUT_S)
+        seconds["tracetool_child"] = time.perf_counter() - t0
+        in_process = analyze_dirs([trace_dir])
+        child_equal = (child.returncode == 0
+                       and json.loads(child.stdout) == in_process)
+    finally:
+        shutil.rmtree(obs_tmp, ignore_errors=True)
+    scrape = timed("scrape", obsbench.scrape_all_blocks)
+    disrupted = rung.get("disrupted_trace") or {}
+    critical = (rung.get("analyzer") or {}).get("dominant") or {}
+    if not (rung["verdict_pass"] and disrupted.get("trace_ids") == 1
+            and critical.get("kind") == "fetch_stall" and child_equal
+            and scrape["all_blocks_exported"]):
+        failed.append("observability")
+    launches = counts.read()
+
+    def keep(report, keys):
+        return {k: report.get(k) for k in keys}
+
+    log("fleet_benches", seconds=seconds, launches=launches,
+        chaos=dict(keep(chaos, ("verdict_pass", "all_rungs_full_success",
+                                "goodput_retention_at_max",
+                                "goodput_retention_bound",
+                                "pieces_per_task")),
+                   rungs={rate: keep(r, (
+                       "success_rate", "mb_per_s", "recovery_p99_ms"))
+                       for rate, r in chaos["ladder"].items()}),
+        scheduler_kill=keep(sched_kill, (
+            "verdict_pass", "success_rate", "killed", "reroutes",
+            "reroute_p99_ms", "reroute_bound_s", "failovers",
+            "degraded_to_source", "download_p99_s")),
+        daemon_kill=keep(daemon_kill, (
+            "verdict_pass", "success_rate", "killed", "missing_bytes",
+            "refetch_bound_bytes", "resume", "reseed")),
+        fanout=dict(keep(fanout, (
+            "verdict_pass", "rungs", "shards", "checkpoint_bytes",
+            "piece_size", "origin_rate_mb_per_s", "ttlb_ratio",
+            "ttlb_ratio_bound", "cold_amplification_at_max",
+            "amplification_bound", "preheat_origin_fraction",
+            "preheat_origin_fraction_bound", "skipped_rungs")),
+            ladder={n: keep(r, ("ttlb_s", "origin_amplification",
+                                "p2p_share", "success_rate",
+                                "per_daemon_mb_per_s_p50"))
+                    for n, r in (fanout.get("ladder") or {}).items()}),
+        geo=keep(geo, (
+            "per_site", "daemons", "success_rate", "ttlb_s",
+            "wan_amplification", "wan_amplification_bound",
+            "origin_amplification", "bridge_grants", "bridge_denials")),
+        cluster=keep(cluster, (
+            "peers", "replicas", "completed", "samples", "success_rate",
+            "announce_p50_ms", "announce_p99_ms", "decisions_per_sec",
+            "killed", "reroutes", "reroute_p99_ms", "reroute_bound_s",
+            "sessions_rehomed", "kill_verdict_pass")),
+        observability={
+            "rung": keep(rung, ("verdict_pass", "failures",
+                                "disrupted_ttlb_s", "warm_trace_dropped",
+                                "tail_reasons")),
+            "dominant": critical,
+            "tracetool_child": {"returncode": child.returncode,
+                                "reports": len(in_process),
+                                "equal_in_process": child_equal},
+            "scrape": keep(scrape, ("blocks", "metric_families",
+                                    "all_blocks_exported"))},
+        failed=failed)
+    if failed:
+        raise AssertionError(f"fleet_benches: {failed} failed")
+    if any(launches.values()):
+        raise AssertionError(f"fleet_benches launched kernels: {launches}")
+    return launches
+
+
+def run_columnar(torch, counts) -> tuple[dict, dict]:
+    """columnar: JAX's scale proof on the port's parquet codec — 10M
+    probe edges generated, written as COLUMNAR_SHARDS shards, read back
+    column-pruned (every row counted), one shuffled epoch streamed (every
+    row once but the dropped remainder; a second dataset object gives the
+    same first batch), GraphSAGE trained on the card over the read-back
+    edges (K2a once a forward, no other kernel; one sampled batch's
+    gather bit-equal to its twin at the path's [COLUMNAR_HOSTS, 8] f32
+    table, timed beside ``index_select`` and its bound), the pair
+    examples written, streamed and trained into the MLP on the card (no
+    kernel; eval MAE below predicting the train mean), and the scheduler
+    storage's parquet export read back equal to its CSV. The launch
+    counts are set to 0 before each training and read after it. Returns
+    (launches, the K2a figures at this shape)."""
+    import tempfile
+
+    from dragonfly2_tpu_torch.data import (
+        Graph,
+        ShardedParquetDataset,
+        SyntheticCluster,
+        write_columns_sharded,
+    )
+    from dragonfly2_tpu_torch.data.pipeline import from_parquet_shards
+    from dragonfly2_tpu_torch.schema import Download
+    from dragonfly2_tpu_torch.schema.io import (
+        read_csv_records,
+        read_parquet_records,
+    )
+    from dragonfly2_tpu_torch.scheduler.storage.storage import Storage
+    from dragonfly2_tpu_torch.train.gnn_trainer import (
+        GNNTrainConfig,
+        GNNTrainer,
+    )
+    from dragonfly2_tpu_torch.train.metrics import padded_chunks
+    from dragonfly2_tpu_torch.train.mlp_trainer import (
+        MLPTrainConfig,
+        MLPTrainer,
+    )
+
+    def extractor(table):
+        return tuple(table.values())
+
+    fields, seconds = {}, {}
+    tmp = tempfile.mkdtemp(prefix="smoke-columnar-")
+    try:
+        # -- generate, write, ingest ---------------------------------------
+        t0 = time.perf_counter()
+        cluster = SyntheticCluster(n_hosts=COLUMNAR_HOSTS, seed=SEED)
+        cols = cluster.probe_edge_columns(COLUMNAR_ROWS)
+        seconds["generate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths = write_columns_sharded(cols, tmp, n_shards=COLUMNAR_SHARDS)
+        seconds["write"] = time.perf_counter() - t0
+        parquet_bytes = sum(os.path.getsize(p) for p in paths)
+        ds = ShardedParquetDataset(paths, extractor)
+        n_tiles = ds.n_tiles
+        t0 = time.perf_counter()
+        ingested = ds.ingest_all(columns=["src", "rtt_ns"])
+        seconds["ingest"] = time.perf_counter() - t0
+        if ingested != COLUMNAR_ROWS or len(ds) != COLUMNAR_ROWS:
+            raise AssertionError(f"columnar: ingested {ingested} of "
+                                 f"{COLUMNAR_ROWS} rows")
+        # -- one shuffled epoch --------------------------------------------
+        # A row's key: its rtt and source host (unique enough that a lost
+        # or doubled row changes the multiset).
+        t0 = time.perf_counter()
+        keys, first = [], None
+        for src, _dst, rtt in ds.batches(COLUMNAR_STREAM_BATCH, seed=11,
+                                         epoch=0):
+            if first is None:
+                first = (src[:64].copy(), rtt[:64].copy())
+            keys.append(rtt * COLUMNAR_HOSTS + src)
+        seconds["stream"] = time.perf_counter() - t0
+        streamed = np.sort(np.concatenate(keys))
+        del keys
+        want = np.sort(cols["rtt_ns"] * COLUMNAR_HOSTS + cols["src"])
+        got_u, got_n = np.unique(streamed, return_counts=True)
+        want_u, want_n = np.unique(want, return_counts=True)
+        at = np.searchsorted(want_u, got_u)
+        contained = bool(at.max() < len(want_u)
+                         and np.array_equal(want_u[at], got_u)
+                         and (got_n <= want_n[at]).all())
+        dropped = COLUMNAR_ROWS - len(streamed)
+        del streamed, want, got_u, got_n, want_u, want_n, at
+        again = next(iter(ShardedParquetDataset(paths, extractor).batches(
+            COLUMNAR_STREAM_BATCH, seed=11, epoch=0)))
+        restart_equal = bool(np.array_equal(again[0][:64], first[0])
+                             and np.array_equal(again[2][:64], first[1]))
+        if not (contained and 0 <= dropped < COLUMNAR_STREAM_BATCH
+                and restart_equal):
+            raise AssertionError(f"columnar: shuffled epoch: rows "
+                                 f"contained {contained}, dropped {dropped},"
+                                 f" restart equal {restart_equal}")
+        # -- GraphSAGE on the card over the read-back edges -----------------
+        t0 = time.perf_counter()
+        back = from_parquet_shards(paths, lambda t: (
+            t["src"], t["dst"], t["rtt_ns"])).arrays
+        if not all(np.array_equal(a, cols[c]) for a, c in zip(
+                back, ("src", "dst", "rtt_ns"))):
+            raise AssertionError("columnar: shards read back differ")
+        del cols, ds
+        graph = Graph(
+            node_ids=np.array([f"host-{i}" for i in range(COLUMNAR_HOSTS)]),
+            node_features=cluster.node_feature_matrix(),
+            edge_src=back[0].astype(np.int32),
+            edge_dst=back[1].astype(np.int32), edge_rtt_ns=back[2])
+        del back
+        seconds["graph"] = time.perf_counter() - t0
+        counts.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = GNNTrainer(graph, GNNTrainConfig(
+            batch_size=8192, max_seconds=COLUMNAR_GNN_SECONDS))
+        seconds["gnn_init"] = time.perf_counter() - t0
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        seconds["gnn"] = time.perf_counter() - t0
+        launches = counts.read()
+        steps = len(result.step_losses)
+        eval_chunks = len(list(padded_chunks(trainer.eval_ids,
+                                             trainer.batch)))
+        expected = dict.fromkeys(launches, 0)
+        expected["table_gather"] = steps + eval_chunks
+        losses = np.asarray(result.step_losses)
+        if (trainer.device.type != "cuda" or launches != expected
+                or steps < 21 or not np.isfinite(losses).all()
+                or not losses[-10:].mean() < losses[1:11].mean()):
+            raise AssertionError(
+                f"columnar: GraphSAGE on {trainer.device}: {steps} steps, "
+                f"launches {launches}, expected {expected}, loss "
+                f"{losses[1:11].mean()} → {losses[-10:].mean()}")
+        fields["gnn"] = dict(
+            steps=steps, first_step_seconds=result.compile_seconds,
+            window_seconds=(steps - 1) * trainer.batch
+            / max(result.samples_per_sec, 1e-9),
+            epochs=trainer.config.epochs,
+            samples_per_sec=result.samples_per_sec, f1=result.f1,
+            precision=result.precision, recall=result.recall,
+            train_edges=len(trainer.train_ids),
+            eval_edges=len(trainer.eval_ids), launches=launches,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        # K2a at this path's shape: a sampled batch's gather, bit for bit,
+        # timed beside index_select (launches after the read: uncounted).
+        idx = gnn_step_indices(torch, trainer)
+        k2a = check_table_gather(torch, trainer.node_features, idx)
+        k2a["shape"] = {"table": list(trainer.node_features.shape),
+                        "idx": list(idx.shape)}
+        del trainer, result, graph, idx
+        # -- the MLP over the pair examples' shards -------------------------
+        t0 = time.perf_counter()
+        X, y = cluster.pair_example_columns(COLUMNAR_ROWS)
+        n_feats = X.shape[1]
+        feat_cols = {f"f{i}": X[:, i] for i in range(n_feats)}
+        feat_cols["y"] = y
+        mlp_paths = write_columns_sharded(
+            feat_cols, tmp, n_shards=COLUMNAR_SHARDS, basename="pairs")
+        del X, y, feat_cols
+        seconds["pairs_write"] = time.perf_counter() - t0
+
+        def pair_extractor(table):
+            return (np.stack([table[f"f{i}"] for i in range(n_feats)],
+                             axis=1), table["y"])
+
+        t0 = time.perf_counter()
+        xs, ys = [], []
+        for bx, by in ShardedParquetDataset(mlp_paths, pair_extractor
+                                            ).batches(COLUMNAR_PAIR_BATCH,
+                                                      seed=1, epoch=0):
+            xs.append(bx)
+            ys.append(by)
+        x_stream, y_stream = np.concatenate(xs), np.concatenate(ys)
+        del xs, ys
+        seconds["pairs_stream"] = time.perf_counter() - t0
+        counts.reset()
+        t0 = time.perf_counter()
+        mlp = MLPTrainer(x_stream, y_stream, MLPTrainConfig(
+            epochs=50, batch_size=16384, max_seconds=COLUMNAR_MLP_SECONDS))
+        seconds["mlp_init"] = time.perf_counter() - t0
+        mlp_result = mlp.fit()
+        torch.cuda.synchronize()
+        seconds["mlp"] = time.perf_counter() - t0
+        mlp_launches = counts.read()
+        train_y = mlp.train_ds.arrays[1]
+        eval_y = mlp.eval_y.cpu().numpy()
+        mean_mae = float(np.abs(eval_y - train_y.mean()).mean())
+        if (mlp.device.type != "cuda" or any(mlp_launches.values())
+                or not (np.isfinite(mlp_result.mse)
+                        and mlp_result.mae < mean_mae)):
+            raise AssertionError(
+                f"columnar: MLP on {mlp.device}: launches {mlp_launches}, "
+                f"eval MAE {mlp_result.mae} against predict-mean "
+                f"{mean_mae}")
+        fields["mlp"] = dict(
+            rows=len(x_stream), steps=len(mlp_result.step_losses),
+            samples_per_sec=mlp_result.samples_per_sec,
+            eval_mae=mlp_result.mae, predict_mean_mae=mean_mae)
+        del mlp, mlp_result, x_stream, y_stream
+        # -- the scheduler storage's parquet export -------------------------
+        store = Storage(os.path.join(tmp, "storage"))
+        records = cluster.downloads(COLUMNAR_EXPORT_RECORDS)
+        for record in records:
+            store.create_download(record)
+        t0 = time.perf_counter()
+        exported = store.download.export_parquet(os.path.join(tmp, "export"))
+        seconds["export"] = time.perf_counter() - t0
+        csv_files = store.download.all_files()
+        from_parquet = [r for f in exported
+                        for r in read_parquet_records(Download, f)]
+        from_csv = [r for f in csv_files
+                    for r in read_csv_records(Download, f)]
+        if not (len(exported) == len(csv_files)
+                and len(from_parquet) == COLUMNAR_EXPORT_RECORDS
+                and from_parquet == from_csv):
+            raise AssertionError(
+                f"columnar: export: {len(exported)} parquet files for "
+                f"{len(csv_files)} CSV files, {len(from_parquet)} records, "
+                f"equal {from_parquet == from_csv}")
+        fields["export"] = dict(records=len(from_parquet),
+                                files=len(exported),
+                                bytes=sum(os.path.getsize(f)
+                                          for f in exported))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rates = {name: COLUMNAR_ROWS / seconds[name]
+             for name in ("generate", "write", "ingest")}
+    rates["stream"] = (COLUMNAR_ROWS - dropped) / seconds["stream"]
+    log("columnar", rows=COLUMNAR_ROWS, hosts=COLUMNAR_HOSTS,
+        shards=COLUMNAR_SHARDS, n_tiles=n_tiles,
+        seconds=seconds, rows_per_sec=rates, parquet_bytes=parquet_bytes,
+        parquet_mb_per_sec=parquet_bytes / 1e6 / seconds["write"],
+        ingested=ingested, stream_batch=COLUMNAR_STREAM_BATCH,
+        streamed=COLUMNAR_ROWS - dropped, dropped=dropped,
+        every_row_once=contained, restart_equal=restart_equal,
+        launches=launches, k2a={k: k2a[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "wrapper_ms", "max_abs_err", "shape")}, **fields)
+    return launches, k2a
+
+
 def expect_abort(service, request, code, context) -> None:
     from dragonfly2_tpu_torch.inference.sidecar import RpcAbort
 
@@ -10594,6 +11052,15 @@ def main() -> int:
     tp_launches = run_tensor_parallel(torch, graph, rows)
     run_hbm_sink_sharded(torch, card0)
 
+    # -- phase 20: the fleet benches and the columnar layer, slice 26 ------
+    fleet_launches = run_fleet_benches(counts)
+    columnar_launches, columnar_k2a = run_columnar(torch, counts)
+    rows[0]["at_columnar"] = {
+        name: columnar_k2a[name] for name in
+        ("source", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "max_abs_err", "wrapper_ms", "shape")} | {
+        "launches": columnar_launches["table_gather"]}
+
     for row in rows:
         by_path = {"serve": launches[row["name"]],
                    "train": train_launches[row["name"]],
@@ -10620,7 +11087,9 @@ def main() -> int:
                    "p2p_processes": p2p_launches[row["name"]],
                    **{path: par[row["name"]]
                       for path, par in par_launches.items()},
-                   "tensor_parallel": tp_launches[row["name"]]}
+                   "tensor_parallel": tp_launches[row["name"]],
+                   "fleet_benches": fleet_launches[row["name"]],
+                   "columnar": columnar_launches[row["name"]]}
         row["launches"] = by_path[home.get(row["name"], "serve")]
         row["launches_by_path"] = by_path
     log("total", seconds=time.perf_counter() - t_start)

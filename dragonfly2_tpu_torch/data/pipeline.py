@@ -1,5 +1,6 @@
 """Batched input pipeline with a deterministic global shuffle — port of
-``ArrayDataset`` from ``dragonfly2_tpu/data/pipeline.py``.
+``ArrayDataset`` and ``from_parquet_shards`` from
+``dragonfly2_tpu/data/pipeline.py``.
 
 Each epoch's order is a pure function of (seed, epoch), so training is
 restartable without replaying data-order state, and batches have a fixed
@@ -9,7 +10,7 @@ generators as the JAX package's, so both packages yield the same rows.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -54,3 +55,15 @@ class ArrayDataset:
             ArrayDataset(*(a[train_idx] for a in self.arrays)),
             ArrayDataset(*(a[eval_idx] for a in self.arrays)),
         )
+
+
+def from_parquet_shards(paths: Sequence[str], extractor) -> ArrayDataset:
+    """Concatenate ``extractor(table) -> (arrays...)`` across parquet
+    shards; ``table`` is the port's ``{column: ndarray}``."""
+    from dragonfly2_tpu_torch.schema.io import read_parquet
+
+    parts = [extractor(read_parquet(p)) for p in paths]
+    n_arrays = len(parts[0])
+    return ArrayDataset(
+        *(np.concatenate([p[i] for p in parts]) for i in range(n_arrays))
+    )

@@ -6,10 +6,11 @@ backups, plus open/list/clear used by the announcer to stream datasets to
 the trainer.
 
 Differences from the reference (deliberate):
-- Files are our headered CSV (readable by read_csv_records); the
-  reference's headerless format is still readable on the ingest side.
-- The JAX package's ``export_parquet`` is not part of this copy: it needs
-  pyarrow, which the port does not import.
+- Files are our headered CSV (readable by read_csv_records and convertible
+  to parquet via csv_to_parquet for the training pipeline); the reference's
+  headerless format is still readable on the ingest side.
+- ``export_parquet`` is new: the trainer consumes columnar shards, so the
+  sink can emit them directly instead of round-tripping CSV.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Iterator, List, Sequence, Type
 from dragonfly2_tpu_torch.schema import Download, NetworkTopology, ReplayDecision
 from dragonfly2_tpu_torch.schema.io import (
     CsvRecordWriter,
+    csv_to_parquet,
     read_csv_records,
 )
 
@@ -204,6 +206,16 @@ class _RotatingDataset:
             self._file_counts.clear()
             for path in self.all_files():
                 os.remove(path)
+
+    def export_parquet(self, out_dir: str) -> List[str]:
+        self.flush()
+        os.makedirs(out_dir, exist_ok=True)
+        out = []
+        for i, path in enumerate(self.all_files()):
+            dst = os.path.join(out_dir, f"{self.prefix}-{i:05d}.parquet")
+            csv_to_parquet(self.record_type, path, dst)
+            out.append(dst)
+        return out
 
 
 class Storage:

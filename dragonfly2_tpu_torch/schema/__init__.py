@@ -1,4 +1,4 @@
-"""Dataset record schemas and their CSV form — port copy of
+"""Dataset record schemas and their CSV and parquet IO — port copy of
 ``dragonfly2_tpu/schema`` without pyarrow.
 
 The records are the training-data contract between the scheduler (the
@@ -8,8 +8,8 @@ layout): ``Download`` rows train the MLP bandwidth predictor,
 piece-cost model. Lists flatten at fixed arity (the reference's
 ``csv[]:"20"`` / ``"10"`` / ``"5"`` tags), so every flattened row has a
 static width. Columnar form is a dict of numpy columns
-(``schema.io.records_to_table``); the JAX package's parquet path is not
-ported.
+(``schema.io.records_to_table``), and bulk IO is parquet through the
+port's own codec (``schema.parquet``).
 """
 
 from dragonfly2_tpu_torch.schema.records import (

@@ -25,8 +25,9 @@ the federated aggregate has seen them all):
    retrain NONE of the journaled clusters (proven by the per-fit counter
    file), and commit with quorum.
 
-The state-directory readers of the JAX module (the best recorded run and
-the regression check) wait for the port's benchmark.
+Reports persisted as ``federated_run_*.json`` in a state directory are
+read back by :func:`best_recorded_federated_run`, and
+:func:`check_federated_regression` gates a fresh run beside the best.
 """
 
 from __future__ import annotations
@@ -563,3 +564,59 @@ def run_federated_bench(*, seed: int = 0, n_decisions: int = 300,
                 except Exception:  # noqa: BLE001
                     pass
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def best_recorded_federated_run(state_dir: str):
+    """Best persisted ``federated_run_*.json``: full runs (kill rung ran)
+    beat kill-skipped ones, then larger eval corpora, then lower
+    federated regret; skip artifacts are ignored."""
+    import glob
+
+    best = None
+    for path in glob.glob(os.path.join(state_dir, "federated_run_*.json")):
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if data.get("skipped") or not data.get("verdict_pass"):
+            continue
+        fed_regret = (data.get("clean") or {}).get("federated_regret")
+        key = (1 if (data.get("kill") or {}).get("ran") else 0,
+               data.get("eval_decisions", 0),
+               -(fed_regret if fed_regret is not None else float("inf")))
+        if best is None or key > best["_key"]:
+            best = {
+                "_key": key,
+                "file": os.path.basename(path),
+                "eval_decisions": data.get("eval_decisions", 0),
+                "federated_regret": fed_regret,
+                "poisoned_regret": (data.get("poisoned") or {}).get(
+                    "regret"),
+                "kill_ran": bool((data.get("kill") or {}).get("ran")),
+            }
+    if best is not None:
+        best.pop("_key")
+    return best
+
+
+def check_federated_regression(state_dir: str,
+                               device=None) -> Dict[str, object]:
+    """A fresh (smaller, kill-rung-skipped — two subprocess cold starts
+    don't belong in a quick gate) run on ``device`` (``None``: the card)
+    must hold the stage's ABSOLUTE bounds — screens catching both
+    attacks, uplift vs best solo, poisoned regret within factor — while
+    the best record rides along for trend reading."""
+    fresh = run_federated_bench(n_decisions=200, eval_decisions=250,
+                                include_kill=False, device=device)
+    return {
+        "fresh_verdict_pass": fresh.get("verdict_pass"),
+        "fresh_clean_ok": (fresh.get("clean") or {}).get("ok"),
+        "fresh_poisoned_ok": (fresh.get("poisoned") or {}).get("ok"),
+        "fresh_screens_ok": (fresh.get("poisoned") or {}).get("screens_ok"),
+        "fresh_federated_regret": (fresh.get("clean") or {}).get(
+            "federated_regret"),
+        "fresh_error": fresh.get("error"),
+        "best_recorded": best_recorded_federated_run(state_dir),
+        "passed": bool(fresh.get("verdict_pass")),
+    }

@@ -20,13 +20,16 @@ counter declared ``traffic_bytes`` is exposed as
 ``_created`` series that ``prometheus_client`` adds are not written.
 
 ``get()`` reads a counter's or a gauge's value (or a child's, after
-``labels()``) in the process.
+``labels()``) in the process. :func:`text_string_to_metric_families`
+reads the text format back into families as ``prometheus_client.parser``
+does.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import re
 import threading
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -333,3 +336,117 @@ def generate_latest(registry: CollectorRegistry) -> bytes:
         out.append(f"# TYPE {name} {typ}\n")
         out.extend(_sample_line(s) for s in family.samples)
     return "".join(out).encode("utf-8")
+
+
+_LABEL_RE = re.compile(r'\s*([a-zA-Z_][a-zA-Z0-9_]*)\s*=\s*"((?:[^"\\]|\\.)*)"\s*,?')
+_ESCAPES = {"\\\\": "\\", "\\n": "\n", '\\"': '"'}
+
+
+def _unescape(text: str, pattern: str) -> str:
+    return re.sub(pattern, lambda m: _ESCAPES[m.group(0)], text)
+
+
+def _parse_value(text: str):
+    """A sample value as ``prometheus_client``'s parser gives it: an int
+    where the text is one, else a float."""
+    try:
+        return int(text)
+    except ValueError:
+        return float(text)
+
+
+def _parse_sample(line: str) -> Sample:
+    brace = line.find("{")
+    space = min((i for i in (line.find(" "), line.find("\t")) if i >= 0),
+                default=-1)
+    labels: Dict[str, str] = {}
+    if brace >= 0 and (space < 0 or brace < space):
+        name = line[:brace].strip()
+        pos = brace + 1
+        while True:
+            while pos < len(line) and line[pos] in " \t,":
+                pos += 1
+            if line.startswith("}", pos):
+                break
+            m = _LABEL_RE.match(line, pos)
+            if m is None:
+                raise ValueError(f"Invalid labels: {line}")
+            if m.group(1) in labels:
+                raise ValueError(f"duplicate label name: {line}")
+            labels[m.group(1)] = _unescape(m.group(2), r'\\[\\n"]')
+            pos = m.end()
+        rest = line[pos + 1:]
+    else:
+        if space < 0:
+            raise ValueError(f"no value: {line}")
+        name, rest = line[:space], line[space + 1:]
+    values = rest.split()
+    if not values:
+        raise ValueError(f"no value: {line}")
+    return Sample(name, labels, _parse_value(values[0]))
+
+
+def _family(name: str, documentation: str, typ: str,
+            samples: List[Sample]) -> Metric:
+    if typ == "counter":
+        if name.endswith("_total"):
+            name = name[:-6]
+        else:
+            samples = [Sample(s.name + "_total", s.labels, s.value)
+                       for s in samples]
+    family = Metric(name, documentation,
+                    "unknown" if typ == "untyped" else typ)
+    family.samples = samples
+    return family
+
+
+_ALLOWED_SUFFIXES = {"summary": ("_count", "_sum", ""),
+                     "histogram": ("_count", "_sum", "_bucket")}
+
+
+def text_string_to_metric_families(text: str) -> Iterable[Metric]:
+    """The families of a text-format exposition, grouped and named as
+    ``prometheus_client.parser.text_string_to_metric_families`` groups
+    and names them: a ``# HELP`` or ``# TYPE`` line opens a family, a
+    counter's family drops its ``_total`` (its samples keep it), and a
+    sample outside the open family's names is a family of its own."""
+    name, documentation, typ = "", "", "untyped"
+    samples: List[Sample] = []
+    allowed: List[str] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 3 or parts[1] not in ("HELP", "TYPE"):
+                continue
+            candidate = parts[2]
+            if parts[1] == "HELP":
+                if candidate != name:
+                    if name:
+                        yield _family(name, documentation, typ, samples)
+                    name, typ, samples = candidate, "untyped", []
+                    allowed = [candidate]
+                documentation = (_unescape(parts[3], r"\\[\\n]")
+                                 if len(parts) == 4 else "")
+            else:
+                if len(parts) < 4:
+                    raise ValueError(f"TYPE without a type: {line}")
+                if candidate != name:
+                    if name:
+                        yield _family(name, documentation, typ, samples)
+                    name, documentation, samples = candidate, "", []
+                typ = parts[3]
+                allowed = [name + suffix for suffix in
+                           _ALLOWED_SUFFIXES.get(typ, ("",))]
+        elif line:
+            sample = _parse_sample(line)
+            if sample.name in allowed:
+                samples.append(sample)
+                continue
+            if name:
+                yield _family(name, documentation, typ, samples)
+            name, documentation, typ, samples, allowed = (
+                "", "", "untyped", [], [])
+            yield _family(sample.name, "", "untyped", [sample])
+    if name:
+        yield _family(name, documentation, typ, samples)

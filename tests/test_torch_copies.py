@@ -7,14 +7,14 @@ The RPC surfaces in :data:`WIRE_COPIES` differ in one more way only:
 where JAX's code imports ``grpc`` for its status codes and error, the
 port's imports ``StatusCode`` and ``RpcError`` from ``rpc/status.py``.
 The metrics modules in :data:`PROM_COPIES` likewise differ only where
-JAX's import from ``prometheus_client`` (or its ``core`` and
-``exposition`` modules): the port's import the same names from
+JAX's import from ``prometheus_client`` (or its ``core``, ``exposition``
+and ``parser`` modules): the port's import the same names from
 ``utils/prom.py``.
 
-Modules whose port differs on purpose are not listed: the scheduler's
-dataset storage (no parquet export), the daemon's host telemetry
-(``/proc`` instead of psutil), the device sink, and the earlier slices'
-partial copies.
+Modules whose port differs on purpose are not listed: the daemon's host
+telemetry (``/proc`` instead of psutil), the device sink, the sharded
+datasets (the port's parquet codec instead of pyarrow), and the earlier
+slices' partial copies.
 """
 
 import os
@@ -66,13 +66,17 @@ COPIES = [
     "scheduler/replica.py", "client/daemon_proc.py", "cmd/dfget.py",
     "cmd/dfcache.py", "cmd/dfdaemon.py",
     "manager/jobs.py", "manager/jobplane.py", "scheduler/jobworker.py",
+    "scheduler/storage/storage.py", "tracetool.py", "cmd/tracetool.py",
+    "utils/racecheck.py", "cmd/stress.py", "client/fanoutbench.py",
+    "client/geobench.py", "scheduler/clusterbench.py",
 ]
 
 WIRE_COPIES = ["scheduler/rpcserver.py", "client/rpcserver.py"]
 
 PROM_COPIES = ["client/metrics.py", "scheduler/metrics.py",
                "trainer/metrics.py", "manager/metrics.py",
-               "utils/metricsserver.py", "utils/prombridge.py"]
+               "utils/metricsserver.py", "utils/prombridge.py",
+               "client/obsbench.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -107,8 +111,9 @@ def test_wire_copy_differs_only_in_prefix_and_status_names(path):
 
 def _prom_swapped(text: str) -> str:
     """JAX's prometheus_client imports as the port spells them."""
-    return re.sub(r"(?m)^from prometheus_client(\.core|\.exposition)? import",
-                  "from dragonfly2_tpu_torch.utils.prom import", text)
+    return re.sub(
+        r"(?m)^(\s*)from prometheus_client(\.core|\.exposition|\.parser)? "
+        r"import", r"\1from dragonfly2_tpu_torch.utils.prom import", text)
 
 
 @pytest.mark.parametrize("path", PROM_COPIES)

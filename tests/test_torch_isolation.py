@@ -224,6 +224,17 @@ def test_every_port_module_imports(probe):
         "dragonfly2_tpu_torch.scheduler.metrics",
         "dragonfly2_tpu_torch.trainer.metrics",
         "dragonfly2_tpu_torch.manager.metrics",
+        # slice 26: the fleet benches, the tools and the columnar layer
+        "dragonfly2_tpu_torch.tracetool",
+        "dragonfly2_tpu_torch.cmd.tracetool",
+        "dragonfly2_tpu_torch.cmd.stress",
+        "dragonfly2_tpu_torch.utils.racecheck",
+        "dragonfly2_tpu_torch.client.fanoutbench",
+        "dragonfly2_tpu_torch.client.geobench",
+        "dragonfly2_tpu_torch.client.obsbench",
+        "dragonfly2_tpu_torch.scheduler.clusterbench",
+        "dragonfly2_tpu_torch.schema.parquet",
+        "dragonfly2_tpu_torch.data.sharded",
     }
     assert expected <= set(probe["imported"])
 
@@ -234,6 +245,39 @@ def test_no_forbidden_module_loaded(probe, package):
     # "dragonfly2_tpu" prefix but is not that package.
     hits = [m for m in probe["modules"] if m.split(".")[0] == package]
     assert hits == [], hits
+
+
+#: Packages the card machine does not have. An import of one inside a
+#: function loads nothing at import time, so the probe above cannot see
+#: it; it would raise only when the card's run reaches it.
+ABSENT_ON_CARD = ("pyarrow", "grpc", "prometheus_client", "psutil")
+
+
+def _imported_names(path: str):
+    """(top-level module, line) of every import in ``path``, at module
+    level or inside a function."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module):
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_port_file_imports_what_the_card_lacks():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dragonfly2_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = [f"{os.path.relpath(path, REPO)}:{line} {name}"
+            for path in sorted(files)
+            for name, line in _imported_names(path)
+            if name in ABSENT_ON_CARD]
+    assert hits == []
 
 
 # Modules of the JAX package the port does not have yet, each with every
